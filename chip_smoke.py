@@ -6,14 +6,21 @@
 Phases, each printing one JSON line; any failure is an uncaught exception
 and a non-zero exit:
 
-1. device — CUDA must be present; the card's name and power limit.
-2. build  — compile the decode-attention kernel from ``src/`` with nvcc.
-3. kernel parity — the CUDA kernel against its plain PyTorch version on the
-   sweep of ``tests/test_kernels.py::test_decode_attention`` (fp32 at 2e-5,
-   bf16 at 2e-2) and at phi3-mini-3.8b's decode shape; the kernel's median
-   time there beside its HBM bound, the plain version and PyTorch's
-   ``scaled_dot_product_attention`` as a yardstick (CUDA events, L2 flushed).
-4. full-width serve — phi3-mini-3.8b, all 32 layers, bf16, random weights
+1. device -- CUDA must be present; the card's name and power limit.
+2. build -- compile the three kernel sources from ``src/`` with nvcc, one
+   process each, all at once; every kernel's registers and spills.
+3. kernel parity -- each CUDA kernel against its plain PyTorch version:
+   decode attention on the sweep of ``tests/test_kernels.py::
+   test_decode_attention`` and phi3-mini-3.8b's decode shape; flash
+   attention (forward, and the backward's dq/dk/dv) on every case of
+   ``tests/test_kernels.py:18-58`` and the training shape [2,1024,32,96];
+   swiglu (forward, and dx/dW_gate/dW_up) on the cases of ``:74-84``, a
+   ragged T and the training shape T 2048, d 3072, f 8192.  Outputs at 2e-5
+   (fp32) and 2e-2 (bf16), gradients at 1e-4 (fp32) and 2e-2 x max|ref|
+   (bf16).  Each kernel's median time at its main-path shape (CUDA events,
+   L2 flushed) beside its bound, the plain version and a PyTorch yardstick
+   (``scaled_dot_product_attention``; ``silu(x@wg) * (x@wu)``).
+4. full-width serve -- phi3-mini-3.8b, all 32 layers, bf16, random weights
    from seed 0, a hand-built 4-stage serve plan run through
    ``run_serve_plan(..., use_kernels=True)``: kernel launches counted, tokens
    bit-identical to the monolithic loop, store drained.  Then, teacher-forced
@@ -23,8 +30,22 @@ and a non-zero exit:
    within 2e-4 of the plain version's.  In bf16 the step logits are only
    reported, beside the drift a float64 attention causes: 32 bf16 layers
    amplify any change of rounding past 2e-2.
-5. reduced fp32 serve — phi3-mini-3.8b@reduced through the same entry point
+5. reduced fp32 serve -- phi3-mini-3.8b@reduced through the same entry point
    with and without the kernel: identical tokens.
+6. full-width training -- phi3-mini-3.8b at full width cut to 4 layers,
+   bf16, seed 0: 2 stages x 2 replicas, 2 micro-batches of 2 x 1024 tokens,
+   AdamW, 2 steps through ``run_plan(..., execution=Execution(...,
+   use_kernels=True))``.  Exact launch counts per step; in step 1 every
+   kernel call held against ``impl="ref"`` on its real inputs, outputs and
+   gradients; finite losses; replicas bit-identical after each step; store
+   drained; virtual clock, cost and ``StoreStats`` equal to a timing-only
+   run; the first loss within 2e-2 of the plain path's (``use_kernels=
+   False``).  Step wall time, peak memory and one profiled step.
+7. full-width fp32 training -- the same model in fp32, d = 1, SGD, 1 step,
+   kernels on and off: losses within 5e-5, every param within 1e-4.
+8. reduced training -- phi3-mini-3.8b@reduced (4 layers, fp32) on the plan of
+   ``tests/test_runtime.py:230-240``, kernels on and off: losses within
+   2e-4, params within 2e-3.
 
 The last lines are the kernels' record, the ``nvidia-smi`` name/power line
 and ``{"ok": true, "device": {...}}``.
@@ -50,13 +71,23 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.api.plan import DeploymentPlan, profile_fingerprint  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.core.perfmodel import Config  # noqa: E402
-from repro_torch.core.profiler import resolve_profile  # noqa: E402
+from repro_torch.core.profiler import arch_model_profile, resolve_profile  # noqa: E402
+from repro_torch.data.synthetic import make_batch  # noqa: E402
+from repro_torch.kernels import build as kernel_build  # noqa: E402
 from repro_torch.kernels import decode_attention as da_kernel  # noqa: E402
+from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ref as kernel_ref  # noqa: E402
+from repro_torch.kernels import swiglu as sg_kernel  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
-from repro_torch.models.common import tree_map  # noqa: E402
+from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim import SGD, AdamW  # noqa: E402
 from repro_torch.serverless.platform import get_platform  # noqa: E402
+from repro_torch.serverless.runtime import Execution, run_plan  # noqa: E402
+from repro_torch.serverless.runtime import worker as worker_mod  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     ServingSpec,
     arch_config_for_model,
@@ -77,6 +108,18 @@ SERVE = dict(batch=4, prefill_tokens=1008, new_tokens=16)   # s_ctx = 1024
 SERVE_CUTS = (8, 16, 24)       # 4 stages of 8 layers (profile: embed, 32, head)
 REDUCED = dict(batch=2, prefill_tokens=24, new_tokens=8)
 FP32_STEPS = 5                 # teacher-forced steps of the fp32 full-width check
+
+# training: flash cases of tests/test_kernels.py:18-58 (B, S, Hq, Hkv, hd,
+# causal, window), a ragged S, and the full-width train shape
+FLASH_CASES = [(2, S, Hq, Hkv, hd, True, 0) for S, Hq, Hkv, hd in (
+    (128, 4, 4, 64), (256, 8, 2, 64), (256, 4, 1, 128), (128, 2, 2, 96), (384, 8, 4, 256))]
+FLASH_CASES += [(1, 256, 4, 2, 64, True, w) for w in (64, 128, 1024)]
+FLASH_CASES += [(2, 128, 4, 4, 80, False, 0), (2, 100, 4, 2, 96, True, 0)]
+FLASH_TRAIN = (2, 1024, 32, 32, 96, True, 0)
+SWIGLU_CASES = [(256, 256, 512), (512, 512, 2048), (128, 384, 1536), (100, 256, 512)]
+SWIGLU_TRAIN = (2048, 3072, 8192)
+TRAIN = dict(n_layers=4, seq=1024, micro_batch=2, d=2, mu=2, steps=2, cut=2)
+TRAIN_REDUCED = dict(n_layers=4, seq=16, micro_batch=2, d=2, mu=2, steps=2, cut=2)
 
 
 def emit(doc: dict) -> None:
@@ -126,20 +169,28 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    da_kernel.build()
-    log = da_kernel.BUILD_INFO["compiler_log"]
-    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(a) + int(b) for a, b in re.findall(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": da_kernel.BUILD_INFO["path"], "kernels": len(regs),
-          "max_registers": max(regs, default=None),
-          "max_spill_bytes": max(spills, default=None)})
+    info = kernel_build.build_all()
+    libs = {}
+    for name, rec in info.items():
+        log = rec["compiler_log"]
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+        libs[name] = {"library": rec["path"], "seconds": rec["seconds"],
+                      "kernels": len(regs), "registers": regs,
+                      "max_registers": max(regs, default=None),
+                      "spill_bytes": spills, "max_spill_bytes": max(spills, default=None)}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": libs})
 
 
-def phase_kernel_parity(smi: str) -> dict:
-    gen = torch.Generator(device="cuda").manual_seed(3)
+def _bound(nbytes: float, flops: float, dtype) -> tuple:
+    """The least time the card could take: bytes over HBM, operations over
+    the peak rate of the inputs' type; (ms, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
+
+def _decode_parity(gen, flush) -> tuple:
     def rand(*shape, dtype):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
@@ -175,7 +226,6 @@ def phase_kernel_parity(smi: str) -> dict:
     length = C
     L = torch.tensor([length], dtype=torch.int32, device="cuda")
     mask = (torch.arange(C, device="cuda") < length).view(1, 1, 1, C)
-    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
     ms = _time_ms(lambda: da_kernel.decode_attention(q, k, v, L), flush)
     plain_ms = _time_ms(lambda: ops.decode_attention(q, k, v, L, impl="ref"), flush)
     library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
@@ -183,20 +233,179 @@ def phase_kernel_parity(smi: str) -> dict:
     esz = q.element_size()
     nbytes = 2 * B * H * length * hd * esz + 2 * q.numel() * esz   # K,V to length; q; out
     flops = 4 * B * H * length * hd                                # QK^T and PV
-    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[torch.bfloat16])
-    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / PEAK_FLOPS[torch.bfloat16] \
-        else "operations"
+    bound_ms, bound_by = _bound(nbytes, flops, torch.bfloat16)
     rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+           "bound_ms": bound_ms, "bound_by": bound_by,
            "max_abs_err": phi3_err["bfloat16@1024"]}
-    emit({"phase": "kernel_parity", "card": smi, "cases": n_cases,
-          "phi3_max_abs_err": phi3_err,
-          "timing_shape": {"B": B, "Hq": H, "Hkv": H, "hd": hd, "C": C,
-                           "length": length, "dtype": "bfloat16"},
-          "bytes": nbytes, "flops": flops,
-          "hbm_gb_per_s": nbytes / (ms * 1e-3) / 1e9,
-          "roofline_share": bound_s * 1e3 / ms, **rec})
-    return rec
+    detail = {"cases": n_cases, "phi3_max_abs_err": phi3_err,
+              "timing_shape": {"B": B, "Hq": H, "Hkv": H, "hd": hd, "C": C,
+                               "length": length, "dtype": "bfloat16"},
+              "bytes": nbytes, "flops": flops,
+              "hbm_gb_per_s": nbytes / (ms * 1e-3) / 1e9, "roofline_share": bound_ms / ms}
+    return rec, detail
+
+
+def _fwd_bwd(fn, inputs, dout):
+    """fn's output and the gradients of its inputs for cotangent ``dout``."""
+    ts = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*ts)
+    return out.detach(), torch.autograd.grad(out, ts, dout)
+
+
+def _grad_errs(grads, refs, dtype, what) -> float:
+    """Gradients at 1e-4 (fp32) and 2e-2 x max|ref| (bf16); max |err|."""
+    worst = 0.0
+    for i, (g, r) in enumerate(zip(grads, refs)):
+        err = float((g.float() - r.float()).abs().max())
+        if dtype == torch.float32:
+            ok = torch.allclose(g, r, rtol=1e-4, atol=1e-4)
+        else:
+            ok = err <= 2e-2 * float(r.float().abs().max())
+        if not ok:
+            raise AssertionError(f"{what}: gradient {i} disagrees with plain, max |err| {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def _check_kernel(kernel, plain, inputs, dout, what) -> dict:
+    dtype = inputs[0].dtype
+    out, grads = _fwd_bwd(kernel, inputs, dout)
+    ref, refs = _fwd_bwd(plain, inputs, dout)
+    return {"out": _close(out, ref, 2e-5 if dtype == torch.float32 else 2e-2, what),
+            "grad": _grad_errs(grads, refs, dtype, what)}
+
+
+def _flash_parity(gen, flush) -> tuple:
+    n_cases, train_err = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, S, Hq, Hkv, hd, causal, window in FLASH_CASES + [FLASH_TRAIN]:
+            q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+            do = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+            err = _check_kernel(
+                lambda a, b, c: ops.flash_attention(a, b, c, causal=causal, window=window),
+                lambda a, b, c: ops.flash_attention(a, b, c, causal=causal, window=window,
+                                                    impl="ref"),
+                (q, k, v), do, f"flash B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
+                f"causal={causal} window={window} {dtype}")
+            n_cases += 1
+            if (B, S, Hq, Hkv, hd, causal, window) == FLASH_TRAIN:
+                train_err[str(dtype)[6:]] = err
+    torch.cuda.synchronize()
+
+    # timing at the training shape, bf16, causal: forward and backward
+    B, S, H, _, hd, _, _ = FLASH_TRAIN
+    q, k, v, do = (torch.randn(B, S, H, hd, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=True)
+    fwd_ms = _time_ms(lambda: fa_kernel.flash_attention_fwd(q, k, v, causal=True), flush)
+    bwd_ms = _time_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+                      flush)
+    fwd_plain = _time_ms(lambda: ops.flash_attention(q, k, v, impl="ref"), flush)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    ref_out = ops.flash_attention(qg, kg, vg, impl="ref")
+    bwd_plain = _time_ms(lambda: torch.autograd.grad(ref_out, (qg, kg, vg), do,
+                                                     retain_graph=True), flush)
+    qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    fwd_lib = _time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), flush)
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (qh, kh, vh))
+    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    bwd_lib = _time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), doh,
+                                                   retain_graph=True), flush)
+
+    def fwd_bwd_lib():
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        torch.autograd.grad(out, (qs, ks, vs), doh)
+
+    fwd_bwd_lib_ms = _time_ms(fwd_bwd_lib, flush)
+    slab = B * S * H * hd * q.element_size()     # one of q, k, v, o, do, dq, dk, dv
+    pairs = B * H * S * (S + 1) // 2             # causal (q, k) pairs
+    lse_b = B * H * S * 4
+    fwd_b, fwd_f = 4 * slab + lse_b, 4 * hd * pairs            # QK^T, PV
+    bwd_b, bwd_f = 8 * slab + lse_b, 10 * hd * pairs           # S, dP, dV, dK, dQ
+    fwd_bound, fwd_by = _bound(fwd_b, fwd_f, torch.bfloat16)
+    bwd_bound, bwd_by = _bound(bwd_b, bwd_f, torch.bfloat16)
+    recs = {
+        "flash_attention": {"ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": fwd_lib,
+                            "bound_ms": fwd_bound, "bound_by": fwd_by,
+                            "max_abs_err": train_err["bfloat16"]["out"]},
+        "flash_attention_bwd": {"ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": bwd_lib,
+                                "bound_ms": bwd_bound, "bound_by": bwd_by,
+                                "max_abs_err": train_err["bfloat16"]["grad"]},
+    }
+    detail = {"cases": n_cases, "train_shape_max_abs_err": train_err,
+              "timing_shape": {"B": B, "S": S, "Hq": H, "Hkv": H, "hd": hd, "causal": True,
+                               "dtype": "bfloat16"},
+              "fwd": {"bytes": fwd_b, "flops": fwd_f, "tflop_per_s": fwd_f / fwd_ms / 1e9},
+              "bwd": {"bytes": bwd_b, "flops": bwd_f, "tflop_per_s": bwd_f / bwd_ms / 1e9},
+              "sdpa_fwd_bwd_ms": fwd_bwd_lib_ms}
+    return recs, detail
+
+
+def _swiglu_parity(gen, flush) -> tuple:
+    n_cases, train_err = 0, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for T, d, f in SWIGLU_CASES + [SWIGLU_TRAIN]:
+            x = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
+            wg, wu = ((0.05 * torch.randn(d, f, generator=gen, device="cuda")).to(dtype)
+                      for _ in range(2))
+            dout = torch.randn(T, f, generator=gen, device="cuda").to(dtype)
+            err = _check_kernel(ops.swiglu, lambda a, b, c: ops.swiglu(a, b, c, impl="ref"),
+                                (x, wg, wu), dout, f"swiglu T={T} d={d} f={f} {dtype}")
+            n_cases += 1
+            if (T, d, f) == SWIGLU_TRAIN:
+                train_err[str(dtype)[6:]] = err
+            # the backward kernel's dg/du against their plain version
+            dg, du = sg_kernel.swiglu_bwd(x, wg, wu, dout)
+            pdg, pdu = kernel_ref.swiglu_bwd_ref(x, wg, wu, dout)
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            _close(dg, pdg, tol, f"swiglu dg T={T} d={d} f={f} {dtype}")
+            _close(du, pdu, tol, f"swiglu du T={T} d={d} f={f} {dtype}")
+    torch.cuda.synchronize()
+
+    T, d, f = SWIGLU_TRAIN
+    x = torch.randn(T, d, generator=gen, device="cuda").to(torch.bfloat16)
+    wg, wu = ((0.02 * torch.randn(d, f, generator=gen, device="cuda")).to(torch.bfloat16)
+              for _ in range(2))
+    dout = torch.randn(T, f, generator=gen, device="cuda").to(torch.bfloat16)
+    fwd_ms = _time_ms(lambda: sg_kernel.swiglu_fwd(x, wg, wu), flush, reps=10)
+    bwd_ms = _time_ms(lambda: sg_kernel.swiglu_bwd(x, wg, wu, dout), flush, reps=10)
+    fwd_plain = _time_ms(lambda: ops.swiglu(x, wg, wu, impl="ref"), flush, reps=10)
+    bwd_plain = _time_ms(lambda: kernel_ref.swiglu_bwd_ref(x, wg, wu, dout), flush, reps=10)
+    fwd_lib = _time_ms(lambda: F.silu(x @ wg) * (x @ wu), flush, reps=10)
+    esz = x.element_size()
+    flops = 2 * 2 * T * d * f
+    fwd_b = (T * d + 2 * d * f + T * f) * esz
+    bwd_b = (T * d + 2 * d * f + 3 * T * f) * esz
+    fwd_bound, fwd_by = _bound(fwd_b, flops, torch.bfloat16)
+    bwd_bound, bwd_by = _bound(bwd_b, flops, torch.bfloat16)
+    recs = {
+        "swiglu": {"ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": fwd_lib,
+                   "bound_ms": fwd_bound, "bound_by": fwd_by,
+                   "max_abs_err": train_err["bfloat16"]["out"]},
+        "swiglu_bwd": {"ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": None,
+                       "bound_ms": bwd_bound, "bound_by": bwd_by,
+                       "max_abs_err": train_err["bfloat16"]["grad"]},
+    }
+    detail = {"cases": n_cases, "train_shape_max_abs_err": train_err,
+              "timing_shape": {"T": T, "d": d, "f": f, "dtype": "bfloat16"},
+              "fwd": {"bytes": fwd_b, "flops": flops, "tflop_per_s": flops / fwd_ms / 1e9},
+              "bwd": {"bytes": bwd_b, "flops": flops, "tflop_per_s": flops / bwd_ms / 1e9}}
+    return recs, detail
+
+
+def phase_kernel_parity(smi: str) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    decode, decode_detail = _decode_parity(gen, flush)
+    flash, flash_detail = _flash_parity(gen, flush)
+    swiglu, swiglu_detail = _swiglu_parity(gen, flush)
+    recs = {"decode_attention": decode, **flash, **swiglu}
+    emit({"phase": "kernel_parity", "card": smi, "kernels": recs,
+          "decode_attention": decode_detail, "flash_attention": flash_detail,
+          "swiglu": swiglu_detail})
+    return recs
 
 
 def manual_serve_plan(model: str, *, cuts, batch: int, prefill_tokens: int,
@@ -323,6 +532,11 @@ def profile_decode(cfg, params, prompt, tokens, *, s_ctx, steps=2) -> dict:
             registry.decode_step(cfg, params, caches, toks[:, t:t + 1], use_kernels=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return _profile_summary(prof, wall, steps)
+
+
+def _profile_summary(prof, wall: float, steps: int) -> dict:
+    """Device busy and idle share, the top kernels and host ops per step."""
     events = prof.key_averages()
 
     def dev_us(e):
@@ -417,17 +631,380 @@ def phase_serve_reduced(smi: str) -> None:
           "t_request_virtual_s": with_kernel.t_request})
 
 
+# ---------------------------------------------------------------- training
+def train_setup(cfg, spec: dict, d=None):
+    """The training plan of a phase: ``arch_model_profile`` at the phase's
+    sequence and micro-batch, cut after profile layer ``cut`` (embed and the
+    first layers on stage 0, the rest and the head on stage 1)."""
+    plat = get_platform("aws")
+    prof = arch_model_profile(cfg, plat, seq=spec["seq"], micro_batch=spec["micro_batch"])
+    x = tuple(1 if i == spec["cut"] else 0 for i in range(prof.L - 1))
+    d = spec["d"] if d is None else d
+    return prof, plat, Config(x=x, d=d, z=(0,) * prof.L), d * spec["mu"]
+
+
+def train_batches(cfg, spec: dict, d: int, steps: int) -> list:
+    """Global batches of d x mu micro-batches, made from seed 0 on the host
+    and moved to the card once."""
+    shape = InputShape("train", spec["seq"], d * spec["mu"] * spec["micro_batch"], "train")
+    return [{k: v.cuda() for k, v in make_batch(cfg, shape, seed=0, step=k,
+                                                device="cpu").items()}
+            for k in range(steps)]
+
+
+class TrackedWorker(worker_mod.StageWorker):
+    """A StageWorker that records itself, so the smoke run can compare the
+    replicas of each stage between steps."""
+
+    instances: list = []
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        TrackedWorker.instances.append(self)
+
+
+@contextlib.contextmanager
+def tracked_workers():
+    real = worker_mod.StageWorker
+    TrackedWorker.instances = []
+    worker_mod.StageWorker = TrackedWorker
+    try:
+        yield TrackedWorker.instances
+    finally:
+        worker_mod.StageWorker = real
+        TrackedWorker.instances = []
+
+
+def replicas_identical(workers) -> bool:
+    by_stage: dict = {}
+    for w in workers:
+        by_stage.setdefault(w.span.index, []).append(w)
+    for ws in by_stage.values():
+        ref = tree_leaves(ws[0].export_state())
+        for w in ws[1:]:
+            if not all(torch.equal(a, b) for a, b in zip(ref, tree_leaves(w.export_state()))):
+                return False
+    return True
+
+
+class CallChecker:
+    """Routes ``ops.flash_attention`` and ``ops.swiglu`` through checks for
+    one step: each call launches the kernel as the model asked, and its
+    output is held against ``impl="ref"`` on the same inputs; hooks on the
+    output and on the inputs hold the kernel's gradients against autograd
+    of the plain version for the cotangent that arrives."""
+
+    def __init__(self):
+        self.real = {"flash_attention": ops.flash_attention, "swiglu": ops.swiglu}
+        self.calls = {"flash_attention": 0, "swiglu": 0}
+        self.grads = {"flash_attention": 0, "swiglu": 0}
+        self.out_err = {"flash_attention": 0.0, "swiglu": 0.0}
+        self.grad_err = {"flash_attention": 0.0, "swiglu": 0.0}
+        self.failures: list = []
+
+    def _check(self, name, plain, inputs, out):
+        ref = plain(*(t.detach() for t in inputs))
+        err = float((out.detach().float() - ref.float()).abs().max())
+        self.calls[name] += 1
+        self.out_err[name] = max(self.out_err[name], err)
+        if not torch.allclose(out.detach().float(), ref.float(), rtol=2e-2, atol=2e-2):
+            self.failures.append(f"{name} output, max |err| {err}")
+        if not out.requires_grad:
+            return
+        frozen = [t.detach() for t in inputs]
+        refs = {}
+
+        def on_dout(dout):
+            ts = [t.clone().requires_grad_() for t in frozen]
+            with torch.enable_grad():
+                refs["grads"] = torch.autograd.grad(plain(*ts), ts, dout)
+
+        def on_grad(g, i):
+            r = refs["grads"][i]
+            err = float((g.float() - r.float()).abs().max())
+            self.grads[name] += 1
+            self.grad_err[name] = max(self.grad_err[name], err)
+            if err > 2e-2 * float(r.float().abs().max()):
+                self.failures.append(f"{name} gradient {i}, max |err| {err}")
+
+        out.register_hook(on_dout)
+        for i, t in enumerate(inputs):
+            if t.requires_grad:
+                t.register_hook(lambda g, i=i: on_grad(g, i))
+
+    def flash_attention(self, q, k, v, *, causal=True, window=0, impl="auto"):
+        real = self.real["flash_attention"]
+        out = real(q, k, v, causal=causal, window=window, impl=impl)
+        self._check("flash_attention",
+                    lambda a, b, c: real(a, b, c, causal=causal, window=window, impl="ref"),
+                    (q, k, v), out)
+        return out
+
+    def swiglu(self, x, w_gate, w_up, *, impl="auto"):
+        real = self.real["swiglu"]
+        out = real(x, w_gate, w_up, impl=impl)
+        self._check("swiglu", lambda a, b, c: real(a, b, c, impl="ref"),
+                    (x, w_gate, w_up), out)
+        return out
+
+    def install(self):
+        ops.flash_attention, ops.swiglu = self.flash_attention, self.swiglu
+
+    def remove(self):
+        ops.flash_attention, ops.swiglu = self.real["flash_attention"], self.real["swiglu"]
+
+
+def phase_train_full(smi: str) -> dict:
+    spec = TRAIN
+    torch.use_deterministic_algorithms(True)   # replicas must stay bit-identical
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), n_layers=spec["n_layers"])
+    torch.cuda.empty_cache()
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    prof, plat, config, M = train_setup(cfg, spec)
+    d, mu, steps = spec["d"], spec["mu"], spec["steps"]
+    batches = train_batches(cfg, spec, d, steps)
+    per_step = d * mu * cfg.n_layers
+    checker = CallChecker()
+    marks, counts = [], []
+
+    def batch_fn(k):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(ops.launch_counts())
+        if k > 0:
+            checker.remove()
+            replicas_ok.append(replicas_identical(workers))
+        else:
+            checker.install()
+        return batches[k]
+
+    replicas_ok: list = []
+    execution = Execution(cfg=cfg, optimizer=AdamW(lr=1e-4), init_params=params,
+                          batch_fn=batch_fn, use_kernels=True, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        with tracked_workers() as workers:
+            res = run_plan(prof, plat, config, M, steps=steps, pipelined_sync=True,
+                           execution=execution)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            counts.append(ops.launch_counts())
+            replicas_ok.append(replicas_identical(workers))
+    finally:
+        checker.remove()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts[-1]
+
+    step_counts = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
+    expect = {"decode_attention": 0, "flash_attention": per_step,
+              "flash_attention_bwd": per_step, "swiglu": per_step, "swiglu_bwd": per_step}
+    if any(c != expect for c in step_counts):
+        raise AssertionError(f"launches per step {step_counts}, expected {expect}")
+    if checker.failures:
+        raise AssertionError(f"kernel calls disagree with impl='ref': {checker.failures[:5]}")
+    want_calls = {"flash_attention": per_step, "swiglu": per_step}
+    want_grads = {"flash_attention": 3 * per_step, "swiglu": 3 * per_step}
+    if checker.calls != want_calls or checker.grads != want_grads:
+        raise AssertionError(f"checked {checker.calls} calls and {checker.grads} gradients, "
+                             f"expected {want_calls} and {want_grads}")
+    if not all(np.isfinite(res.losses)):
+        raise AssertionError(f"non-finite losses {res.losses}")
+    if not all(replicas_ok) or len(replicas_ok) != steps:
+        raise AssertionError(f"replicas differ after a step: {replicas_ok}")
+    timing = run_plan(prof, plat, config, M, steps=steps, pipelined_sync=True)
+    same = (timing.t_iter == res.t_iter and timing.t_total == res.t_total
+            and timing.cost == res.cost
+            and timing.store_stats.as_dict() == res.store_stats.as_dict())
+    if not same:
+        raise AssertionError(f"numeric run's clock {res.t_iter} / {res.cost} differs from the "
+                             f"timing-only run's {timing.t_iter} / {timing.cost}")
+    losses, store, t_iter = res.losses, res.store_stats.as_dict(), res.t_iter
+    del res, timing
+    # the same two steps on the plain path: the first loss (no update yet)
+    # agrees at bf16's tolerance; the second shows what AdamW's first step
+    # does at this width with either path
+    plain = run_plan(prof, plat, config, M, steps=steps, pipelined_sync=True,
+                     execution=dataclasses.replace(execution, batch_fn=lambda k: batches[k],
+                                                   use_kernels=False))
+    losses_plain = plain.losses
+    del plain
+    if abs(losses[0] - losses_plain[0]) > 2e-2:
+        raise AssertionError(f"first loss {losses[0]} on the kernel path, "
+                             f"{losses_plain[0]} on the plain path")
+    profile = profile_train_step(cfg, prof, plat, config, M, params, batches)
+    emit({"phase": "train_full", "card": smi, "model": "phi3-mini-3.8b",
+          "dtype": cfg.param_dtype, "n_layers": cfg.n_layers, "params": n_params,
+          "stages": 2, "d": d, "mu": mu, "micro_batch": spec["micro_batch"],
+          "seq": spec["seq"], "steps": steps, "optimizer": "AdamW(lr=1e-4)",
+          "losses": losses, "losses_plain_path": losses_plain,
+          "t_iter_virtual_s": t_iter, "store": store,
+          "launches_per_step": step_counts, "kernel_launches": launches,
+          "checked_calls": checker.calls, "checked_gradients": checker.grads,
+          "call_max_abs_err": checker.out_err, "grad_max_abs_err": checker.grad_err,
+          "replicas_bit_identical": replicas_ok, "store_drained": True,
+          "clock_equals_timing_only": True,
+          "step_wall_s": [b - a for a, b in zip(marks, marks[1:])],
+          "max_memory_allocated_bytes": peak, "train_profile": profile})
+    del params, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_train_step(cfg, prof, plat, config, M, params, batches) -> dict:
+    """Where a training step's time goes: a second run of the same plan,
+    with ``torch.profiler`` over its second step only."""
+    from torch.profiler import ProfilerActivity, profile
+
+    window = {}
+
+    def batch_fn(k):
+        if k == 1:
+            torch.cuda.synchronize()
+            window["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            window["prof"].start()
+            window["t0"] = time.perf_counter()
+        return batches[k]
+
+    run_plan(prof, plat, config, M, steps=2, pipelined_sync=True,
+             execution=Execution(cfg=cfg, optimizer=AdamW(lr=1e-4), init_params=params,
+                                 batch_fn=batch_fn, use_kernels=True, device="cuda"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - window["t0"]
+    window["prof"].stop()
+    return _profile_summary(window["prof"], wall, 1)
+
+
+def _max_param_diff(a: dict, b: dict) -> float:
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@contextlib.contextmanager
+def training_kernels_as_plain():
+    """Route ``ops.flash_attention`` and ``ops.swiglu`` to their plain
+    versions (``impl="ref"``) on the card: the kernel path's own arithmetic
+    without the kernels."""
+    real = ops.flash_attention, ops.swiglu
+    ops.flash_attention = lambda *a, **k: real[0](*a, **{**k, "impl": "ref"})
+    ops.swiglu = lambda *a, **k: real[1](*a, **{**k, "impl": "ref"})
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.swiglu = real
+
+
+def train_routes(cfg, spec, optimizer, params, *, d: int, steps: int, routes) -> dict:
+    """One run_plan per route on the same params and batches: "kernel"
+    (``use_kernels=True``), "kernel_plain" (the same path with the kernels'
+    plain versions) and "plain" (``use_kernels=False``)."""
+    prof, plat, config, M = train_setup(cfg, spec, d=d)
+    batches = train_batches(cfg, spec, d, steps)
+    per_run = d * spec["mu"] * cfg.n_layers * steps
+    out = {}
+    for route in routes:
+        ops.reset_launch_counts()
+        ctx = training_kernels_as_plain() if route == "kernel_plain" else contextlib.nullcontext()
+        with ctx:
+            res = run_plan(prof, plat, config, M, steps=steps, execution=Execution(
+                cfg=cfg, optimizer=optimizer, init_params=params,
+                batch_fn=lambda k: batches[k], use_kernels=route != "plain", device="cuda"))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = per_run if route == "kernel" else 0
+        if any(v != (want if k != "decode_attention" else 0) for k, v in counts.items()):
+            raise AssertionError(f"route {route}: launches {counts}, expected {want} each")
+        out[route] = (res.losses, res.params, counts)
+        del res
+    return out
+
+
+def _diff(routes: dict, a: str, b: str) -> dict:
+    (la, pa, _), (lb, pb, _) = routes[a], routes[b]
+    return {"loss_max_abs_diff": max(abs(x - y) for x, y in zip(la, lb)),
+            "param_max_abs_diff": _max_param_diff(pa, pb)}
+
+
+def phase_train_fp32(smi: str) -> None:
+    """Full width in fp32: the kernel path within 5e-5 (losses) and 1e-4
+    (params) of the plain path after one SGD step (tests/test_runtime.py:
+    286-288)."""
+    spec = TRAIN
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), n_layers=spec["n_layers"],
+                              param_dtype="float32")
+    torch.cuda.empty_cache()
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    t0 = time.perf_counter()
+    routes = train_routes(cfg, spec, SGD(lr=0.05), params, d=1, steps=1,
+                          routes=("kernel", "plain"))
+    rec = _diff(routes, "kernel", "plain")
+    if rec["loss_max_abs_diff"] > 5e-5 or rec["param_max_abs_diff"] > 1e-4:
+        raise AssertionError(f"fp32 kernel path disagrees with the plain path: {rec}")
+    emit({"phase": "train_fp32", "card": smi, "model": "phi3-mini-3.8b", "dtype": "float32",
+          "n_layers": cfg.n_layers, "d": 1, "mu": spec["mu"], "steps": 1,
+          "optimizer": "SGD(lr=0.05)", "wall_s": time.perf_counter() - t0,
+          "losses_kernel": routes["kernel"][0], "losses_plain": routes["plain"][0],
+          "kernel_launches": routes["kernel"][2], **rec})
+    del routes
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_train_reduced(smi: str) -> None:
+    """phi3-mini-3.8b@reduced with 4 layers, fp32, on the plan of
+    tests/test_runtime.py:230-240, AdamW(1e-2), 2 steps.  The kernel path
+    holds 2e-4 on losses and 2e-3 on params against the same path with the
+    kernels' plain versions, and 2e-4 on losses against ``use_kernels=False``.
+    Against that plain path the params are reported, not held: it computes
+    attention in another order (scale after the score product), and AdamW
+    turns an element whose gradient is near 0 into a step of up to lr either
+    way, so the two plain routes differ by 4.3e-3 in the embedding on the CPU
+    already, where no kernel runs."""
+    spec = TRAIN_REDUCED
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b").reduced(),
+                              n_layers=spec["n_layers"])
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    routes = train_routes(cfg, spec, AdamW(lr=1e-2), params, d=spec["d"],
+                          steps=spec["steps"], routes=("kernel", "kernel_plain", "plain"))
+    vs_own = _diff(routes, "kernel", "kernel_plain")
+    vs_plain = _diff(routes, "kernel", "plain")
+    if vs_own["loss_max_abs_diff"] > 2e-4 or vs_own["param_max_abs_diff"] > 2e-3 \
+            or vs_plain["loss_max_abs_diff"] > 2e-4:
+        raise AssertionError(f"reduced kernel path disagrees: vs its plain versions {vs_own}, "
+                             f"vs the plain path {vs_plain}")
+    emit({"phase": "train_reduced", "card": smi, "model": "phi3-mini-3.8b@reduced",
+          "dtype": cfg.param_dtype, "n_layers": cfg.n_layers, "d": spec["d"],
+          "mu": spec["mu"], "steps": spec["steps"], "optimizer": "AdamW(lr=1e-2)",
+          "losses": {r: v[0] for r, v in routes.items()},
+          "kernel_launches": routes["kernel"][2],
+          "kernel_vs_kernel_plain": vs_own, "kernel_vs_plain": vs_plain})
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
-    rec = phase_kernel_parity(smi)
-    launches = phase_serve_full(smi)
+    recs = phase_kernel_parity(smi)
+    launches = {"decode_attention": phase_serve_full(smi)}
     phase_serve_reduced(smi)
-    emit({"kernels": [{
-        "name": "decode_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
-        "replaces": "src/repro/kernels/decode_attention.py:68",
-        "launches": launches, **rec}]})
+    launches.update({k: v for k, v in phase_train_full(smi).items()
+                     if k != "decode_attention"})
+    phase_train_fp32(smi)
+    phase_train_reduced(smi)
+    source = "src/repro_torch/kernels/csrc/{}.cu"
+    tpu = {"decode_attention": "src/repro/kernels/decode_attention.py:68",
+           "flash_attention": "src/repro/kernels/flash_attention.py:83",
+           "swiglu": "src/repro/kernels/swiglu.py:57"}
+    kernels = []
+    for name, rec in recs.items():
+        base = name.removesuffix("_bwd")
+        kernels.append({"name": name, "route": "cuda", "source": source.format(base),
+                        "replaces": tpu[base], "launches": launches[name], **rec})
+    emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

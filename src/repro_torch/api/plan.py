@@ -4,8 +4,9 @@ A :class:`DeploymentPlan` saved by the JAX package (``repro serve ... -o
 plan.json``, ``DeploymentPlan.save``) loads here field for field and
 resolves against the port's own profiler, checked by the same profile
 fingerprint, so one JSON drives both packages.  The port executes serve
-plans (``repro_torch.serving.run_serve_plan``); training-plan execution,
-merged profiles and measured profiles are not ported yet.
+plans (``repro_torch.serving.run_serve_plan``) and training plans
+(``repro_torch.serverless.runtime.engine.run_plan``); merged and measured
+profiles are not ported yet.
 """
 from __future__ import annotations
 
@@ -164,8 +165,9 @@ class DeploymentPlan:
                 "yet: ROADMAP port queue item 3 (tracing and calibration)")
         if self.merge_to is not None:
             raise NotImplementedError(
-                "merged profiles (merge_to) belong to training plans, not "
-                "ported yet: ROADMAP port queue item 1 (training slice)")
+                "merged profiles (merge_to, core.partition.merge_layers) are "
+                "not ported yet: ROADMAP port queue item 4 (planners and "
+                "simulator)")
         try:
             profile = resolve_profile(self.model, platform, seq=self.seq,
                                       micro_batch=self.micro_batch)

@@ -119,6 +119,14 @@ class ArchConfig:
         )
 
 
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
 def validate(cfg: ArchConfig) -> None:
     if cfg.n_periods < 1:
         raise ValueError(f"{cfg.name}: no layers")

@@ -1,0 +1,53 @@
+"""Deterministic synthetic token batches (``repro.data.synthetic`` in torch).
+
+A batch is a pure function of (seed, step, shard), so every data-parallel
+worker can regenerate its own shard with no host coordination: the global
+batch is [global_batch, seq] and shard w of n takes rows [w*B/n, (w+1)*B/n).
+Tokens follow the JAX package's Zipf(1.2) unigram law, drawn from a
+``torch.Generator``: the distribution matches ``jax.random``'s, the bits do
+not, so parity tests feed both packages batches made by one of them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import OTHER_FAMILIES, ArchConfig, InputShape
+from repro_torch.models.common import resolve_device
+
+ZIPF_S = 1.2  # token unigram skew: a learnable signal
+
+
+def zipf_probs(vocab: int, device=None) -> torch.Tensor:
+    ranks = torch.arange(1, vocab + 1, dtype=torch.float64, device=device)
+    p = ranks ** -ZIPF_S
+    return (p / p.sum()).float()
+
+
+def sample_tokens(gen: torch.Generator, shape, vocab: int) -> torch.Tensor:
+    n = int(np.prod(shape))
+    idx = torch.multinomial(zipf_probs(vocab, gen.device), n, replacement=True,
+                            generator=gen)
+    return idx.reshape(tuple(shape)).to(torch.int32)
+
+
+def make_batch(cfg: ArchConfig, shape: InputShape, *, seed: int = 0, step: int = 0,
+               shard: int = 0, n_shards: int = 1, global_batch: Optional[int] = None,
+               seq_len: Optional[int] = None, device="cuda") -> dict:
+    """A ``kind="train"`` batch for a token LM: {"tokens", "labels"} [B, S]
+    int32 (labels are the tokens: the next-token objective shifts them)."""
+    if shape.kind != "train" or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{shape.kind!r} batches / frontend {cfg.frontend!r}: the port makes "
+            f"train batches of token LMs; {OTHER_FAMILIES}")
+    B_g = global_batch if global_batch is not None else shape.global_batch
+    S = seq_len if seq_len is not None else shape.seq_len
+    if B_g % n_shards:
+        raise ValueError(f"global batch {B_g} does not split into {n_shards} shards")
+    dev = resolve_device(device)
+    key = int(np.random.SeedSequence([seed, step, shard]).generate_state(1)[0])
+    gen = torch.Generator(device=dev).manual_seed(key)
+    tokens = sample_tokens(gen, (B_g // n_shards, S), cfg.vocab_size)
+    return {"tokens": tokens, "labels": tokens}

@@ -1,84 +1,28 @@
-"""CUDA flash-decode for Hopper: build, bind and launch.
+"""CUDA flash-decode for Hopper: bind and launch.
 
 The kernel (``csrc/decode_attention.cu``) replaces the Pallas TPU kernel
-``repro.kernels.decode_attention.decode_attention``.  It is compiled with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface and
-bound with ``ctypes``: the source includes no PyTorch header, so the build
-takes seconds.  The library is built on first use into ``build/torch_kernels/``
-at the root of the checkout, named by a hash of the source, so an edited
-source is rebuilt and concurrent builds never load a half-written file.
+``repro.kernels.decode_attention.decode_attention``.  ``kernels.build``
+compiles it for ``sm_90a`` on first use and binds it with ``ctypes``.
 
 ``LAUNCHES`` counts the kernel's launches (and nothing else), so a run can
 show that its decode path went through the kernel.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
-
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+from repro_torch.kernels import build as _build
+
 HEAD_DIMS = (64, 96, 128, 256)
-NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: number of kernel launches since the last reset (see ``kernels.ops``)
 LAUNCHES = 0
 
-_LIB = None
-#: what the last build did: library path, seconds, and ptxas's report
-BUILD_INFO: dict = {}
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
-        "decode-attention kernel is compiled on the machine with the card")
-
-
-def build() -> ctypes.CDLL:
+def build():
     """Compile (if needed) and load the kernel library; idempotent."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    lib_path = BUILD_DIR / f"libdecode_attention_{tag}.so"
-    t0 = time.perf_counter()
-    log = ""
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{log[-4000:]}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.repro_decode_attention
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    BUILD_INFO.update(path=str(lib_path), seconds=time.perf_counter() - t0,
-                      compiler_log=log)
-    _LIB = lib
-    return lib
+    return _build.load("decode_attention", {
+        "repro_decode_attention": [_build.P] * 5 + [_build.I] * 6 + [_build.F, _build.P]})
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -119,11 +63,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     lib = build()
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             length.data_ptr(), out.data_ptr(), B, Hkv, Hq // Hkv, C, hd,
-            _DTYPES[q.dtype], hd ** -0.5, stream)
+            _DTYPES[q.dtype], hd ** -0.5, _build.stream_of(q))
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
     LAUNCHES += 1

@@ -1,0 +1,127 @@
+"""CUDA flash attention for Hopper, forward and backward: bind and launch.
+
+The kernels (``csrc/flash_attention.cu``) replace the Pallas TPU kernel
+``repro.kernels.flash_attention.flash_attention`` and give it the backward
+the Pallas kernel lacks.  :func:`flash_attention` is the differentiable
+entry: a ``torch.autograd.Function`` whose forward launches the forward
+kernel (output and row log-sum-exp) and whose backward launches the
+backward kernel.  Positions are ``arange(S)``, as on the Pallas path.
+
+``LAUNCHES`` and ``BWD_LAUNCHES`` count the forward and backward launches
+(one backward call launches its dK/dV and dQ passes from one C call).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build as _build
+
+HEAD_DIMS = (64, 80, 96, 128, 256)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: launches since the last reset (see ``kernels.ops``)
+LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+
+def build():
+    """Compile (if needed) and load the kernel library; idempotent."""
+    P, I, F = _build.P, _build.I, _build.F
+    return _build.load("flash_attention", {
+        "repro_flash_attention_fwd": [P] * 5 + [I] * 8 + [F, P],
+        "repro_flash_attention_bwd": [P] * 9 + [I] * 8 + [F, P],
+    })
+
+
+def _check(q, k, v, *rest) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(
+            f"expected q [B,S,Hq,hd] and k/v [B,S,Hkv,hd], got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, S, Hq, hd = q.shape
+    Bk, Sk, Hkv, hdk = k.shape
+    if (Bk, Sk, hdk) != (B, S, hd) or Hkv <= 0 or Hq % Hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v)):
+        raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: expected one of "
+                         "float32, bfloat16 for all three")
+    tensors = (q, k, v, *rest)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_attention's tensors must be contiguous")
+    dev = q.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("flash_attention's tensors must be on one CUDA device")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0):
+    """Launch the forward kernel: q [B,S,Hq,hd], k/v [B,S,Hkv,hd] ->
+    (o like q, lse [B,Hq,S] fp32)."""
+    global LAUNCHES
+    _check(q, k, v)
+    B, S, Hq, hd = q.shape
+    lib = build()
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.repro_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            B, S, Hq, k.shape[2], hd, _DTYPES[q.dtype], int(causal), int(window),
+            hd ** -0.5, _build.stream_of(q))
+    if err != 0:
+        raise RuntimeError(f"flash_attention forward launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0):
+    """Launch the backward kernel -> (dq, dk, dv)."""
+    global BWD_LAUNCHES
+    _check(q, k, v, o, lse, do)
+    B, S, Hq, hd = q.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} "
+                         f"{do.dtype} must match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, Hq, S) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be [B,Hq,S] float32, got {tuple(lse.shape)} {lse.dtype}")
+    lib = build()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, S, Hq, k.shape[2], hd, _DTYPES[q.dtype], int(causal), int(window),
+            hd ** -0.5, _build.stream_of(q))
+    if err != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: cudaError {err}")
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel pair as one differentiable op; the backward recomputes P
+    from the saved row log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Differentiable flash attention on one CUDA device (positions
+    ``arange(S)``); output like q."""
+    return FlashAttention.apply(q, k, v, bool(causal), int(window))

@@ -7,26 +7,61 @@ the hand-written kernel, which launches or raises (there is no fallback).
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import swiglu as _sg
 
 IMPLS = ("auto", "ref")
 
 
-def decode_attention(q, k_cache, v_cache, length, *, impl: str = "auto"):
+def _plain(impl: str, t) -> bool:
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
-    if impl == "ref" or q.device.type == "cpu":
+    return impl == "ref" or t.device.type == "cpu"
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    impl: str = "auto"):
+    """q [B,S,Hq,hd], k/v [B,S,Hkv,hd] -> [B,S,Hq,hd], differentiable.  The
+    kernel takes no positions and assumes ``arange(S)``, as the Pallas path
+    does; so does the plain version here."""
+    if _plain(impl, q):
+        return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def swiglu(x, w_gate, w_up, *, impl: str = "auto"):
+    """silu(x @ w_gate) * (x @ w_up) over the last axis of x, differentiable.
+    The kernel takes any number of rows."""
+    orig = x.shape
+    x2 = x.reshape(-1, orig[-1])
+    if _plain(impl, x):
+        out = _ref.swiglu_ref(x2, w_gate, w_up)
+    else:
+        out = _sg.swiglu(x2, w_gate, w_up)
+    return out.reshape(*orig[:-1], w_gate.shape[1])
+
+
+def decode_attention(q, k_cache, v_cache, length, *, impl: str = "auto"):
+    if _plain(impl, q):
         return _ref.decode_attention_ref(q, k_cache, v_cache, length)
     return _da.decode_attention(q, k_cache, v_cache, length)
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {"decode_attention": _da.LAUNCHES}
+    """Kernel launches since the last :func:`reset_launch_counts`, backward
+    launches apart."""
+    return {"decode_attention": _da.LAUNCHES,
+            "flash_attention": _fa.LAUNCHES,
+            "flash_attention_bwd": _fa.BWD_LAUNCHES,
+            "swiglu": _sg.LAUNCHES,
+            "swiglu_bwd": _sg.BWD_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     _da.LAUNCHES = 0
+    _fa.LAUNCHES = _fa.BWD_LAUNCHES = 0
+    _sg.LAUNCHES = _sg.BWD_LAUNCHES = 0
 
 
 def decode_attention_capable(*, n_q_heads: int, n_kv_heads: int,

@@ -6,6 +6,56 @@ what ``chip_smoke.py`` holds each CUDA kernel against on the card.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+
+def flash_attention_ref(
+    q: torch.Tensor,   # [B, S, Hq, hd]
+    k: torch.Tensor,   # [B, S, Hkv, hd]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int = 0,
+    positions=None,    # [S]; arange(S) when None
+) -> torch.Tensor:
+    """Full-sequence GQA attention at the Pallas kernel's arithmetic: q
+    scaled by hd^-0.5 in fp32, fp32 scores and softmax, masked scores at
+    -1e30, output cast to q's dtype.  Autograd through it is the plain
+    backward."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    pos = positions if positions is not None else torch.arange(S, device=q.device)
+    qg = (q.float() * hd**-0.5).reshape(B, S, Hkv, G, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
+    if causal:
+        allow = pos[None, :] <= pos[:, None]
+        if window:
+            allow &= pos[None, :] > (pos[:, None] - window)
+        s = torch.where(allow, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(B, S, Hq, hd).to(q.dtype)
+
+
+def swiglu_ref(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor) -> torch.Tensor:
+    """x [T, d] @ {w_gate, w_up} [d, f] -> silu(x wg) * (x wu), in fp32,
+    cast to x's dtype."""
+    xf = x.float()
+    g = xf @ w_gate.float()
+    u = xf @ w_up.float()
+    return (F.silu(g) * u).to(x.dtype)
+
+
+def swiglu_bwd_ref(x, w_gate, w_up, dout):
+    """The swiglu backward kernel's function: g and u recomputed in fp32,
+    then dg = dout * u * silu'(g) and du = dout * silu(g) in x's dtype (the
+    chain rule's three matrix products follow it in ``kernels.swiglu``)."""
+    xf = x.float()
+    g, u = xf @ w_gate.float(), xf @ w_up.float()
+    sig = torch.sigmoid(g)
+    dy = dout.float()
+    return (dy * u * sig * (1 + g * (1 - sig))).to(x.dtype), (dy * g * sig).to(x.dtype)
 
 
 def decode_attention_ref(

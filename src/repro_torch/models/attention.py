@@ -1,5 +1,11 @@
 """Grouped-query attention with RoPE and KV caches (``repro.models.attention``
-in torch): the serving slice's prefill and one-token decode.
+in torch): the training forward, prefill and one-token decode.
+
+The training forward's plain path is the JAX package's: a score einsum in
+the activations' dtype, then an fp32 softmax; from 4096 tokens on, the
+blockwise online-softmax attention.  ``use_kernels=True`` routes it through
+``kernels.ops.flash_attention`` (the CUDA kernel on a card, its plain
+version on the CPU).
 
 Decode supports the JAX package's two cache layouts:
   * append cache [B, Hkv, S_ctx, hd] (global-attention layers);
@@ -23,9 +29,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.models.common import apply_rope, dense_init
 
-BLOCKWISE_THRESHOLD = 4_096  # the JAX package's O(S*block) attention from here on
-BLOCKWISE = ("prompts of >= 4096 tokens use the blockwise attention, not ported "
-             "yet: ROADMAP port queue item 1 (training slice)")
+BLOCKWISE_THRESHOLD = 4_096  # O(S*block) attention at and above this length
+Q_BLOCK = 512
+K_BLOCK = 1024
 
 
 # ------------------------------------------------------------------ parameters
@@ -91,21 +97,74 @@ def cache_capacity(spec: LayerSpec, s_ctx: int) -> int:
     return s_ctx
 
 
-# --------------------------------------------------------------------- prefill
-def attn_prefill(p: dict, x: torch.Tensor, *, cfg: ArchConfig, spec: LayerSpec,
-                 positions: torch.Tensor, capacity: Optional[int] = None):
-    """Full-sequence forward that also returns the KV cache for decoding.
-    Window layers keep only the trailing ``window`` keys (ring layout with the
-    cursor at S % W so subsequent decode writes continue the ring).  Global
-    layers pad the cache out to ``capacity`` (the serving context length) so
-    decode has room to append."""
+# ------------------------------------------------------- blockwise (flash) path
+def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         positions: torch.Tensor, causal: bool, window: int) -> torch.Tensor:
+    """Online-softmax attention over (q-block, k-block) tiles in fp32, the
+    plain twin of the flash kernel.  q [B,S,Hq,hd], k/v [B,S,Hkv,hd].
+    Sliding-window layers read only the in-window keys of each q block, so
+    their work scales with S*window rather than S^2."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    QB = min(Q_BLOCK, S)
+    if S % QB:
+        raise ValueError(f"sequence {S} is not a multiple of the q block {QB}")
+    nqb = S // QB
+    qg = q.reshape(B, S, Hkv, G, hd).float() * hd**-0.5
+    kf, vf = k.float(), v.float()
+    outs = []
+
+    if window:
+        # pad keys by the window so each q block sees exactly [qs-W, qs+QB)
+        W = window
+        kp = torch.nn.functional.pad(kf, (0, 0, 0, 0, W, 0))
+        vp = torch.nn.functional.pad(vf, (0, 0, 0, 0, W, 0))
+        pp = torch.nn.functional.pad(positions, (W, 0), value=-1)
+        for i in range(nqb):
+            qs = i * QB
+            qb = qg[:, qs:qs + QB]
+            qpos = positions[qs:qs + QB]
+            kb, vb, kpos = kp[:, qs:qs + W + QB], vp[:, qs:qs + W + QB], pp[qs:qs + W + QB]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb)
+            allow = (kpos[None, :] <= qpos[:, None]) & (
+                kpos[None, :] > qpos[:, None] - W) & (kpos >= 0)[None, :]
+            s = torch.where(allow, s, -1e30)
+            p = torch.softmax(s, dim=-1)
+            outs.append(torch.einsum("bhgqk,bkhd->bqhgd", p, vb))
+        return torch.cat(outs, dim=1).reshape(B, S, Hq, hd).to(q.dtype)
+
+    KB = min(K_BLOCK, S)
+    if S % KB:
+        raise ValueError(f"sequence {S} is not a multiple of the k block {KB}")
+    for i in range(nqb):
+        qs = i * QB
+        qb = qg[:, qs:qs + QB]
+        qpos = positions[qs:qs + QB]
+        m = torch.full((B, Hkv, G, QB), -1e30, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, Hkv, G, QB), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, Hkv, G, QB, hd), dtype=torch.float32, device=q.device)
+        for j in range(S // KB):
+            ks = j * KB
+            kb, vb, kpos = kf[:, ks:ks + KB], vf[:, ks:ks + KB], positions[ks:ks + KB]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb)
+            if causal:
+                s = torch.where(kpos[None, :] <= qpos[:, None], s, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vb)
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]       # [B,Hkv,G,QB,hd]
+        outs.append(o.permute(0, 3, 1, 2, 4))                 # [B,QB,Hkv,G,hd]
+    return torch.cat(outs, dim=1).reshape(B, S, Hq, hd).to(q.dtype)
+
+
+def _dense_attention(q, k, v, positions, *, cfg: ArchConfig, spec: LayerSpec):
+    """The plain path below the blockwise threshold: scores in the
+    activations' dtype, fp32 softmax cast back, then the value product."""
     hd = cfg.hd
-    B, S, _ = x.shape
-    if S >= BLOCKWISE_THRESHOLD:
-        raise NotImplementedError(BLOCKWISE)
-    q, k, v = _project_qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
     n_rep = q.shape[2] // k.shape[2]
     kk, vv = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() / hd**0.5
@@ -115,7 +174,47 @@ def attn_prefill(p: dict, x: torch.Tensor, *, cfg: ArchConfig, spec: LayerSpec,
             allow &= positions[None, :] > (positions[:, None] - spec.window)
         scores = torch.where(allow[None, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vv)
+
+
+# ---------------------------------------------------------------- full forward
+def attn_forward(p: dict, x: torch.Tensor, *, cfg: ArchConfig, spec: LayerSpec,
+                 positions: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:
+    """Training attention over the full sequence.  x: [B,S,d].  With
+    ``use_kernels`` the attention core is ``ops.flash_attention``, which
+    assumes ``positions == arange(S)`` as the Pallas path does."""
+    from repro_torch.kernels import ops as kops
+
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if use_kernels:
+        out = kops.flash_attention(q, k, v, causal=cfg.causal, window=spec.window)
+    elif x.shape[1] >= BLOCKWISE_THRESHOLD:
+        out = _blockwise_attention(q, k, v, positions, cfg.causal,
+                                   spec.window if cfg.causal else 0)
+    else:
+        out = _dense_attention(q, k, v, positions, cfg=cfg, spec=spec)
+    B, S = x.shape[0], x.shape[1]
+    return out.reshape(B, S, -1) @ p["wo"]
+
+
+# --------------------------------------------------------------------- prefill
+def attn_prefill(p: dict, x: torch.Tensor, *, cfg: ArchConfig, spec: LayerSpec,
+                 positions: torch.Tensor, capacity: Optional[int] = None):
+    """Full-sequence forward that also returns the KV cache for decoding.
+    Window layers keep only the trailing ``window`` keys (ring layout with the
+    cursor at S % W so subsequent decode writes continue the ring).  Global
+    layers pad the cache out to ``capacity`` (the serving context length) so
+    decode has room to append."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if S >= BLOCKWISE_THRESHOLD:
+        out = _blockwise_attention(q, k, v, positions, cfg.causal, spec.window)
+    else:
+        out = _dense_attention(q, k, v, positions, cfg=cfg, spec=spec)
     y = out.reshape(B, S, -1) @ p["wo"]
 
     kc = k.transpose(1, 2)  # [B,Hkv,S,hd]

@@ -8,7 +8,7 @@ over.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -47,13 +47,39 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
-def tree_leaves(tree: Any) -> list:
-    """``jax.tree.leaves``: dict keys in sorted order, tuples in order."""
+def tree_leaves(tree: Any, is_leaf: Optional[Callable[[Any], bool]] = None) -> list:
+    """``jax.tree.leaves``: dict keys in sorted order, tuples in order;
+    ``is_leaf`` stops the descent as ``jax.tree``'s argument does."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k], is_leaf)]
     if isinstance(tree, tuple):
-        return [leaf for x in tree for leaf in tree_leaves(x)]
+        return [leaf for x in tree for leaf in tree_leaves(x, is_leaf)]
     return [tree]
+
+
+def tree_unflatten(like: Any, leaves, is_leaf: Optional[Callable[[Any], bool]] = None) -> Any:
+    """A tree shaped like ``like`` holding ``leaves`` in :func:`tree_leaves`
+    order (``jax.tree.unflatten`` with ``like``'s structure)."""
+    it = iter(leaves)
+
+    def build(t):
+        if is_leaf is not None and is_leaf(t):
+            return next(it)
+        if isinstance(t, dict):
+            vals = {k: build(t[k]) for k in sorted(t)}
+            return {k: vals[k] for k in t}
+        if _is_namedtuple(t):
+            return type(t)(*(build(x) for x in t))
+        if isinstance(t, tuple):
+            return tuple(build(x) for x in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has places for")
+    return out
 
 
 def nbytes(t: torch.Tensor) -> int:
@@ -109,3 +135,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------- cross entropy
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits [..., V] upcast to fp32; labels int [...] -> per-token loss [...]."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return logz - gold

@@ -1,6 +1,6 @@
-"""SwiGLU feed-forward (``repro.models.mlp`` in torch), plain path only: the
-serving path never fuses it.  The fused ``swiglu`` kernel comes with the
-training slice (ROADMAP port queue item 1)."""
+"""SwiGLU feed-forward (``repro.models.mlp`` in torch).  ``use_kernels=True``
+fuses the gate and up products through ``kernels.ops.swiglu`` (the CUDA
+kernel on a card, its plain version on the CPU)."""
 from __future__ import annotations
 
 import torch
@@ -21,5 +21,13 @@ def init_mlp_params(gen: torch.Generator, cfg: ArchConfig, dtype, n: int) -> dic
     }
 
 
-def mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def mlp_forward(p: dict, x: torch.Tensor, *, use_kernels: bool = False) -> torch.Tensor:
+    if use_kernels:
+        from repro_torch.kernels import ops as kops
+
+        d = x.shape[-1]
+        h = kops.swiglu(x.reshape(-1, d), p["w_gate"], p["w_up"])
+        h = h.reshape(*x.shape[:-1], h.shape[-1])
+    else:
+        h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    return h @ p["w_down"]

@@ -1,4 +1,4 @@
-"""Model construction and single-device serving entry points
+"""Model construction and single-device entry points, training and serving
 (``repro.models.registry`` in torch).
 
 Parameter layout, as in the JAX package: ``params['layers']`` is a tuple
@@ -20,8 +20,9 @@ from repro_torch.models.common import (
     init_norm,
     resolve_device,
     rms_norm,
+    softmax_cross_entropy,
 )
-from repro_torch.models.transformer import scan_decode, scan_prefill
+from repro_torch.models.transformer import scan_decode, scan_forward, scan_prefill
 
 
 def active_mask(cfg: ArchConfig, n_instances: Optional[int] = None) -> np.ndarray:
@@ -94,6 +95,35 @@ def embed_tokens(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.frontend != "none":
         raise NotImplementedError(f"frontend {cfg.frontend!r}: {OTHER_FAMILIES}")
     return params["embed"][tokens.long()]
+
+
+def embed_inputs(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
+    """Token embedding -> [B, S, d] (the port's archs are token LMs)."""
+    return embed_tokens(cfg, params, batch["tokens"])
+
+
+# ------------------------------------------------------------------- training
+def forward(cfg: ArchConfig, params, batch: dict, *, use_kernels: bool = False):
+    """Full forward -> (hidden [B,S,d] after the final norm, aux scalar).
+    The dense layers have no auxiliary loss: aux is a float32 zero."""
+    h = embed_inputs(cfg, params, batch)
+    positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
+    h = scan_forward(params["layers"], h, active_mask(cfg), cfg=cfg, positions=positions,
+                     use_kernels=use_kernels)
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def loss_fn(cfg: ArchConfig, params, batch: dict, *, use_kernels: bool = False):
+    """Mean next-token CE -> (total, {"ce", "aux"})."""
+    h, aux = forward(cfg, params, batch, use_kernels=use_kernels)
+    logits = _logits(cfg, params, h)
+    labels = batch["labels"]
+    if cfg.causal:
+        logits = logits[:, :-1]
+        labels = labels[:, 1:]
+    loss = torch.mean(softmax_cross_entropy(logits, labels))
+    return loss + aux, {"ce": loss, "aux": aux}
 
 
 # -------------------------------------------------------------------- serving

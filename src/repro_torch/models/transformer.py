@@ -1,11 +1,14 @@
-"""Layer / period assembly for serving (``repro.models.transformer`` in torch).
+"""Layer / period assembly (``repro.models.transformer`` in torch).
 
 A *layer* = pre-norm mixer (+ residual) then pre-norm FFN (+ residual); a
 *period* is the arch's repeating block list.  The JAX package runs a
-``lax.scan`` over period instances; :func:`scan_prefill` and
-:func:`scan_decode` are the port's loops over the same stacked parameters,
-shared by the monolithic entry points (``registry``) and the pipelined
-stage workers (``serving.worker``) so both run the same math.
+``lax.scan`` over period instances; :func:`scan_forward`,
+:func:`scan_prefill` and :func:`scan_decode` are the port's loops over the
+same stacked parameters, shared by the monolithic entry points
+(``registry``) and the pipelined stage workers (``serverless.runtime.
+worker``, ``serving.worker``) so both run the same math.  The dense layers
+the port covers have no auxiliary loss (the JAX package's MoE router aux),
+so the forward functions return the activations alone.
 """
 from __future__ import annotations
 
@@ -26,6 +29,29 @@ def _ff(p, x, *, cfg, spec, gate):
         return x
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     return x + gate * mlp.mlp_forward(p["ff"], h)
+
+
+# --------------------------------------------------------------------- forward
+def layer_forward(p, x, active, *, cfg, spec, positions, use_kernels=False):
+    """One training layer; ``active`` False (a padding layer) is the
+    identity."""
+    _check(spec)
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    mix = attention.attn_forward(p["mixer"], h, cfg=cfg, spec=spec, positions=positions,
+                                 use_kernels=use_kernels)
+    gate = float(active)
+    x = x + gate * mix
+    if spec.ff == NO_FF:
+        return x
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + gate * mlp.mlp_forward(p["ff"], h, use_kernels=use_kernels)
+
+
+def period_forward(period_params, x, active, *, cfg, positions, use_kernels=False):
+    for j, spec in enumerate(cfg.period):
+        x = layer_forward(period_params[j], x, bool(active[j]), cfg=cfg, spec=spec,
+                          positions=positions, use_kernels=use_kernels)
+    return x
 
 
 # ---------------------------------------------------------------------- decode
@@ -74,6 +100,16 @@ def period_prefill(period_params, x, active, *, cfg, positions, capacity=None):
 
 
 # ------------------------------------------------ loops over period instances
+def scan_forward(layers, x, mask, *, cfg, positions, use_kernels=False):
+    """The training forward through every stacked period instance of
+    ``layers`` in order (``mask`` [n_instances, period_len])."""
+    for i in range(len(mask)):
+        pp = tree_map(lambda a: a[i], layers)
+        x = period_forward(pp, x, mask[i], cfg=cfg, positions=positions,
+                           use_kernels=use_kernels)
+    return x
+
+
 def scan_prefill(layers, x, mask, *, cfg, positions, capacity=None):
     """Prefill every stacked period instance of ``layers`` in order; the
     caches come back stacked over instances (axis 0), as the scan's do."""

@@ -1,17 +1,33 @@
 """The execution-backend contract (``repro.serverless.backends.base`` for the
 port): an object store plus a worker-invocation surface.
 
-The serving engine drives each stage as a generator program over its
-:class:`WorkerContext` (download, compute, upload).  Training's ``run_step``
-and the scatter-reduce come with the training slice (ROADMAP port queue
-item 1).
+The engines drive each stage worker as a generator program over its
+:class:`WorkerContext` (download, compute, upload and, training, a phase
+fence and a ``("sync", grad_vector)`` yield answered with the reduced
+gradient by :meth:`ExecutionBackend.run_step`).
 """
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Any, Callable, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Generator, Optional, Tuple
 
 from repro_torch.serverless.runtime.store import StoreStats, assert_store_drained
+
+# a worker's per-step training program: yields None after each fwd/bwd
+# micro-batch op group, then ("sync", grad_vector_or_None), and receives the
+# reduced vector via .send(); see runtime.engine._worker_step_program
+WorkerProgram = Generator[Optional[Tuple[str, Any]], Any, None]
+
+
+@dataclass(frozen=True)
+class StepTiming:
+    """What one training step cost on the backend's clock: ``end`` is its
+    completion time from the start of the run (monotone across steps),
+    ``sync`` the slowest stage's scatter-reduce duration within it."""
+
+    end: float
+    sync: float
 
 
 class WorkerContext(ABC):
@@ -35,6 +51,12 @@ class WorkerContext(ABC):
         """Publish ``value`` under ``key``, charging ``nbytes`` on the
         uplink.  Returns a token."""
 
+    @abstractmethod
+    def phase_barrier(self) -> None:
+        """Program-order fence between the forward and backward phases: the
+        worker issues no backward download before its forward uploads are
+        done."""
+
 
 class ExecutionBackend(ABC):
     """One storage+invocation substrate a DeploymentPlan can execute on.
@@ -52,6 +74,12 @@ class ExecutionBackend(ABC):
     @abstractmethod
     def context(self, s: int, r: int) -> WorkerContext:
         """The handle for stage ``s``, replica ``r`` (valid after open)."""
+
+    @abstractmethod
+    def run_step(self, k: int, programs: Dict[Tuple[int, int], WorkerProgram],
+                 *, pipelined_sync: bool = True) -> StepTiming:
+        """Drive every worker's step-``k`` training program to completion,
+        including the scatter-reduce each requests, and return the timing."""
 
     @property
     @abstractmethod

@@ -4,9 +4,18 @@ as the device allows while each worker's virtual clock charges what
 Lambda/FC + S3/OSS would have; time here is modeled, never measured."""
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from repro_torch.serverless.backends.base import ExecutionBackend, WorkerContext
+from repro_torch.serverless.backends.base import (
+    ExecutionBackend,
+    StepTiming,
+    WorkerContext,
+    WorkerProgram,
+)
+from repro_torch.serverless.runtime.scatter_reduce import (
+    pipelined_scatter_reduce,
+    three_phase_scatter_reduce,
+)
 from repro_torch.serverless.runtime.store import ObjectStore, StageChannel, StoreStats
 
 
@@ -32,6 +41,9 @@ class EmulatedWorkerContext(WorkerContext):
         return self.channel.upload(key, nbytes, ready=self.channel.cpu_free,
                                    value=value)
 
+    def phase_barrier(self) -> None:
+        self.channel.join_uplink_into_downlink()
+
 
 class EmulatedBackend(ExecutionBackend):
     """The emulated store + one virtual clock per worker."""
@@ -39,10 +51,12 @@ class EmulatedBackend(ExecutionBackend):
     name = "emulated"
 
     def __init__(self) -> None:
+        self.agg = None
         self.store: Optional[ObjectStore] = None
         self.channels: List[List[StageChannel]] = []
 
     def open(self, agg) -> None:
+        self.agg = agg
         self.store = ObjectStore(latency=agg.t_lat)
         self.channels = [
             [StageChannel(self.store, agg.w[s], agg.t_lat, name=f"s{s}r{r}")
@@ -59,3 +73,59 @@ class EmulatedBackend(ExecutionBackend):
 
     def _store_for_verification(self):
         return self.store
+
+    def run_step(self, k: int, programs: Dict[Tuple[int, int], WorkerProgram],
+                 *, pipelined_sync: bool = True) -> StepTiming:
+        """Advance every program single-threaded in the JAX package's GPipe
+        interleave (replica-major, micro-batch, stage), so virtual times,
+        store traffic and ``StoreStats.peak_bytes`` equal its engine's."""
+        agg = self.agg
+        S, mu, d = agg.S, agg.mu, agg.d
+        sync_fn = (pipelined_scatter_reduce if pipelined_sync
+                   else three_phase_scatter_reduce)
+        # forward: one (download, compute, upload) group per advance
+        for r in range(d):
+            for _ in range(mu):
+                for s in range(S):
+                    next(programs[(s, r)])
+        # backward (the first advance also runs the worker's phase fence)
+        for r in range(d):
+            for _ in range(mu):
+                for s in range(S - 1, -1, -1):
+                    next(programs[(s, r)])
+        # every program now flattens its gradient and requests the sync
+        values: Dict[Tuple[int, int], Any] = {}
+        for s in range(S):
+            for r in range(d):
+                tag, vec = next(programs[(s, r)])
+                if tag != "sync":
+                    raise RuntimeError(f"worker (s={s}, r={r}) yielded {tag!r}, not 'sync'")
+                values[(s, r)] = vec
+
+        step_end = 0.0
+        step_sync = 0.0
+        for s in range(S):
+            row = self.channels[s]
+            done = [row[r].cpu_free if s == 0 else max(row[r].cpu_free, row[r].up_free)
+                    for r in range(d)]
+            vals = [values[(s, r)] for r in range(d)]
+            numeric = any(v is not None for v in vals)
+            if d > 1:
+                reduced, ends = sync_fn(self.store, row, agg.s_stage[s], done,
+                                        values=vals if numeric else None,
+                                        key_prefix=f"k{k}/sync{s}")
+            else:
+                reduced, ends = (vals[0] if numeric else None), done
+            stage_end = max(ends)
+            step_sync = max(step_sync, stage_end - max(done))
+            step_end = max(step_end, stage_end)
+            for r in range(d):
+                row[r].release_at(ends[r])
+            for r in range(d):
+                try:
+                    programs[(s, r)].send(reduced)
+                except StopIteration:
+                    pass
+                else:
+                    raise RuntimeError(f"worker (s={s}, r={r}) program yielded after sync")
+        return StepTiming(end=step_end, sync=step_sync)

@@ -1,1 +1,2 @@
-"""Object store and stage spans (``repro.serverless.runtime``)."""
+"""The storage-backed serverless runtime (``repro.serverless.runtime``)."""
+from repro_torch.serverless.runtime.engine import EngineResult, Execution, run_plan  # noqa: F401

@@ -174,19 +174,33 @@ class StageChannel:
         return self.cpu_free
 
     def upload(self, key: str, nbytes: float, ready: float = 0.0,
-               value: Any = None) -> float:
+               value: Any = None, new_request: bool = True) -> float:
+        """A request that continues a pipelined stream on the same link
+        (``new_request=False``: the scatter-reduce's back-to-back chunk
+        puts) skips the repeated storage round trip."""
         start = max(ready, self.up_free)
-        end = start + nbytes / self.bandwidth + self.latency
+        end = start + nbytes / self.bandwidth + (self.latency if new_request else 0.0)
         self.up_free = end
         self.store.put(key, nbytes, value=value, visible_at=end)
         return end
 
-    def download(self, key: str, ready: float = 0.0):
+    def download(self, key: str, ready: float = 0.0, new_request: bool = True):
         obj = self.store.get(key)
         start = max(ready, self.dn_free, obj.visible_at)
-        end = start + obj.nbytes / self.bandwidth + self.latency
+        end = start + obj.nbytes / self.bandwidth + (self.latency if new_request else 0.0)
         self.dn_free = end
         return obj.value, end
+
+    def join_uplink_into_downlink(self) -> None:
+        """Program-order fence between the forward and backward phases: no
+        backward download before the forward uploads are done."""
+        self.dn_free = max(self.dn_free, self.up_free)
+
+    def release_at(self, t: float) -> None:
+        """Advance every resource to at least ``t`` (post-sync barrier)."""
+        self.cpu_free = max(self.cpu_free, t)
+        self.up_free = max(self.up_free, t)
+        self.dn_free = max(self.dn_free, t)
 
     @property
     def now(self) -> float:

@@ -1,14 +1,45 @@
-"""Stage spans: which period instances (plus embedding / head) each pipeline
-stage owns (``StageSpan`` and ``stage_instance_ranges`` of
-``repro.serverless.runtime.worker``).  The training ``StageWorker`` comes
-with the training slice (ROADMAP port queue item 1)."""
+"""Serverless stage workers: the training forward and backward of a layer
+range (``repro.serverless.runtime.worker`` for the port).
+
+A :class:`StageWorker` owns the contiguous slice of the model that the
+planner assigned to one pipeline stage: a range of period instances plus,
+for the boundary stages, the embedding table or the final norm and LM head.
+It runs the monolithic ``registry.loss_fn`` math split at the stage
+boundaries: ``embed_inputs`` -> ``scan_forward`` -> ``rms_norm`` + CE.
+
+Autograd stands in for ``jax.vjp``.  By default the forward keeps its graph
+(the residuals) until that micro-batch's backward, which is what the
+paper's activation-memory term ``mu * a_i`` accounts for; ``remat=True``
+keeps only the inputs and recomputes the forward inside the backward.  Each
+micro-batch's parameter gradients come from ``torch.autograd.grad`` in the
+parameter dtype, are cast to fp32 and added to fp32 accumulators (never
+``.grad`` in bf16), so the arithmetic is the JAX worker's.  ``grad_vector``
+flattens them in ``jax.tree.flatten`` order for the storage scatter-reduce;
+``apply_update`` runs the optimizer on fp32 masters.
+
+``use_kernels=True`` routes every attention layer through the flash
+attention kernel and every FFN through the swiglu kernel, forward and
+backward, when the worker's device is a card.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.partition import stages_of
+from repro_torch.models import registry
+from repro_torch.models.common import (
+    resolve_device,
+    rms_norm,
+    softmax_cross_entropy,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
+from repro_torch.models.transformer import scan_forward
 
 
 @dataclass(frozen=True)
@@ -56,3 +87,193 @@ def stage_instance_ranges(cfg: ArchConfig, x) -> List[StageSpan]:
             owns_embed=(lo == 0), owns_head=(hi == L - 1),
         ))
     return spans
+
+
+def _is_state(x) -> bool:
+    return isinstance(x, dict) and "master" in x
+
+
+def _structure(tree):
+    return tree_map(lambda _: None, tree)
+
+
+class StageWorker:
+    """One serverless function: params + optimizer state for a stage span."""
+
+    def __init__(self, cfg: ArchConfig, span: StageSpan, full_params: dict, *,
+                 mu: int, optimizer, remat: bool = False, use_kernels: bool = False,
+                 device="cuda"):
+        if cfg.frontend != "none":
+            raise NotImplementedError(
+                "runtime numeric execution covers token LMs; frontend "
+                f"{cfg.frontend!r} is not wired up")
+        if cfg.tie_embeddings and span.n_stages > 1:
+            raise NotImplementedError(
+                "tied embeddings span two stages; untie or use a single stage")
+        self.cfg = cfg
+        self.span = span
+        self.mu = mu
+        self.optimizer = optimizer
+        self.remat = remat
+        self.use_kernels = use_kernels
+        self.device = resolve_device(device)
+
+        p: Dict[str, Any] = {}
+        if span.owns_embed:
+            p["embed"] = full_params["embed"]
+        if span.owns_head:
+            p["final_norm"] = full_params["final_norm"]
+            if not cfg.tie_embeddings:
+                p["head"] = full_params["head"]
+        if span.inst_hi > span.inst_lo:
+            p["layers"] = tree_map(lambda a: a[span.inst_lo:span.inst_hi],
+                                   full_params["layers"])
+            self.mask = registry.active_mask(cfg)[span.inst_lo:span.inst_hi]
+        else:
+            self.mask = None
+        # slices of the caller's tensors (no copy when already on the device);
+        # every update below makes new tensors, so nothing is written in place
+        self.params = tree_map(lambda a: a.to(self.device), p)
+
+        # fp32 masters + optimizer state, per leaf (replicas hold identical copies)
+        self.opt_state = tree_map(
+            lambda a: {"master": a.float(), **optimizer.init_state(a.float())},
+            self.params)
+        leaves = tree_leaves(self.params)
+        self._shapes = [tuple(a.shape) for a in leaves]
+        self._sizes = [a.numel() for a in leaves]
+        self.grad_nbytes = float(sum(self._sizes)) * 4  # fp32 sync payload
+
+        self._saved: Dict[int, Any] = {}
+        self._grad_acc: Optional[List[torch.Tensor]] = None
+
+    # ------------------------------------------------------------- stage math
+    def _stage_fn(self, params, x, batch_mb):
+        cfg = self.cfg
+        if self.span.owns_embed:
+            x = registry.embed_inputs(cfg, params, batch_mb)
+        if self.mask is not None:
+            positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+            x = scan_forward(params["layers"], x, self.mask, cfg=cfg, positions=positions,
+                             use_kernels=self.use_kernels)
+        if self.span.owns_head:
+            h = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            head_w = params["embed"] if cfg.tie_embeddings else params["head"]
+            logits = h @ head_w.T
+            labels = batch_mb["labels"]
+            if cfg.causal:
+                logits = logits[:, :-1]
+                labels = labels[:, 1:]
+            return torch.mean(softmax_cross_entropy(logits, labels))
+        return x
+
+    def _graph(self, x_in, batch_mb):
+        """Run the stage with autograd on: (param leaves, input, output)."""
+        leaves = [a.detach().requires_grad_() for a in tree_leaves(self.params)]
+        params = tree_unflatten(self.params, leaves)
+        x = None
+        if not self.span.owns_embed:
+            x = x_in.detach().requires_grad_()
+        with torch.enable_grad():
+            out = self._stage_fn(params, x, batch_mb)
+        return leaves, x, out
+
+    def _batch(self, batch_mb):
+        return {k: torch.as_tensor(v).to(self.device) for k, v in batch_mb.items()}
+
+    # ---------------------------------------------------------------- fwd/bwd
+    def forward(self, m: int, x_in, batch_mb) -> Tuple[torch.Tensor, float]:
+        """Run the stage on micro-batch ``m``.  Returns (output, aux): the
+        boundary activation, or the micro-batch CE on the last stage; aux is
+        0.0 (the dense layers have no auxiliary loss)."""
+        batch_mb = self._batch(batch_mb)
+        if self.remat:
+            with torch.no_grad():
+                out = self._stage_fn(self.params, x_in, batch_mb)
+            self._saved[m] = (x_in, batch_mb)
+            return out, 0.0
+        leaves, x, out = self._graph(x_in, batch_mb)
+        self._saved[m] = (leaves, x, out)      # the residuals, until backward
+        return out.detach(), 0.0
+
+    def backward(self, m: int, g_out) -> Optional[torch.Tensor]:
+        """Backward of micro-batch ``m``.  ``g_out`` is the cotangent from
+        stage s+1 (ignored on the last stage, which seeds its CE with
+        ``1/mu``).  Returns the cotangent for stage s-1 (None on stage 0)."""
+        saved = self._saved.pop(m)
+        leaves, x, out = self._graph(*saved) if self.remat else saved
+        if self.span.owns_head:
+            seed = torch.full((), 1.0 / self.mu, dtype=torch.float32, device=out.device)
+        else:
+            seed = g_out
+        inputs = leaves + ([x] if x is not None else [])
+        grads = torch.autograd.grad(out, inputs, grad_outputs=seed, allow_unused=True)
+        g_params = [torch.zeros(a.shape, dtype=torch.float32, device=a.device) if g is None
+                    else g.float() for g, a in zip(grads, leaves)]
+        if self._grad_acc is None:
+            self._grad_acc = g_params
+        else:
+            for acc, g in zip(self._grad_acc, g_params):
+                acc.add_(g)
+        return grads[-1] if x is not None else None
+
+    # ------------------------------------------------------------ checkpoints
+    def export_state(self) -> dict:
+        """The stage's persistent state: params + fp32 masters + optimizer
+        moments.  Saved graphs and gradient accumulators are per step."""
+        return {"params": self.params, "opt_state": self.opt_state}
+
+    def load_state(self, state: dict) -> None:
+        """Restore from :meth:`export_state` at a step boundary; clears every
+        transient accumulator."""
+        if _structure(state["params"]) != _structure(self.params):
+            raise ValueError(
+                f"checkpointed stage state does not match stage {self.span.index}")
+        self.params = tree_map(lambda a: torch.as_tensor(a).to(self.device),
+                               state["params"])
+        self.opt_state = tree_map(lambda a: torch.as_tensor(a).to(self.device),
+                                  state["opt_state"])
+        self._saved.clear()
+        self._grad_acc = None
+
+    # ------------------------------------------------------------------- sync
+    def grad_vector(self) -> torch.Tensor:
+        """Accumulated stage gradient, flattened fp32 in ``jax.tree.flatten``
+        order on the worker's device (the scatter-reduce payload)."""
+        if self._grad_acc is None:
+            raise RuntimeError("backward() must run first")
+        return torch.cat([g.reshape(-1) for g in self._grad_acc])
+
+    def apply_update(self, reduced: torch.Tensor, step: int) -> None:
+        """Optimizer step from the (already averaged) flat fp32 gradient."""
+        if reduced.numel() != sum(self._sizes):
+            raise ValueError(f"gradient of {reduced.numel()} values for "
+                             f"{sum(self._sizes)} parameters")
+        parts = torch.split(reduced.to(self.device), self._sizes)
+        states = tree_leaves(self.opt_state, is_leaf=_is_state)
+        new_params, new_states = [], []
+        for g, shape, st, p in zip(parts, self._shapes, states, tree_leaves(self.params)):
+            sub = {k: v for k, v in st.items() if k != "master"}
+            master, sub = self.optimizer.update(g.reshape(shape), st["master"], sub, step)
+            new_params.append(master.to(p.dtype))
+            new_states.append({"master": master, **sub})
+        self.params = tree_unflatten(self.params, new_params)
+        self.opt_state = tree_unflatten(self.opt_state, new_states, is_leaf=_is_state)
+        self._grad_acc = None
+
+
+def assemble_params(cfg: ArchConfig, workers: List[StageWorker]) -> dict:
+    """Monolithic ``registry.init_params``-layout params from one replica's
+    stage workers."""
+    out: Dict[str, Any] = {}
+    layer_parts = [w.params["layers"] for w in workers if "layers" in w.params]
+    if layer_parts:
+        out["layers"] = tree_map(lambda *parts: torch.cat(parts, dim=0), *layer_parts)
+    for w in workers:
+        if w.span.owns_embed:
+            out["embed"] = w.params["embed"]
+        if w.span.owns_head:
+            out["final_norm"] = w.params["final_norm"]
+            if not cfg.tie_embeddings:
+                out["head"] = w.params["head"]
+    return out

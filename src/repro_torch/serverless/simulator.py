@@ -1,7 +1,8 @@
-"""Per-stage cost terms of a FuncPipe configuration (``stage_aggregates`` and
-the bandwidth model of ``repro.serverless.simulator``, copied exactly: the
-emulated backend charges these on its virtual clocks).  The discrete-event
-simulator itself is not ported."""
+"""Per-stage cost terms of a FuncPipe configuration (``stage_aggregates``, the
+bandwidth model and ``unpack_plan_args`` of ``repro.serverless.simulator``,
+copied exactly: the emulated backend charges these on its virtual clocks).
+The discrete-event simulator ``simulate_funcpipe`` is not ported yet: ROADMAP
+port queue item 4."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -112,3 +113,29 @@ def stage_aggregates(
         s_stage=s_stage, mem=mem,
         t_up_f=t_up_f, t_dn_f=t_dn_f, t_up_b=t_up_b, t_dn_b=t_dn_b,
     )
+
+
+def unpack_plan_args(fn_name, profile, platform, config, total_micro_batches,
+                     pipelined_sync):
+    """The DeploymentPlan front door of ``runtime.run_plan``: a plan as the
+    first argument is resolved (profile rebuilt and fingerprint-checked) and
+    its recorded sync algorithm used unless ``pipelined_sync`` overrides it.
+    Mixing a plan with explicit platform/config/M is rejected."""
+    if not isinstance(profile, ModelProfile):
+        if not hasattr(profile, "resolve"):
+            raise TypeError(
+                f"{fn_name} takes (profile, platform, config, M) or a "
+                f"DeploymentPlan as first argument, got {type(profile).__name__}")
+        if platform is not None or config is not None \
+                or total_micro_batches is not None:
+            raise ValueError(
+                f"{fn_name}(plan, ...) takes no platform/config/"
+                "total_micro_batches: they are recorded in the plan")
+        rp = profile.resolve()
+        if pipelined_sync is None:
+            pipelined_sync = rp.pipelined_sync
+        profile, platform, config = rp.profile, rp.platform, rp.config
+        total_micro_batches = rp.total_micro_batches
+    if pipelined_sync is None:
+        pipelined_sync = True
+    return profile, platform, config, total_micro_batches, pipelined_sync

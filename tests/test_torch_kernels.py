@@ -1,25 +1,37 @@
-"""The port's decode-attention kernel module against the JAX package.
+"""The port's kernel modules against the JAX package.
 
-On the CPU: the port's plain ``decode_attention_ref`` against the JAX oracle
-and the Pallas kernel in interpret mode (the cases of
-``tests/test_kernels.py::test_decode_attention``), the dispatcher, the
-capability probe and the CUDA wrapper's input checks.  On a card (marker
-``cuda``): the hand-written CUDA kernel against the plain version.
+On the CPU: the port's plain versions (``decode_attention_ref``,
+``flash_attention_ref``, ``swiglu_ref``) against the JAX oracles and, for
+some cases, the Pallas kernels in interpret mode (the cases of
+``tests/test_kernels.py``); their autograd gradients against ``jax.vjp`` of
+the oracles; the dispatcher, the capability probe and the CUDA wrappers'
+input checks.  On a card (marker ``cuda``): each hand-written CUDA kernel,
+forward and backward, against its plain version.
 """
 import numpy as np
 import pytest
 import torch
 
 try:  # the machine with the card runs only the ``cuda`` tests, without jax
+    import jax
     import jax.numpy as jnp
     from repro.kernels import ref as jax_ref
     from repro.kernels.decode_attention import decode_attention as pallas_decode
+    from repro.kernels.flash_attention import flash_attention as pallas_flash
+    from repro.kernels.swiglu import swiglu as pallas_swiglu
 except ImportError:
     jnp = None
 
 from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import decode_attention_ref
+from repro_torch.kernels import swiglu as sg
+from repro_torch.kernels.ref import (
+    decode_attention_ref,
+    flash_attention_ref,
+    swiglu_bwd_ref,
+    swiglu_ref,
+)
 
 CASES = [(512, 1), (512, 511), (1024, 700), (2048, 2048)]
 HEADS = [(8, 2, 64), (4, 4, 128), (16, 2, 128)]
@@ -84,10 +96,11 @@ def test_ops_dispatch_cpu_goes_to_plain_version():
 
 
 def test_launch_counter_reset():
-    da.LAUNCHES = 7
-    assert ops.launch_counts() == {"decode_attention": 7}
+    da.LAUNCHES, fa.LAUNCHES, fa.BWD_LAUNCHES, sg.LAUNCHES, sg.BWD_LAUNCHES = 7, 6, 5, 4, 3
+    assert ops.launch_counts() == {"decode_attention": 7, "flash_attention": 6,
+                                   "flash_attention_bwd": 5, "swiglu": 4, "swiglu_bwd": 3}
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"decode_attention": 0}
+    assert set(ops.launch_counts().values()) == {0}
 
 
 @pytest.mark.parametrize("bad", ["cpu", "dtype", "head_dim", "groups", "length"])
@@ -134,3 +147,236 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, tol):
         torch.testing.assert_close(out.float(), expect.float(), rtol=tol, atol=tol)
     torch.cuda.synchronize()
 
+
+
+# ------------------------------------------------------------ flash attention
+# (S, Hq, Hkv, hd) of tests/test_kernels.py::test_flash_attention_shapes
+FLASH_SHAPES = [(128, 4, 4, 64), (256, 8, 2, 64), (256, 4, 1, 128), (128, 2, 2, 96),
+                (384, 8, 4, 256)]
+FLASH_WINDOWS = [64, 128, 1024]       # test_flash_attention_window: B 1, S 256, 4/2 heads of 64
+FLASH_NONCAUSAL = (2, 128, 4, 4, 80)  # test_flash_attention_noncausal: B, S, Hq, Hkv, hd
+SWIGLU_SHAPES = [(256, 256, 512), (512, 512, 2048), (128, 384, 1536)]
+
+
+def _tol(dtype):
+    # tests/test_kernels.py:15
+    return 2e-2 if dtype in (torch.bfloat16, "bfloat16") else 2e-5
+
+
+def _qkv(B, S, Hq, Hkv, hd, seed=42):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, Hq, hd), dtype=np.float32),
+            rng.standard_normal((B, S, Hkv, hd), dtype=np.float32),
+            rng.standard_normal((B, S, Hkv, hd), dtype=np.float32))
+
+
+def _swiglu_inputs(T, d, f, seed=5):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((T, d), dtype=np.float32),
+            (0.05 * rng.standard_normal((d, f))).astype(np.float32),
+            (0.05 * rng.standard_normal((d, f))).astype(np.float32))
+
+
+def _flash_cases():
+    cases = [(2, S, Hq, Hkv, hd, True, 0) for S, Hq, Hkv, hd in FLASH_SHAPES]
+    cases += [(1, 256, 4, 2, 64, True, w) for w in FLASH_WINDOWS]
+    B, S, Hq, Hkv, hd = FLASH_NONCAUSAL
+    return cases + [(B, S, Hq, Hkv, hd, False, 0)]
+
+
+def _bf16_np(a):
+    """numpy fp32 -> the bf16 values both frameworks round it to, as fp32."""
+    return torch.from_numpy(a).bfloat16().float().numpy()
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,causal,window", _flash_cases())
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_ref_matches_jax_oracle(need_jax, B, S, Hq, Hkv, hd, causal, window, dtype):
+    q, k, v = _qkv(B, S, Hq, Hkv, hd)
+    tdt = getattr(torch, dtype)
+    got = flash_attention_ref(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                              causal=causal, window=window)
+    expect = jax_ref.flash_attention_ref(*(jnp.asarray(a, dtype) for a in (q, k, v)),
+                                         causal=causal, window=window)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(expect, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_flash_ref_matches_pallas_interpret(need_jax):
+    q, k, v = _qkv(2, 256, 8, 2, 64)
+    got = flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)), causal=True)
+    pallas = pallas_flash(*(jnp.asarray(a) for a in (q, k, v)), causal=True, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,causal,window", [
+    (2, 128, 4, 4, 64, True, 0), (2, 64, 8, 2, 64, True, 0), (1, 96, 4, 2, 96, True, 32),
+    (2, 48, 4, 4, 80, False, 0)])
+def test_flash_ref_grads_match_jax_vjp(need_jax, B, S, Hq, Hkv, hd, causal, window):
+    q, k, v = _qkv(B, S, Hq, Hkv, hd, seed=7)
+    do = np.random.default_rng(8).standard_normal(q.shape, dtype=np.float32)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = flash_attention_ref(*ts, causal=causal, window=window)
+    got = torch.autograd.grad(out, ts, torch.from_numpy(do))
+    _, vjp = jax.vjp(lambda a, b, c: jax_ref.flash_attention_ref(
+        a, b, c, causal=causal, window=window), *(jnp.asarray(a) for a in (q, k, v)))
+    for g, e in zip(got, vjp(jnp.asarray(do))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=1e-4, atol=1e-4)
+
+
+# -------------------------------------------------------------------- swiglu
+@pytest.mark.parametrize("T,d,f", SWIGLU_SHAPES + [(100, 256, 512)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swiglu_ref_matches_jax_oracle(need_jax, T, d, f, dtype):
+    x, wg, wu = _swiglu_inputs(T, d, f)
+    got = swiglu_ref(*(torch.from_numpy(a).to(getattr(torch, dtype)) for a in (x, wg, wu)))
+    expect = jax_ref.swiglu_ref(*(jnp.asarray(a, dtype) for a in (x, wg, wu)))
+    tol = _tol(dtype)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(expect, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_swiglu_ref_matches_pallas_interpret(need_jax):
+    x, wg, wu = _swiglu_inputs(256, 256, 512)
+    got = swiglu_ref(*(torch.from_numpy(a) for a in (x, wg, wu)))
+    pallas = pallas_swiglu(*(jnp.asarray(a) for a in (x, wg, wu)), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("T,d,f", SWIGLU_SHAPES + [(100, 256, 512)])
+def test_swiglu_ref_grads_match_jax_vjp(need_jax, T, d, f):
+    x, wg, wu = _swiglu_inputs(T, d, f, seed=9)
+    dout = np.random.default_rng(10).standard_normal((T, f), dtype=np.float32)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, wg, wu)]
+    got = torch.autograd.grad(swiglu_ref(*ts), ts, torch.from_numpy(dout))
+    _, vjp = jax.vjp(jax_ref.swiglu_ref, *(jnp.asarray(a) for a in (x, wg, wu)))
+    for g, e in zip(got, vjp(jnp.asarray(dout))):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=1e-4, atol=1e-4)
+
+
+def test_swiglu_bwd_ref_chains_to_autograd_of_swiglu_ref():
+    """The backward kernel's plain version (dg, du), through the three matrix
+    products of ``kernels.swiglu.SwiGLU.backward``, gives autograd's
+    gradients of the plain forward."""
+    x, wg, wu = (torch.from_numpy(a) for a in _swiglu_inputs(100, 256, 512, seed=11))
+    dout = torch.from_numpy(np.random.default_rng(12).standard_normal((100, 512),
+                                                                      dtype=np.float32))
+    dg, du = swiglu_bwd_ref(x, wg, wu, dout)
+    ts = [t.clone().requires_grad_() for t in (x, wg, wu)]
+    want = torch.autograd.grad(swiglu_ref(*ts), ts, dout)
+    got = (dg @ wg.T + du @ wu.T, x.T @ dg, x.T @ du)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+# -------------------------------------------------- dispatch and input checks
+def test_ops_dispatch_cpu_training_kernels_go_to_plain_versions():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 64, 4, 2, 64))
+    x, wg, wu = (torch.from_numpy(a) for a in _swiglu_inputs(2 * 24, 64, 128))
+    before = ops.launch_counts()
+    for impl in ("auto", "ref"):
+        assert torch.equal(ops.flash_attention(q, k, v, window=16, impl=impl),
+                           flash_attention_ref(q, k, v, window=16))
+        got = ops.swiglu(x.reshape(2, 24, 64), wg, wu, impl=impl)
+        assert got.shape == (2, 24, 128)
+        assert torch.equal(got.reshape(48, 128), swiglu_ref(x, wg, wu))
+    assert ops.launch_counts() == before
+    with pytest.raises(ValueError, match="impl"):
+        ops.flash_attention(q, k, v, impl="pallas")
+    with pytest.raises(ValueError, match="impl"):
+        ops.swiglu(x, wg, wu, impl="triton")
+
+
+@pytest.mark.parametrize("bad,match", [("cpu", "CUDA"), ("dtype", "dtypes"),
+                                       ("head_dim", "head dim"), ("groups", "match"),
+                                       ("noncontiguous", "contiguous")])
+def test_flash_wrapper_rejects_before_building(bad, match):
+    # the checks run before nvcc is looked for, so they hold on any machine
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 64, 8, 2, 64))
+    if bad == "dtype":
+        q = q.double()
+    elif bad == "head_dim":
+        q, k, v = (torch.zeros(*t.shape[:3], 48) for t in (q, k, v))
+    elif bad == "groups":
+        q = q[:, :, :3].contiguous()
+    elif bad == "noncontiguous":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_fwd(q, k, v)
+    o, lse = torch.zeros_like(q), torch.zeros(q.shape[0], q.shape[2], q.shape[1])
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_bwd(q, k, v, o, lse, o)
+
+
+@pytest.mark.parametrize("bad,match", [("cpu", "CUDA"), ("dtype", "dtypes"),
+                                       ("shape", "expected"),
+                                       ("noncontiguous", "contiguous")])
+def test_swiglu_wrapper_rejects_before_building(bad, match):
+    x, wg, wu = (torch.from_numpy(a) for a in _swiglu_inputs(40, 64, 128))
+    if bad == "dtype":
+        wg = wg.bfloat16()
+    elif bad == "shape":
+        wu = wu[:, :64]
+    elif bad == "noncontiguous":
+        wg = wg.T.contiguous().T
+    with pytest.raises(ValueError, match=match):
+        sg.swiglu_fwd(x, wg, wu)
+    with pytest.raises(ValueError, match=match):
+        sg.swiglu_bwd(x, wg, wu, torch.zeros(40, 128, dtype=x.dtype))
+
+
+# ----------------------------------------------------------- on the card
+def _grads(fn, inputs, dout):
+    ts = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*ts)
+    return out.detach(), torch.autograd.grad(out, ts, dout)
+
+
+def _assert_grads_close(got, want, dtype, what):
+    for name, g, w in zip("abc", got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4, msg=f"{what} grad {name}")
+        else:   # 2e-2 x max|ref| in bf16
+            tol = 2e-2 * float(w.float().abs().max())
+            err = float((g.float() - w.float()).abs().max())
+            assert err <= tol, f"{what} grad {name}: max |err| {err} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_kernel_matches_plain(cuda_device, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = _flash_cases() + [(2, 100, 4, 2, 96, True, 0), (1, 200, 4, 4, 64, True, 48)]
+    for B, S, Hq, Hkv, hd, causal, window in cases:
+        q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in _qkv(B, S, Hq, Hkv, hd))
+        do = torch.randn(q.shape, generator=torch.Generator(cuda_device).manual_seed(1),
+                         device=cuda_device).to(dtype)
+        what = f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} causal={causal} window={window} {dtype}"
+        out, grads = _grads(lambda a, b, c: ops.flash_attention(
+            a, b, c, causal=causal, window=window), (q, k, v), do)
+        ref, ref_grads = _grads(lambda a, b, c: ops.flash_attention(
+            a, b, c, causal=causal, window=window, impl="ref"), (q, k, v), do)
+        tol = _tol(dtype)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol, msg=what)
+        _assert_grads_close(grads, ref_grads, dtype, what)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_swiglu_kernel_matches_plain(cuda_device, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for T, d, f in SWIGLU_SHAPES + [(100, 256, 512), (37, 200, 300)]:
+        x, wg, wu = (torch.from_numpy(a).to(cuda_device, dtype)
+                     for a in _swiglu_inputs(T, d, f))
+        dout = torch.randn((T, f), generator=torch.Generator(cuda_device).manual_seed(2),
+                           device=cuda_device).to(dtype)
+        out, grads = _grads(ops.swiglu, (x, wg, wu), dout)
+        ref, ref_grads = _grads(lambda a, b, c: ops.swiglu(a, b, c, impl="ref"),
+                                (x, wg, wu), dout)
+        tol = _tol(dtype)
+        what = f"T={T} d={d} f={f} {dtype}"
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol, msg=what)
+        _assert_grads_close(grads, ref_grads, dtype, what)
+    torch.cuda.synchronize()

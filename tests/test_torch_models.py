@@ -1,8 +1,11 @@
 """The port's dense decoder (``repro_torch.models``) against the JAX package
-on the CPU, in fp32, at 2e-4: attention prefill/decode (caches included,
-append and ring layouts), the monolithic prefill + three decode steps, and
-the parameter layout.  Inputs come from numpy with a seed or from the JAX
-package's own ``init_params``, handed across as numpy arrays."""
+on the CPU, in fp32, at 2e-4: the training forward (attention and MLP on
+both routes, the blockwise attention at 4096 tokens), ``loss_fn`` and every
+gradient, attention prefill/decode (caches included, append and ring
+layouts, and prompts of 4096 tokens), the monolithic prefill + three decode
+steps, and the parameter layout.  Inputs come from numpy with a seed or from
+the JAX package's own ``init_params`` and ``make_batch``, handed across as
+numpy arrays."""
 import dataclasses
 
 import jax
@@ -11,15 +14,20 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import InputShape as JaxInputShape
 from repro.configs.base import LayerSpec as JaxLayerSpec
+from repro.data.synthetic import make_batch as jax_make_batch
 from repro.models import attention as jattn
 from repro.models import common as jcommon
+from repro.models import mlp as jmlp
 from repro.models import registry as jreg
 from repro.serving import arch_config_for_model as jax_arch
 
 from repro_torch.configs.base import LayerSpec
-from repro_torch.models import attention, common, registry
+from repro_torch.models import attention, common, mlp, registry
 from repro_torch.serving import arch_config_for_model
+
+torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32 on a card too
 
 ARCHS = ["phi3-mini-3.8b@reduced", "qwen2.5-14b@reduced"]
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -194,3 +202,108 @@ def test_cuda_default_raises_without_card():
         registry.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         registry.init_decode_caches(cfg, 1, 8)
+
+
+# ------------------------------------------------------------------ training
+@pytest.mark.parametrize("use_kernels", [False, True])
+@pytest.mark.parametrize("window", [0, 4])
+def test_attn_forward_matches_jax(arch, use_kernels, window):
+    """Both routes: the plain path (bf16-style einsum then fp32 softmax) and
+    ``ops.flash_attention`` (its plain version on the CPU), against JAX's
+    ``attn_forward`` with and without ``use_pallas``."""
+    cfg, jcfg, params_np, _ = arch
+    spec, jspec = LayerSpec(window=window), JaxLayerSpec(window=window)
+    p_np = _layer(params_np)
+    p = {k: _t(v) for k, v in p_np.items()}
+    x = np.random.default_rng(11).standard_normal((B, S, cfg.d_model), dtype=np.float32)
+    pos = np.arange(S, dtype=np.int32)
+    y = attention.attn_forward(p, _t(x), cfg=cfg, spec=spec, positions=_t(pos),
+                               use_kernels=use_kernels)
+    jy = jattn.attn_forward(p_np, jnp.asarray(x), cfg=jcfg, spec=jspec,
+                            positions=jnp.asarray(pos), use_pallas=use_kernels)
+    np.testing.assert_allclose(_np(y), np.asarray(jy), **TOL)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_mlp_forward_matches_jax(arch, use_kernels):
+    cfg, _, params_np, _ = arch
+    p_np = jax.tree.map(lambda a: a[0], params_np["layers"][0]["ff"])
+    x = np.random.default_rng(12).standard_normal((B, S, cfg.d_model), dtype=np.float32)
+    y = mlp.mlp_forward({k: _t(v) for k, v in p_np.items()}, _t(x), use_kernels=use_kernels)
+    jy = jmlp.mlp_forward(p_np, jnp.asarray(x), use_pallas=use_kernels)
+    np.testing.assert_allclose(_np(y), np.asarray(jy), **TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 256), (False, 0)])
+def test_blockwise_attention_matches_jax_at_4096(causal, window):
+    """The O(S*block) path at its threshold, on a tiny width (2 query heads
+    sharing one kv head of 16)."""
+    Sb = attention.BLOCKWISE_THRESHOLD
+    rng = np.random.default_rng(13)
+    q = rng.standard_normal((1, Sb, 2, 16), dtype=np.float32)
+    k, v = (rng.standard_normal((1, Sb, 1, 16), dtype=np.float32) for _ in range(2))
+    pos = np.arange(Sb, dtype=np.int32)
+    got = attention._blockwise_attention(_t(q), _t(k), _t(v), _t(pos), causal, window)
+    want = jattn._blockwise_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      jnp.asarray(pos), causal, window)
+    np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
+
+
+def test_prefill_at_4096_then_three_decodes_matches_jax():
+    """The repaired fault: a prompt of 4096 tokens used to raise in the port;
+    it now goes through the blockwise attention, as in JAX."""
+    model = ARCHS[0]
+    cfg, jcfg = arch_config_for_model(model), jax_arch(model)
+    params_np = jax.tree.map(np.asarray, jreg.init_params(jcfg, jax.random.PRNGKey(3)))
+    params = registry.params_from_jax(params_np, device="cpu")
+    Sp = attention.BLOCKWISE_THRESHOLD
+    rng = np.random.default_rng(14)
+    toks = rng.integers(0, cfg.vocab_size, (1, Sp), dtype=np.int32)
+    cap = Sp + 3
+    logits, caches = registry.prefill(cfg, params, {"tokens": _t(toks)}, capacity=cap)
+    jlogits, jcaches = jreg.prefill(jcfg, params_np, {"tokens": jnp.asarray(toks)},
+                                    capacity=cap)
+    np.testing.assert_allclose(_np(logits), np.asarray(jlogits), **TOL)
+    for _ in range(3):
+        nxt = rng.integers(0, cfg.vocab_size, (1, 1), dtype=np.int32)
+        logits, caches = registry.decode_step(cfg, params, caches, _t(nxt))
+        jlogits, jcaches = jreg.decode_step(jcfg, params_np, jcaches, jnp.asarray(nxt))
+        np.testing.assert_allclose(_np(logits), np.asarray(jlogits), **TOL)
+        for mine, theirs in zip(caches, jcaches):
+            _assert_cache(mine, theirs)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_loss_and_every_gradient_match_jax(arch, use_kernels):
+    """``loss_fn`` and the gradient of every parameter against
+    ``jax.value_and_grad(registry.loss_fn)`` on a ``make_batch`` batch."""
+    cfg, jcfg, params_np, _ = arch
+    batch = jax_make_batch(jcfg, JaxInputShape("t", 16, 2, "train"), seed=3)
+    (jloss, jaux), jgrads = jax.value_and_grad(
+        lambda p: jreg.loss_fn(jcfg, p, batch, use_pallas=use_kernels),
+        has_aux=True)(jax.tree.map(jnp.asarray, params_np))
+    params = registry.params_from_jax(params_np, device="cpu")
+    leaves = common.tree_leaves(params)
+    for a in leaves:
+        a.requires_grad_()
+    tbatch = {k: _t(v) for k, v in batch.items()}
+    loss, aux = registry.loss_fn(cfg, params, tbatch, use_kernels=use_kernels)
+    grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), **TOL)
+    np.testing.assert_allclose(float(aux["ce"].detach()), float(jaux["ce"]), **TOL)
+    assert float(aux["aux"]) == float(jaux["aux"]) == 0.0
+    flat_j = jax.tree_util.tree_flatten_with_path(jgrads)[0]
+    assert len(flat_j) == len(grads)
+    for (path, jg), g in zip(flat_j, grads):
+        np.testing.assert_allclose(_np(g), np.asarray(jg), **TOL,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def test_cross_entropy_matches_jax():
+    rng = np.random.default_rng(15)
+    logits = rng.standard_normal((2, 5, 33), dtype=np.float32) * 3
+    labels = rng.integers(0, 33, (2, 5), dtype=np.int32)
+    np.testing.assert_allclose(
+        _np(common.softmax_cross_entropy(_t(logits), _t(labels))),
+        np.asarray(jcommon.softmax_cross_entropy(jnp.asarray(logits), jnp.asarray(labels))),
+        rtol=1e-6, atol=1e-6)
