@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header, so ``nvcc`` builds it in seconds.  It is compiled for ``sm_90a`` on
 first use into ``build/torch_kernels/`` at the root of the checkout, into a
 library named by a hash of the source: an edited source is rebuilt, and a
-concurrent build never loads a half-written file.  The libraries are bound
+concurrent build never loads a half-written file.  ``nvcc``'s report (ptxas
+registers and spills) is kept beside each library as ``lib<name>_<hash>.log``
+and read back when the library is already built.  The libraries are bound
 with ``ctypes``.  :func:`build_all` starts one ``nvcc`` per source at once.
 """
 from __future__ import annotations
@@ -27,7 +29,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: per source: library path, seconds, and nvcc's report (ptxas -v)
+#: per source: library path, seconds, whether it was already built, and
+#: nvcc's report (ptxas -v)
 BUILD_INFO: Dict[str, dict] = {}
 
 
@@ -58,8 +61,12 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
     running = {}
     for name in names:
         path = library_path(name)
-        if name in BUILD_INFO or path.exists():
-            BUILD_INFO.setdefault(name, dict(path=str(path), seconds=0.0, compiler_log=""))
+        if name in BUILD_INFO:
+            continue
+        if path.exists():
+            log = path.with_suffix(".log")
+            BUILD_INFO[name] = dict(path=str(path), seconds=0.0, cached=True,
+                                    compiler_log=log.read_text() if log.exists() else "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
@@ -73,9 +80,11 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}) on {name}.cu:\n{log[-4000:]}")
             continue
+        tmp.with_suffix(".log").write_text(log)
+        os.replace(tmp.with_suffix(".log"), path.with_suffix(".log"))
         os.replace(tmp, path)
         BUILD_INFO[name] = dict(path=str(path), seconds=time.perf_counter() - t0,
-                                compiler_log=log)
+                                cached=False, compiler_log=log)
     if failed:
         raise RuntimeError("\n".join(failed))
     return {n: BUILD_INFO[n] for n in names}

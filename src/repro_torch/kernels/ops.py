@@ -24,7 +24,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     impl: str = "auto"):
     """q [B,S,Hq,hd], k/v [B,S,Hkv,hd] -> [B,S,Hq,hd], differentiable.  The
     kernel takes no positions and assumes ``arange(S)``, as the Pallas path
-    does; so does the plain version here."""
+    does; so does the plain version."""
     if _plain(impl, q):
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     return _fa.flash_attention(q, k, v, causal=causal, window=window)

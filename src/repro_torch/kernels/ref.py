@@ -16,16 +16,15 @@ def flash_attention_ref(
     *,
     causal: bool = True,
     window: int = 0,
-    positions=None,    # [S]; arange(S) when None
 ) -> torch.Tensor:
     """Full-sequence GQA attention at the Pallas kernel's arithmetic: q
     scaled by hd^-0.5 in fp32, fp32 scores and softmax, masked scores at
-    -1e30, output cast to q's dtype.  Autograd through it is the plain
-    backward."""
+    -1e30, output cast to q's dtype; positions are ``arange(S)``.  Autograd
+    through it is the plain backward."""
     B, S, Hq, hd = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
-    pos = positions if positions is not None else torch.arange(S, device=q.device)
+    pos = torch.arange(S, device=q.device)
     qg = (q.float() * hd**-0.5).reshape(B, S, Hkv, G, hd)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float())
     if causal:

@@ -25,9 +25,7 @@ def mlp_forward(p: dict, x: torch.Tensor, *, use_kernels: bool = False) -> torch
     if use_kernels:
         from repro_torch.kernels import ops as kops
 
-        d = x.shape[-1]
-        h = kops.swiglu(x.reshape(-1, d), p["w_gate"], p["w_up"])
-        h = h.reshape(*x.shape[:-1], h.shape[-1])
+        h = kops.swiglu(x, p["w_gate"], p["w_up"])
     else:
         h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]

@@ -22,6 +22,7 @@ try:  # the machine with the card runs only the ``cuda`` tests, without jax
 except ImportError:
     jnp = None
 
+from repro_torch.kernels import build as kernel_build
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
@@ -118,6 +119,24 @@ def test_cuda_wrapper_rejects_before_building(bad):
         length = length.long()
     with pytest.raises(ValueError):
         da.decode_attention(q, k, v, length)
+
+
+def test_build_cache_hit_keeps_compiler_report(tmp_path, monkeypatch):
+    """A library that is already built is not compiled again, and its nvcc
+    report (ptxas registers and spills), kept beside it, is read back."""
+    monkeypatch.setattr(kernel_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernel_build, "BUILD_INFO", {})
+    monkeypatch.setattr(kernel_build, "_nvcc", lambda: pytest.fail("nvcc was called"))
+    lib = kernel_build.library_path("swiglu")
+    assert lib.parent == tmp_path and lib.suffix == ".so"
+    lib.write_bytes(b"")
+    report = "ptxas info    : Used 128 registers, 0 bytes spill stores, 0 bytes spill loads\n"
+    lib.with_suffix(".log").write_text(report)
+    info = kernel_build.build_all(["swiglu"])["swiglu"]
+    assert info == dict(path=str(lib), seconds=0.0, cached=True, compiler_log=report)
+    lib.with_suffix(".log").unlink()
+    kernel_build.BUILD_INFO.clear()
+    assert kernel_build.build_all(["swiglu"])["swiglu"]["compiler_log"] == ""
 
 
 def test_capability_probe():

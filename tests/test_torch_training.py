@@ -8,7 +8,7 @@ run on the same params and batches (losses and params within those tests'
 tolerances; ``t_iter``, ``t_total``, cost and ``StoreStats`` exactly
 equal), timing-only runs, saved plans and the guard rails.  Inputs come
 from the JAX package (``init_params``, ``make_batch``) or from numpy with a
-seed; fp32 throughout, TF32 off.
+seed; fp32 with TF32 off, and one bf16 run (the main path's type).
 """
 import dataclasses
 import os
@@ -224,32 +224,50 @@ def _param_err(params, jparams):
     worst = ("", 0.0)
     for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(jparams)[0],
                             tree_leaves(params)):
-        e = float(np.max(np.abs(b.detach().numpy() - np.asarray(a, np.float32))))
+        e = float(np.max(np.abs(b.detach().float().numpy() - np.asarray(a, np.float32))))
         if e > worst[1]:
             worst = (jax.tree_util.keystr(path), e)
     return worst
 
 
-@pytest.fixture(scope="module")
-def two_steps_jax():
-    """tests/test_runtime.py::test_engine_two_steps_match_monolithic's run,
-    on the JAX engine."""
+def _two_steps_on_jax(param_dtype: str, lr: float) -> dict:
+    """tests/test_runtime.py::test_engine_two_steps_match_monolithic's plan
+    (phi3@reduced, 4 layers, 2 stages x 2 replicas, mu 2, AdamW, 2 steps) in
+    ``param_dtype``, on the JAX engine."""
     jcfg, cfg = _cfgs(n_layers=4)
+    jcfg = dataclasses.replace(jcfg, param_dtype=param_dtype)
+    cfg = dataclasses.replace(cfg, param_dtype=param_dtype)
     B, S, d, mu, steps = 8, 16, 2, 2, 2
-    shape = JaxInputShape("emu", S, B, "train")
     L = cfg.n_layers + 2
     x = _x(L, {2})
-    jprof = jax_profile(jcfg, AWS_LAMBDA, seq=S, micro_batch=B // (d * mu))
     params0 = jreg.init_params(jcfg, jax.random.PRNGKey(0))
-    batches = [jax_make_batch(jcfg, shape, step=k) for k in range(steps)]
+    batches = [jax_make_batch(jcfg, JaxInputShape("emu", S, B, "train"), step=k)
+               for k in range(steps)]
     jres = jax_run_plan(
-        jprof, AWS_LAMBDA, JaxConfig(x=x, d=d, z=(0,) * L), total_micro_batches=d * mu,
-        exec_config=ExecutionConfig(steps=steps), execution=JaxExecution(cfg=jcfg, optimizer=JaxAdamW(lr=1e-2),
-                                            init_params=params0,
-                                            batch_fn=lambda k: batches[k]))
-    return dict(cfg=cfg, S=S, B=B, d=d, mu=mu, steps=steps, x=x, L=L, jres=jres,
+        jax_profile(jcfg, AWS_LAMBDA, seq=S, micro_batch=B // (d * mu)), AWS_LAMBDA,
+        JaxConfig(x=x, d=d, z=(0,) * L), total_micro_batches=d * mu,
+        exec_config=ExecutionConfig(steps=steps),
+        execution=JaxExecution(cfg=jcfg, optimizer=JaxAdamW(lr=lr), init_params=params0,
+                               batch_fn=lambda k: batches[k]))
+    return dict(cfg=cfg, S=S, B=B, d=d, mu=mu, steps=steps, x=x, L=L, lr=lr, jres=jres,
                 params=params_from_jax(_np_tree(params0), device="cpu"),
                 batches=[_torch_batch(b) for b in batches])
+
+
+def _two_steps_on_port(r: dict, use_kernels: bool):
+    cfg, d, mu = r["cfg"], r["d"], r["mu"]
+    prof = arch_model_profile(cfg, AWS, seq=r["S"], micro_batch=r["B"] // (d * mu))
+    return run_plan(prof, AWS, Config(x=r["x"], d=d, z=(0,) * r["L"]),
+                    total_micro_batches=d * mu, steps=r["steps"],
+                    execution=Execution(cfg=cfg, optimizer=AdamW(lr=r["lr"]),
+                                        init_params=r["params"],
+                                        batch_fn=lambda k: r["batches"][k],
+                                        use_kernels=use_kernels, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def two_steps_jax():
+    return _two_steps_on_jax("float32", 1e-2)
 
 
 @pytest.mark.parametrize("use_kernels", [False, True])
@@ -258,22 +276,38 @@ def test_engine_two_steps_match_jax_engine(two_steps_jax, use_kernels):
     sync: losses within 2e-4 and params within 2e-3 of the JAX engine's (the
     tolerances of tests/test_runtime.py:250-253); the virtual clock, cost
     and store traffic exactly equal."""
-    r = two_steps_jax
-    cfg, d, mu = r["cfg"], r["d"], r["mu"]
-    prof = arch_model_profile(cfg, AWS, seq=r["S"], micro_batch=r["B"] // (d * mu))
-    res = run_plan(prof, AWS, Config(x=r["x"], d=d, z=(0,) * r["L"]),
-                   total_micro_batches=d * mu, steps=r["steps"],
-                   execution=Execution(cfg=cfg, optimizer=AdamW(lr=1e-2),
-                                       init_params=r["params"],
-                                       batch_fn=lambda k: r["batches"][k],
-                                       use_kernels=use_kernels, device="cpu"))
-    jres = r["jres"]
+    res, jres = _two_steps_on_port(two_steps_jax, use_kernels), two_steps_jax["jres"]
     for got, want in zip(res.losses, jres.losses):
         assert abs(got - want) < 2e-4, (got, want)
     name, err = _param_err(res.params, jres.params)
     assert err < 2e-3, (name, err)
     _assert_same_clock(res, jres)
     assert res.steps == 2 and len(res.metrics) == 2 and res.backend == "emulated"
+
+
+@pytest.fixture(scope="module")
+def two_steps_jax_bf16():
+    """The main path's types (bf16 params, fp32 masters) and the full-width
+    run's AdamW(1e-4)."""
+    return _two_steps_on_jax("bfloat16", 1e-4)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_engine_bf16_adamw_matches_jax_engine(two_steps_jax_bf16, use_kernels):
+    """Mixed precision end to end (bf16 forward and backward, the bf16 ->
+    fp32 gradient cast, fp32 masters, AdamW, the scatter-reduce): losses
+    within 2e-3 (bf16 arithmetic on ~7) and params within 1e-3 of the JAX
+    engine's.  The param bound is AdamW's first steps, which move each
+    master by lr = 1e-4 whatever the gradient's size, so a gradient near 0
+    whose sign differs costs 2e-4 a step, plus one bf16 ulp (4.9e-4 below
+    0.125) when the masters are rounded to the params."""
+    res, jres = _two_steps_on_port(two_steps_jax_bf16, use_kernels), two_steps_jax_bf16["jres"]
+    assert all(t.dtype == torch.bfloat16 for t in tree_leaves(res.params))
+    for got, want in zip(res.losses, jres.losses):
+        assert abs(got - want) < 2e-3, (got, want)
+    name, err = _param_err(res.params, jres.params)
+    assert err < 1e-3, (name, err)
+    _assert_same_clock(res, jres)
 
 
 @pytest.mark.parametrize("pipelined", [True, False])
