@@ -8,18 +8,24 @@ and a non-zero exit:
 
 1. device -- CUDA must be present; the card's name and power limit.
 2. build -- compile the three kernel sources from ``src/`` with nvcc, one
-   process each, all at once; every kernel's registers and spills.
+   process each, all at once; every kernel's registers and spills, and each
+   swiglu kernel's registers, shared memory and spills.
 3. kernel parity -- each CUDA kernel against its plain PyTorch version:
    decode attention on the sweep of ``tests/test_kernels.py::
    test_decode_attention`` and phi3-mini-3.8b's decode shape; flash
    attention (forward, and the backward's dq/dk/dv) on every case of
    ``tests/test_kernels.py:18-58`` and the training shape [2,1024,32,96];
-   swiglu (forward, and dx/dW_gate/dW_up) on the cases of ``:74-84``, a
-   ragged T and the training shape T 2048, d 3072, f 8192.  Outputs at 2e-5
-   (fp32) and 2e-2 (bf16), gradients at 1e-4 (fp32) and 2e-2 x max|ref|
-   (bf16).  Each kernel's median time at its main-path shape (CUDA events,
-   L2 flushed) beside its bound, the plain version and a PyTorch yardstick
-   (``scaled_dot_product_attention``; ``silu(x@wg) * (x@wu)``).
+   swiglu (forward, dg/du, and dx/dW_gate/dW_up) on the cases of
+   ``:74-84``, the edges of its wgmma route (T 1 and 100, d 200, f 520), an
+   odd bf16 shape that takes the simt route, a 256-row slice of phi3's FFN
+   (bf16) and the training shape T 2048, d 3072, f 8192, each case's route
+   asserted through the launch counters.  Outputs at 2e-5 (fp32) and 2e-2
+   (bf16), gradients at 1e-4 (fp32) and 2e-2 x max|ref| (bf16).  Each
+   kernel's median time at its main-path shape (CUDA events, L2 flushed)
+   beside its bound, the plain version and a PyTorch yardstick
+   (``scaled_dot_product_attention``; for swiglu the compositions
+   ``silu(x@wg) * (x@wu)`` and its backward's ``dg``/``du``); swiglu's simt
+   kernels also in fp32.
 4. full-width serve -- phi3-mini-3.8b, all 32 layers, bf16, random weights
    from seed 0, a hand-built 4-stage serve plan run through
    ``run_serve_plan(..., use_kernels=True)``: kernel launches counted, tokens
@@ -35,17 +41,19 @@ and a non-zero exit:
 6. full-width training -- phi3-mini-3.8b at full width cut to 4 layers,
    bf16, seed 0: 2 stages x 2 replicas, 2 micro-batches of 2 x 1024 tokens,
    AdamW, 2 steps through ``run_plan(..., execution=Execution(...,
-   use_kernels=True))``.  Exact launch counts per step; in step 1 every
+   use_kernels=True))``.  Exact launch counts per step, every swiglu
+   launch on the wgmma route; in step 1 every
    kernel call held against ``impl="ref"`` on its real inputs, outputs and
    gradients; finite losses; replicas bit-identical after each step; store
    drained; virtual clock, cost and ``StoreStats`` equal to a timing-only
    run; the first loss within 2e-2 of the plain path's (``use_kernels=
    False``).  Step wall time, peak memory and one profiled step.
 7. full-width fp32 training -- the same model in fp32, d = 1, SGD, 1 step,
-   kernels on and off: losses within 5e-5, every param within 1e-4.
+   kernels on and off: losses within 5e-5, every param within 1e-4; swiglu
+   on the simt route.
 8. reduced training -- phi3-mini-3.8b@reduced (4 layers, fp32) on the plan of
    ``tests/test_runtime.py:230-240``, kernels on and off: losses within
-   2e-4, params within 2e-3.
+   2e-4, params within 2e-3; swiglu on the simt route.
 
 The last lines are the kernels' record, the ``nvidia-smi`` name/power line
 and ``{"ok": true, "device": {...}}``.
@@ -116,7 +124,14 @@ FLASH_CASES = [(2, S, Hq, Hkv, hd, True, 0) for S, Hq, Hkv, hd in (
 FLASH_CASES += [(1, 256, 4, 2, 64, True, w) for w in (64, 128, 1024)]
 FLASH_CASES += [(2, 128, 4, 4, 80, False, 0), (2, 100, 4, 2, 96, True, 0)]
 FLASH_TRAIN = (2, 1024, 32, 32, 96, True, 0)
-SWIGLU_CASES = [(256, 256, 512), (512, 512, 2048), (128, 384, 1536), (100, 256, 512)]
+# swiglu: the cases of tests/test_kernels.py:74-84, the wgmma route's edges
+# (T 1 and 100, a ragged last k-tile at d 200, a ragged column tile at f
+# 520) and an odd shape that bf16 sends to the simt route; a slice of phi3's
+# FFN in bf16 only (in fp32 at d 3072, cuBLAS splits K at 256 rows and two
+# correct sums in different orders differ by more than 2e-5)
+SWIGLU_CASES = [(256, 256, 512), (512, 512, 2048), (128, 384, 1536), (100, 256, 512),
+                (1, 256, 512), (128, 200, 512), (128, 256, 520), (37, 200, 300)]
+SWIGLU_BF16_CASES = [(256, 3072, 8192)]
 SWIGLU_TRAIN = (2048, 3072, 8192)
 TRAIN = dict(n_layers=4, seq=1024, micro_batch=2, d=2, mu=2, steps=2, cut=2)
 TRAIN_REDUCED = dict(n_layers=4, seq=16, micro_batch=2, d=2, mu=2, steps=2, cut=2)
@@ -167,6 +182,23 @@ def phase_device() -> str:
     return smi
 
 
+def _kernel_reports(log: str) -> list:
+    """Per entry function of a ptxas -v report: registers, static shared
+    memory and spill bytes."""
+    out = []
+    for block in log.split("Compiling entry function '")[1:]:
+        name = block.split("'", 1)[0]
+        label = re.search(r"([a-z_]+_kernel)(I\w*?E)?E*v", name)
+        regs = re.search(r"Used (\d+) registers", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        out.append({"entry": (label.group(1) + (label.group(2) or "")) if label else name,
+                    "registers": int(regs.group(1)) if regs else None,
+                    "static_smem_bytes": int(smem.group(1)) if smem else 0,
+                    "spill_bytes": int(spill.group(1)) + int(spill.group(2)) if spill else None})
+    return out
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     info = kernel_build.build_all()
@@ -181,6 +213,8 @@ def phase_build() -> None:
                       "kernels": len(regs), "registers": regs,
                       "max_registers": max(regs, default=None),
                       "spill_bytes": spills, "max_spill_bytes": max(spills, default=None)}
+    libs["swiglu"]["per_kernel"] = _kernel_reports(info["swiglu"]["compiler_log"])
+    libs["swiglu"]["wgmma_dynamic_smem_bytes"] = sg_kernel.build().repro_swiglu_wgmma_smem_bytes()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": libs})
 
 
@@ -236,8 +270,9 @@ def _decode_parity(gen, flush) -> tuple:
     flops = 4 * B * H * length * hd                                # QK^T and PV
     bound_ms, bound_by = _bound(nbytes, flops, torch.bfloat16)
     rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "max_abs_err": phi3_err["bfloat16@1024"]}
+           "library_call": "scaled_dot_product_attention",
+           "bound_ms": bound_ms, "bound_by": bound_by, "kernel_route": "simt",
+           "tflop_per_s": flops / ms / 1e9, "max_abs_err": phi3_err["bfloat16@1024"]}
     detail = {"cases": n_cases, "phi3_max_abs_err": phi3_err,
               "timing_shape": {"B": B, "Hq": H, "Hkv": H, "hd": hd, "C": C,
                                "length": length, "dtype": "bfloat16"},
@@ -329,10 +364,14 @@ def _flash_parity(gen, flush) -> tuple:
     bwd_bound, bwd_by = _bound(bwd_b, bwd_f, torch.bfloat16)
     recs = {
         "flash_attention": {"ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": fwd_lib,
-                            "bound_ms": fwd_bound, "bound_by": fwd_by,
+                            "library_call": "scaled_dot_product_attention(is_causal=True)",
+                            "bound_ms": fwd_bound, "bound_by": fwd_by, "kernel_route": "simt",
+                            "tflop_per_s": fwd_f / fwd_ms / 1e9,
                             "max_abs_err": train_err["bfloat16"]["out"]},
         "flash_attention_bwd": {"ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": bwd_lib,
+                                "library_call": "autograd of scaled_dot_product_attention",
                                 "bound_ms": bwd_bound, "bound_by": bwd_by,
+                                "kernel_route": "simt", "tflop_per_s": bwd_f / bwd_ms / 1e9,
                                 "max_abs_err": train_err["bfloat16"]["grad"]},
     }
     detail = {"cases": n_cases, "train_shape_max_abs_err": train_err,
@@ -344,16 +383,84 @@ def _flash_parity(gen, flush) -> tuple:
     return recs, detail
 
 
+def _swiglu_way(dtype, d: int, f: int) -> str:
+    """The route a swiglu call on fresh (aligned) tensors must take."""
+    return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0 else "simt"
+
+
+def _swiglu_bwd_composition(x, wg, wu, dout):
+    """The backward kernel's function as PyTorch calls in x's dtype: the
+    yardstick of its time (the port never calls it)."""
+    g, u = x @ wg, x @ wu
+    s = torch.sigmoid(g)
+    return dout * u * s * (1 + g * (1 - s)), dout * g * s
+
+
+def _swiglu_timing(gen, flush, dtype) -> dict:
+    """The forward and backward kernels at the training shape in ``dtype``,
+    beside their plain versions, the PyTorch compositions and the bound."""
+    T, d, f = SWIGLU_TRAIN
+    x = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
+    wg, wu = ((0.02 * torch.randn(d, f, generator=gen, device="cuda")).to(dtype)
+              for _ in range(2))
+    dout = torch.randn(T, f, generator=gen, device="cuda").to(dtype)
+    way = _swiglu_way(dtype, d, f)
+    ops.reset_launch_counts()
+    fwd_ms = _time_ms(lambda: sg_kernel.swiglu_fwd(x, wg, wu), flush, reps=10)
+    bwd_ms = _time_ms(lambda: sg_kernel.swiglu_bwd(x, wg, wu, dout), flush, reps=10)
+    counts = ops.launch_counts()
+    if counts[f"swiglu_{way}"] != counts["swiglu"] or \
+            counts[f"swiglu_bwd_{way}"] != counts["swiglu_bwd"]:
+        raise AssertionError(f"timed swiglu {dtype} off the {way} route: {counts}")
+    simt = {}
+    if way == "wgmma":
+        # the simt kernels on the same bf16 inputs, through their C entry
+        # points (uncounted): the design the wgmma kernels replace
+        lib, stream = sg_kernel.build(), kernel_build.stream_of(x)
+        out, dg, du = (torch.empty(T, f, dtype=dtype, device="cuda") for _ in range(3))
+        ptrs = [t.data_ptr() for t in (x, wg, wu)]
+        simt["fwd_ms"] = _time_ms(lambda: lib.repro_swiglu_fwd(
+            *ptrs, out.data_ptr(), T, d, f, 1, stream), flush, reps=10)
+        simt["bwd_ms"] = _time_ms(lambda: lib.repro_swiglu_bwd(
+            *ptrs, dout.data_ptr(), dg.data_ptr(), du.data_ptr(), T, d, f, 1, stream),
+            flush, reps=10)
+        _close(out, sg_kernel.swiglu_fwd(x, wg, wu), 2e-2, "swiglu simt vs wgmma, bf16")
+    fwd_plain = _time_ms(lambda: ops.swiglu(x, wg, wu, impl="ref"), flush, reps=10)
+    bwd_plain = _time_ms(lambda: kernel_ref.swiglu_bwd_ref(x, wg, wu, dout), flush, reps=10)
+    fwd_lib = _time_ms(lambda: F.silu(x @ wg) * (x @ wu), flush, reps=10)
+    bwd_lib = _time_ms(lambda: _swiglu_bwd_composition(x, wg, wu, dout), flush, reps=10)
+    esz = x.element_size()
+    flops = 2 * 2 * T * d * f
+    fwd_b = (T * d + 2 * d * f + T * f) * esz
+    bwd_b = (T * d + 2 * d * f + 3 * T * f) * esz
+    fwd_bound, fwd_by = _bound(fwd_b, flops, dtype)
+    bwd_bound, bwd_by = _bound(bwd_b, flops, dtype)
+    return {
+        "fwd": {"ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": fwd_lib,
+                "library_call": "composition: silu(x@wg) * (x@wu)",
+                "bound_ms": fwd_bound, "bound_by": fwd_by, "kernel_route": way,
+                "tflop_per_s": flops / fwd_ms / 1e9, "bytes": fwd_b, "flops": flops},
+        "bwd": {"ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": bwd_lib,
+                "library_call": "composition: g=x@wg, u=x@wu, s=sigmoid(g), "
+                                "dg=dout*u*s*(1+g*(1-s)), du=dout*g*s",
+                "bound_ms": bwd_bound, "bound_by": bwd_by, "kernel_route": way,
+                "tflop_per_s": flops / bwd_ms / 1e9, "bytes": bwd_b, "flops": flops},
+        "simt_bf16": simt}
+
+
 def _swiglu_parity(gen, flush) -> tuple:
-    n_cases, train_err = 0, {}
+    n_cases, train_err, routes = 0, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        for T, d, f in SWIGLU_CASES + [SWIGLU_TRAIN]:
+        extra = SWIGLU_BF16_CASES if dtype == torch.bfloat16 else []
+        for T, d, f in SWIGLU_CASES + extra + [SWIGLU_TRAIN]:
             x = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
             wg, wu = ((0.05 * torch.randn(d, f, generator=gen, device="cuda")).to(dtype)
                       for _ in range(2))
             dout = torch.randn(T, f, generator=gen, device="cuda").to(dtype)
+            what = f"swiglu T={T} d={d} f={f} {dtype}"
+            ops.reset_launch_counts()
             err = _check_kernel(ops.swiglu, lambda a, b, c: ops.swiglu(a, b, c, impl="ref"),
-                                (x, wg, wu), dout, f"swiglu T={T} d={d} f={f} {dtype}")
+                                (x, wg, wu), dout, what)
             n_cases += 1
             if (T, d, f) == SWIGLU_TRAIN:
                 train_err[str(dtype)[6:]] = err
@@ -363,36 +470,31 @@ def _swiglu_parity(gen, flush) -> tuple:
             tol = 2e-5 if dtype == torch.float32 else 2e-2
             _close(dg, pdg, tol, f"swiglu dg T={T} d={d} f={f} {dtype}")
             _close(du, pdu, tol, f"swiglu du T={T} d={d} f={f} {dtype}")
+            way = _swiglu_way(dtype, d, f)
+            counts = ops.launch_counts()
+            if (counts[f"swiglu_{way}"], counts[f"swiglu_bwd_{way}"]) != (1, 2) or \
+                    (counts["swiglu"], counts["swiglu_bwd"]) != (1, 2):
+                raise AssertionError(f"{what}: expected the {way} route, launches {counts}")
+            routes[f"{T}x{d}x{f} {str(dtype)[6:]}"] = way
     torch.cuda.synchronize()
 
+    bf16 = _swiglu_timing(gen, flush, torch.bfloat16)
+    fp32 = _swiglu_timing(gen, flush, torch.float32)
     T, d, f = SWIGLU_TRAIN
-    x = torch.randn(T, d, generator=gen, device="cuda").to(torch.bfloat16)
-    wg, wu = ((0.02 * torch.randn(d, f, generator=gen, device="cuda")).to(torch.bfloat16)
-              for _ in range(2))
-    dout = torch.randn(T, f, generator=gen, device="cuda").to(torch.bfloat16)
-    fwd_ms = _time_ms(lambda: sg_kernel.swiglu_fwd(x, wg, wu), flush, reps=10)
-    bwd_ms = _time_ms(lambda: sg_kernel.swiglu_bwd(x, wg, wu, dout), flush, reps=10)
-    fwd_plain = _time_ms(lambda: ops.swiglu(x, wg, wu, impl="ref"), flush, reps=10)
-    bwd_plain = _time_ms(lambda: kernel_ref.swiglu_bwd_ref(x, wg, wu, dout), flush, reps=10)
-    fwd_lib = _time_ms(lambda: F.silu(x @ wg) * (x @ wu), flush, reps=10)
-    esz = x.element_size()
-    flops = 2 * 2 * T * d * f
-    fwd_b = (T * d + 2 * d * f + T * f) * esz
-    bwd_b = (T * d + 2 * d * f + 3 * T * f) * esz
-    fwd_bound, fwd_by = _bound(fwd_b, flops, torch.bfloat16)
-    bwd_bound, bwd_by = _bound(bwd_b, flops, torch.bfloat16)
-    recs = {
-        "swiglu": {"ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": fwd_lib,
-                   "bound_ms": fwd_bound, "bound_by": fwd_by,
-                   "max_abs_err": train_err["bfloat16"]["out"]},
-        "swiglu_bwd": {"ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": None,
-                       "bound_ms": bwd_bound, "bound_by": bwd_by,
-                       "max_abs_err": train_err["bfloat16"]["grad"]},
-    }
-    detail = {"cases": n_cases, "train_shape_max_abs_err": train_err,
-              "timing_shape": {"T": T, "d": d, "f": f, "dtype": "bfloat16"},
-              "fwd": {"bytes": fwd_b, "flops": flops, "tflop_per_s": flops / fwd_ms / 1e9},
-              "bwd": {"bytes": bwd_b, "flops": flops, "tflop_per_s": flops / bwd_ms / 1e9}}
+
+    def rec(r, err):
+        return {k: v for k, v in r.items() if k not in ("bytes", "flops")} | {"max_abs_err": err}
+
+    recs = {"swiglu": rec(bf16["fwd"], train_err["bfloat16"]["out"]),
+            "swiglu_bwd": rec(bf16["bwd"], train_err["bfloat16"]["grad"]),
+            "swiglu_simt": rec(fp32["fwd"], train_err["float32"]["out"]),
+            "swiglu_bwd_simt": rec(fp32["bwd"], train_err["float32"]["grad"])}
+    detail = {"cases": n_cases, "routes": routes, "train_shape_max_abs_err": train_err,
+              "timing_shape": {"T": T, "d": d, "f": f, "dtype": ["bfloat16", "float32"]},
+              "bytes_flops": {f"{k} {dtype}": {"bytes": r[k]["bytes"], "flops": r[k]["flops"]}
+                              for dtype, r in (("bfloat16", bf16), ("float32", fp32))
+                              for k in ("fwd", "bwd")},
+              "simt_kernels_on_bf16_ms": bf16["simt_bf16"]}
     return recs, detail
 
 
@@ -801,8 +903,7 @@ def phase_train_full(smi: str) -> dict:
     launches = counts[-1]
 
     step_counts = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
-    expect = {"decode_attention": 0, "flash_attention": per_step,
-              "flash_attention_bwd": per_step, "swiglu": per_step, "swiglu_bwd": per_step}
+    expect = _expected_launches(per_step, "wgmma")
     if any(c != expect for c in step_counts):
         raise AssertionError(f"launches per step {step_counts}, expected {expect}")
     if checker.failures:
@@ -898,10 +999,20 @@ def training_kernels_as_plain():
         ops.flash_attention, ops.swiglu = real
 
 
+def _expected_launches(n: int, way: str) -> dict:
+    """``ops.launch_counts()`` after n launches of each training kernel,
+    forward and backward, with swiglu on route ``way``."""
+    other = "simt" if way == "wgmma" else "wgmma"
+    return {"decode_attention": 0, "flash_attention": n, "flash_attention_bwd": n,
+            "swiglu": n, "swiglu_bwd": n, f"swiglu_{way}": n, f"swiglu_bwd_{way}": n,
+            f"swiglu_{other}": 0, f"swiglu_bwd_{other}": 0}
+
+
 def train_routes(cfg, spec, optimizer, params, *, d: int, steps: int, routes) -> dict:
     """One run_plan per route on the same params and batches: "kernel"
-    (``use_kernels=True``), "kernel_plain" (the same path with the kernels'
-    plain versions) and "plain" (``use_kernels=False``)."""
+    (``use_kernels=True``, swiglu on the simt route: these runs are fp32),
+    "kernel_plain" (the same path with the kernels' plain versions) and
+    "plain" (``use_kernels=False``)."""
     prof, plat, config, M = train_setup(cfg, spec, d=d)
     batches = train_batches(cfg, spec, d, steps)
     per_run = d * spec["mu"] * cfg.n_layers * steps
@@ -915,9 +1026,9 @@ def train_routes(cfg, spec, optimizer, params, *, d: int, steps: int, routes) ->
                 batch_fn=lambda k: batches[k], use_kernels=route != "plain", device="cuda"))
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        want = per_run if route == "kernel" else 0
-        if any(v != (want if k != "decode_attention" else 0) for k, v in counts.items()):
-            raise AssertionError(f"route {route}: launches {counts}, expected {want} each")
+        want = _expected_launches(per_run if route == "kernel" else 0, "simt")
+        if counts != want:
+            raise AssertionError(f"route {route}: launches {counts}, expected {want}")
         out[route] = (res.losses, res.params, counts)
         del res
     return out
@@ -929,7 +1040,7 @@ def _diff(routes: dict, a: str, b: str) -> dict:
             "param_max_abs_diff": _max_param_diff(pa, pb)}
 
 
-def phase_train_fp32(smi: str) -> None:
+def phase_train_fp32(smi: str) -> dict:
     """Full width in fp32: the kernel path within 5e-5 (losses) and 1e-4
     (params) of the plain path after one SGD step (tests/test_runtime.py:
     286-288)."""
@@ -950,9 +1061,11 @@ def phase_train_fp32(smi: str) -> None:
           "optimizer": "SGD(lr=0.05)", "wall_s": time.perf_counter() - t0,
           "losses_kernel": routes["kernel"][0], "losses_plain": routes["plain"][0],
           "kernel_launches": routes["kernel"][2], **rec})
+    launches = routes["kernel"][2]
     del routes
     del params
     torch.cuda.empty_cache()
+    return launches
 
 
 def phase_train_reduced(smi: str) -> None:
@@ -987,9 +1100,14 @@ def main() -> None:
     recs = phase_kernel_parity(smi)
     launches = {"decode_attention": phase_serve_full(smi)}
     phase_serve_reduced(smi)
-    launches.update({k: v for k, v in phase_train_full(smi).items()
-                     if k != "decode_attention"})
-    phase_train_fp32(smi)
+    train = phase_train_full(smi)
+    launches.update({k: train[k] for k in ("flash_attention", "flash_attention_bwd")})
+    # the bf16 main path's swiglu launches all took the wgmma kernels, the
+    # fp32 path's the simt kernels
+    launches.update({"swiglu": train["swiglu_wgmma"], "swiglu_bwd": train["swiglu_bwd_wgmma"]})
+    fp32 = phase_train_fp32(smi)
+    launches.update({"swiglu_simt": fp32["swiglu_simt"],
+                     "swiglu_bwd_simt": fp32["swiglu_bwd_simt"]})
     phase_train_reduced(smi)
     source = "src/repro_torch/kernels/csrc/{}.cu"
     tpu = {"decode_attention": "src/repro/kernels/decode_attention.py:68",
@@ -997,7 +1115,7 @@ def main() -> None:
            "swiglu": "src/repro/kernels/swiglu.py:57"}
     kernels = []
     for name, rec in recs.items():
-        base = name.removesuffix("_bwd")
+        base = name.removesuffix("_simt").removesuffix("_bwd")
         kernels.append({"name": name, "route": "cuda", "source": source.format(base),
                         "replaces": tpu[base], "launches": launches[name], **rec})
     emit({"kernels": kernels})

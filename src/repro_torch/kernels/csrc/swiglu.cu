@@ -1,6 +1,6 @@
 // Fused SwiGLU on Hopper, forward and backward, for the training path.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/swiglu.py::swiglu (body
+// Replaces the Pallas TPU kernel src/repro/kernels/swiglu.py:57 (swiglu, body
 // _swiglu_kernel).  Same function: out = silu(x @ w_gate) * (x @ w_up) with
 // x [T, d] and the weights [d, f] in fp32 or bf16, both products accumulated
 // in fp32, the output cast to x's dtype.  The Pallas kernel's point is that
@@ -14,10 +14,39 @@
 //
 // What bounds it on the card: operations.  At the training shape (T 2048,
 // d 3072, f 8192) the kernel does 2 * 2 T d f = 206 GFLOP on 0.1 GB of
-// operands, far above the H100's ~295 flop/byte ridge.  This first version
-// runs on the CUDA cores with fp32 FMAs (fp32 inputs have to stay fp32 to
-// hold 2e-5), so it is far from the tensor cores' rate; its design is the
-// classic register-tiled product:
+// operands, far above the H100's ~295 flop/byte ridge, so only the bf16
+// tensor cores (989 TFLOP/s; the CUDA cores' fp32 peak of 67 TFLOP/s needs
+// 3.07 ms) come near its 0.208 ms bound.  Two designs, chosen per call by
+// swiglu.py's route() before the launch:
+//
+// "wgmma" -- bf16 with d % 8 == 0, f % 8 == 0 and 16-byte aligned pointers
+// (TMA's rules for global strides and base addresses):
+//   * one block of 3 warpgroups owns a 128 (T) x 128 (f) tile of both g and
+//     u and steps over d in 64-wide k-tiles; a ring of 4 stages of 48 KB
+//     (x [128 x 64], w_gate and w_up [64 x 128], bf16, 128B-swizzled) in
+//     dynamic shared memory;
+//   * warpgroup 2 is the producer: one thread issues the TMA loads of a
+//     stage against its "empty" mbarrier and arms its "full" mbarrier with
+//     the stage's bytes (setmaxnreg 40);
+//   * warpgroups 0 and 1 each own 64 rows and issue
+//     wgmma.m64n128k16.f32.bf16.bf16 twice per k16 step, into the g and the
+//     u accumulator (2 x 64 fp32 registers a thread, setmaxnreg 232); one
+//     wgmma group stays in flight and the stage before it is released;
+//   * x is the K-major A operand; the weights stay [d, f] row-major and are
+//     the MN-major B operand (imm-trans-b = 1): each 64-column TMA box is one
+//     128B swizzle atom wide, the descriptor's LBO steps between the two
+//     boxes along f (8 KB) and its SBO between 8-row groups along d (1 KB);
+//   * TMA fills out-of-bounds elements with zeros, which covers the ragged
+//     edges of T, d (the last k-tile) and f; the epilogue runs on the
+//     accumulators in registers and stores bf16 pairs straight to global
+//     memory, masked at the edges (16 bytes of each 32-byte sector a store
+//     instruction touches; a shared-memory + TMA store is later work); the
+//     backward loads its dout pairs in the same layout before the mainloop,
+//     so their latency hides behind it;
+//   * no split-K and no atomics: the same inputs give the same bits.
+// "simt" -- fp32 (the 2e-5 bar rules out TF32 and bf16 tensor cores) and
+// bf16 shapes TMA cannot take: a register-tiled product of fp32 FMAs on the
+// CUDA cores:
 //   * TPU: the d axis is the sequential innermost grid axis with two fp32
 //     VMEM accumulators.  Here one thread block owns a 64 x 128 tile of
 //     (T, f) and loops over d in slices of 16 itself;
@@ -27,19 +56,24 @@
 //     weight as two float4s per step of d;
 //   * every edge (T, d, f) is masked, so any T is taken: the JAX rule
 //     "oracle when T % 8" has no counterpart on the card.
-// Tensor cores (wgmma), TMA and double buffering are later work.
 //
 // Build: nvcc -gencode=arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libswiglu.so swiglu.cu
 // The C entry points take raw pointers and PyTorch's current stream; they
-// launch, do not synchronise and return the CUDA error.
+// launch, do not synchronise and return the CUDA error.  The wgmma entry
+// points encode their TMA descriptors on the host (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so no -lcuda is needed).
 
+#include <cuda.h>  // CUtensorMap and its enums only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
 
 namespace {
+
+// ------------------------------------------------------------- simt route
 
 constexpr int kThreads = 256;
 constexpr int BM = 64;    // rows of x (T) per block
@@ -152,10 +186,304 @@ cudaError_t launch(const void* x, const void* wg, const void* wu, const void* do
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------------------ wgmma route
+namespace tc {
+
+constexpr int BM = 128;        // rows of x (T) per block: two consumer warpgroups
+constexpr int BN = 128;        // columns of the weights (f) per block
+constexpr int BK = 64;         // k-tile of d: 128 bytes of bf16, one swizzle row
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;  // warpgroups of 64 rows; warpgroup 2 loads
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kXBytes = BM * BK * 2;            // 16 KB
+constexpr int kBoxBytes = BK * 64 * 2;          // one 64-column box of a weight, 8 KB
+constexpr int kWBytes = 2 * kBoxBytes;          // 16 KB
+constexpr int kStageBytes = kXBytes + 2 * kWBytes;  // 48 KB
+constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;  // + barriers, align
+
+enum Epi { kFwd = 0, kBwd = 1, kProducts = 2 };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 2-D TMA box into shared memory; completion is counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor, 128B swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// d[64x128] += A[64x16] (K-major) * B[16x128] (MN-major), fp32 accumulators.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// Keep the compiler from moving accumulator reads across a wgmma wait.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// kFwd: out0 = silu(g) * u.  kBwd: out0 = dg, out1 = du from dout.
+// kProducts: out0 = g, out1 = u (the probe of the mainloop alone).
+template <int kEpi>
+__global__ void __launch_bounds__(kThreads, 1)
+swiglu_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_wg,
+                    const __grid_constant__ CUtensorMap map_wu,
+                    const __nv_bfloat16* __restrict__ dout, __nv_bfloat16* __restrict__ out0,
+                    __nv_bfloat16* __restrict__ out1, int Tn, int d, int f) {
+  extern __shared__ uint8_t smem_raw[];
+  // the 128B swizzle repeats every 1024 bytes: tiles start on that boundary
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + kStages * kStageBytes;  // full[s], then empty[s]
+  auto x_tile = [&](int s) { return base + s * kStageBytes; };
+  auto g_tile = [&](int s) { return base + s * kStageBytes + kXBytes; };
+  auto u_tile = [&](int s) { return base + s * kStageBytes + kXBytes + kWBytes; };
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int nk = (d + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(empty(s), ((kt / kStages) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(full(s), kStageBytes);
+        const int k0 = kt * BK;
+        tma_load(x_tile(s), &map_x, full(s), k0, m0);
+        tma_load(g_tile(s), &map_wg, full(s), n0, k0);
+        tma_load(g_tile(s) + kBoxBytes, &map_wg, full(s), n0 + 64, k0);
+        tma_load(u_tile(s), &map_wu, full(s), n0, k0);
+        tma_load(u_tile(s) + kBoxBytes, &map_wu, full(s), n0 + 64, k0);
+      }
+    }
+  } else {
+    // ---- consumers: rows wg*64 .. wg*64+63 of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    float accg[64], accu[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) accg[i] = accu[i] = 0.f;
+
+    // accumulator i of a thread: row 16 * warp + lane / 4 + 8 * ((i / 2) % 2),
+    // column 8 * (i / 4) + 2 * (lane % 4) + i % 2
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int row0 = m0 + wg * 64 + warp * 16 + lane / 4;
+    const int col0 = n0 + 2 * (lane % 4);
+    // the backward's dout pairs, in the same layout, are loaded before the
+    // mainloop so that their latency hides behind it (32 registers)
+    __nv_bfloat162 dy[kEpi == kBwd ? 32 : 1];
+    if (kEpi == kBwd) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h, col = col0 + 8 * j;
+          dy[2 * j + h] =
+              row < Tn && col < f
+                  ? __ldg(reinterpret_cast<const __nv_bfloat162*>(
+                        dout + static_cast<size_t>(row) * f + col))
+                  : __floats2bfloat162_rn(0.f, 0.f);
+        }
+      }
+    }
+
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(full(s), (kt / kStages) & 1);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int k = 0; k < BK / 16; ++k) {
+        // A: 64 rows of 128 bytes, 8-row groups 1 KB apart; k16 steps 32 bytes
+        const uint64_t a = desc(x_tile(s) + wg * 64 * 128 + k * 32, 16, 1024);
+        // B: 16 rows of d (2 KB) from each of the two 64-column boxes
+        const uint64_t bg = desc(g_tile(s) + k * 2048, kBoxBytes, 1024);
+        const uint64_t bu = desc(u_tile(s) + k * 2048, kBoxBytes, 1024);
+        wgmma_m64n128k16(accg, a, bg);
+        wgmma_m64n128k16(accu, a, bu);
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      // the group of k-tile kt-1 is done: its stage goes back to the producer
+      if (kt > 0 && threadIdx.x % 128 == 0) mbar_arrive(empty((kt - 1) % kStages));
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(accg);
+    fence_acc(accu);
+
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = col0 + 8 * j;
+      if (col >= f) continue;  // f is even, so col + 1 < f as well
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= Tn) continue;
+        const size_t at = static_cast<size_t>(row) * f + col;
+        const float g0 = accg[4 * j + 2 * h], g1 = accg[4 * j + 2 * h + 1];
+        const float u0 = accu[4 * j + 2 * h], u1 = accu[4 * j + 2 * h + 1];
+        if (kEpi == kProducts) {
+          *reinterpret_cast<__nv_bfloat162*>(out0 + at) = __floats2bfloat162_rn(g0, g1);
+          *reinterpret_cast<__nv_bfloat162*>(out1 + at) = __floats2bfloat162_rn(u0, u1);
+          continue;
+        }
+        const float s0 = 1.f / (1.f + expf(-g0)), s1 = 1.f / (1.f + expf(-g1));
+        if (kEpi == kBwd) {
+          const float2 y = __bfloat1622float2(dy[kEpi == kBwd ? 2 * j + h : 0]);
+          *reinterpret_cast<__nv_bfloat162*>(out0 + at) =
+              __floats2bfloat162_rn(y.x * u0 * (s0 * (1.f + g0 * (1.f - s0))),
+                                    y.y * u1 * (s1 * (1.f + g1 * (1.f - s1))));
+          *reinterpret_cast<__nv_bfloat162*>(out1 + at) =
+              __floats2bfloat162_rn(y.x * (g0 * s0), y.y * (g1 * s1));
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(out0 + at) =
+              __floats2bfloat162_rn(g0 * s0 * u0, g1 * s1 * u1);
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major bf16 matrix [rows, cols] cut into boxes of [box_rows, 64]
+// columns, 128B-swizzled; out-of-bounds elements read as zeros.
+bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kEpi>
+cudaError_t launch(const void* x, const void* wg, const void* wu, const void* dout, void* out0,
+                   void* out1, int Tn, int d, int f, cudaStream_t stream) {
+  CUtensorMap map_x, map_wg, map_wu;
+  if (!encode(&map_x, x, Tn, d, BM) || !encode(&map_wg, wg, d, f, BK) ||
+      !encode(&map_wu, wu, d, f, BK))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      swiglu_wgmma_kernel<kEpi>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  // T tiles vary fastest: the blocks in flight share a few weight tiles and
+  // all of x, which stays in L2, so the weights are read from memory once
+  dim3 grid((Tn + BM - 1) / BM, (f + BN - 1) / BN);
+  swiglu_wgmma_kernel<kEpi><<<grid, kThreads, kSmemBytes, stream>>>(
+      map_x, map_wg, map_wu, static_cast<const __nv_bfloat16*>(dout),
+      static_cast<__nv_bfloat16*>(out0), static_cast<__nv_bfloat16*>(out1), Tn, d, f);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// x [T, d], w_gate/w_up [d, f], out [T, f], all contiguous; dtype 0 =
-// float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+// The simt route.  x [T, d], w_gate/w_up [d, f], out [T, f], all contiguous;
+// dtype 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
 extern "C" int repro_swiglu_fwd(const void* x, const void* wg, const void* wu, void* out, int T,
                                 int d, int f, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -175,3 +503,29 @@ extern "C" int repro_swiglu_bwd(const void* x, const void* wg, const void* wu, c
     return (int)launch<__nv_bfloat16, true>(x, wg, wu, dout, dg, du, T, d, f, st);
   return (int)cudaErrorInvalidValue;
 }
+
+// The wgmma route: bf16, d and f multiples of 8, every pointer 16-byte
+// aligned (swiglu.py's route() decides).  Same arguments as above, no dtype.
+extern "C" int repro_swiglu_wgmma_fwd(const void* x, const void* wg, const void* wu, void* out,
+                                      int T, int d, int f, void* stream) {
+  return (int)tc::launch<tc::kFwd>(x, wg, wu, nullptr, out, nullptr, T, d, f,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_swiglu_wgmma_bwd(const void* x, const void* wg, const void* wu,
+                                      const void* dout, void* dg, void* du, int T, int d, int f,
+                                      void* stream) {
+  return (int)tc::launch<tc::kBwd>(x, wg, wu, dout, dg, du, T, d, f,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// The mainloop alone: g = x @ w_gate and u = x @ w_up in bf16, for checking
+// the tensor-core products against a matrix product.
+extern "C" int repro_swiglu_wgmma_products(const void* x, const void* wg, const void* wu, void* g,
+                                           void* u, int T, int d, int f, void* stream) {
+  return (int)tc::launch<tc::kProducts>(x, wg, wu, nullptr, g, u, T, d, f,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of a wgmma block, for build reports.
+extern "C" int repro_swiglu_wgmma_smem_bytes() { return tc::kSmemBytes; }

@@ -50,18 +50,24 @@ def decode_attention(q, k_cache, v_cache, length, *, impl: str = "auto"):
 
 def launch_counts() -> dict:
     """Kernel launches since the last :func:`reset_launch_counts`, backward
-    launches apart."""
-    return {"decode_attention": _da.LAUNCHES,
-            "flash_attention": _fa.LAUNCHES,
-            "flash_attention_bwd": _fa.BWD_LAUNCHES,
-            "swiglu": _sg.LAUNCHES,
-            "swiglu_bwd": _sg.BWD_LAUNCHES}
+    launches apart; swiglu's also by route (``swiglu_wgmma``,
+    ``swiglu_bwd_simt``, ...)."""
+    counts = {"decode_attention": _da.LAUNCHES,
+              "flash_attention": _fa.LAUNCHES,
+              "flash_attention_bwd": _fa.BWD_LAUNCHES,
+              "swiglu": sum(_sg.LAUNCHES.values()),
+              "swiglu_bwd": sum(_sg.BWD_LAUNCHES.values())}
+    for way in _sg.ROUTES:
+        counts[f"swiglu_{way}"] = _sg.LAUNCHES[way]
+        counts[f"swiglu_bwd_{way}"] = _sg.BWD_LAUNCHES[way]
+    return counts
 
 
 def reset_launch_counts() -> None:
     _da.LAUNCHES = 0
     _fa.LAUNCHES = _fa.BWD_LAUNCHES = 0
-    _sg.LAUNCHES = _sg.BWD_LAUNCHES = 0
+    _sg.LAUNCHES = dict.fromkeys(_sg.ROUTES, 0)
+    _sg.BWD_LAUNCHES = dict.fromkeys(_sg.ROUTES, 0)
 
 
 def decode_attention_capable(*, n_q_heads: int, n_kv_heads: int,

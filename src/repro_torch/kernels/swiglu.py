@@ -8,7 +8,11 @@ kernel and whose backward launches the backward kernel (g and u recomputed
 tile by tile, epilogue ``dg``/``du``), then leaves the three plain matrix
 products of the chain rule to ``torch.matmul``.
 
-``LAUNCHES`` and ``BWD_LAUNCHES`` count the forward and backward launches.
+Each direction has two kernels, and :func:`route` picks one before the
+launch from the dtype, the shape and the pointers: ``"wgmma"`` (tensor
+cores fed by TMA, bf16 only) or ``"simt"`` (fp32 FMAs on the CUDA cores).
+``LAUNCHES`` and ``BWD_LAUNCHES`` count the forward and backward launches
+by route.
 """
 from __future__ import annotations
 
@@ -18,9 +22,10 @@ from repro_torch.kernels import build as _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: launches since the last reset (see ``kernels.ops``)
-LAUNCHES = 0
-BWD_LAUNCHES = 0
+ROUTES = ("wgmma", "simt")
+#: launches since the last reset (see ``kernels.ops``), by route
+LAUNCHES = dict.fromkeys(ROUTES, 0)
+BWD_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def build():
@@ -29,7 +34,22 @@ def build():
     return _build.load("swiglu", {
         "repro_swiglu_fwd": [P] * 4 + [I] * 4 + [P],
         "repro_swiglu_bwd": [P] * 6 + [I] * 4 + [P],
+        "repro_swiglu_wgmma_fwd": [P] * 4 + [I] * 3 + [P],
+        "repro_swiglu_wgmma_bwd": [P] * 6 + [I] * 3 + [P],
+        "repro_swiglu_wgmma_products": [P] * 5 + [I] * 3 + [P],
+        "repro_swiglu_wgmma_smem_bytes": [],
     })
+
+
+def route(dtype: torch.dtype, d: int, f: int, *ptrs: int) -> str:
+    """The kernel a call takes, decided before its launch: ``"wgmma"`` for
+    bf16 with d and f multiples of 8 and every pointer 16-byte aligned
+    (TMA's rules: global strides multiples of 16 bytes, base addresses
+    16-byte aligned), ``"simt"`` for everything else."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0 \
+            and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "simt"
 
 
 def _check(x, w_gate, w_up, *rest) -> None:
@@ -52,24 +72,25 @@ def _check(x, w_gate, w_up, *rest) -> None:
 
 def swiglu_fwd(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor) -> torch.Tensor:
     """Launch the forward kernel: x [T,d], w_gate/w_up [d,f] -> [T,f]."""
-    global LAUNCHES
     _check(x, w_gate, w_up)
     (T, d), f = x.shape, w_gate.shape[1]
     lib = build()
     out = torch.empty((T, f), dtype=x.dtype, device=x.device)
+    ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), out.data_ptr())
+    way = route(x.dtype, d, f, *ptrs)
     with torch.cuda.device(x.device):
-        err = lib.repro_swiglu_fwd(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-                                   out.data_ptr(), T, d, f, _DTYPES[x.dtype],
-                                   _build.stream_of(x))
+        if way == "wgmma":
+            err = lib.repro_swiglu_wgmma_fwd(*ptrs, T, d, f, _build.stream_of(x))
+        else:
+            err = lib.repro_swiglu_fwd(*ptrs, T, d, f, _DTYPES[x.dtype], _build.stream_of(x))
     if err != 0:
-        raise RuntimeError(f"swiglu forward launch failed: cudaError {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"swiglu forward launch ({way}) failed: cudaError {err}")
+    LAUNCHES[way] += 1
     return out
 
 
 def swiglu_bwd(x, w_gate, w_up, dout):
     """Launch the backward kernel -> (dg, du), each [T,f] in x's dtype."""
-    global BWD_LAUNCHES
     _check(x, w_gate, w_up, dout)
     (T, d), f = x.shape, w_gate.shape[1]
     if dout.shape != (T, f):
@@ -77,13 +98,17 @@ def swiglu_bwd(x, w_gate, w_up, dout):
     lib = build()
     dg = torch.empty_like(dout)
     du = torch.empty_like(dout)
+    ptrs = (x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), dout.data_ptr(),
+            dg.data_ptr(), du.data_ptr())
+    way = route(x.dtype, d, f, *ptrs)
     with torch.cuda.device(x.device):
-        err = lib.repro_swiglu_bwd(x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-                                   dout.data_ptr(), dg.data_ptr(), du.data_ptr(), T, d, f,
-                                   _DTYPES[x.dtype], _build.stream_of(x))
+        if way == "wgmma":
+            err = lib.repro_swiglu_wgmma_bwd(*ptrs, T, d, f, _build.stream_of(x))
+        else:
+            err = lib.repro_swiglu_bwd(*ptrs, T, d, f, _DTYPES[x.dtype], _build.stream_of(x))
     if err != 0:
-        raise RuntimeError(f"swiglu backward launch failed: cudaError {err}")
-    BWD_LAUNCHES += 1
+        raise RuntimeError(f"swiglu backward launch ({way}) failed: cudaError {err}")
+    BWD_LAUNCHES[way] += 1
     return dg, du
 
 

@@ -8,6 +8,8 @@ the oracles; the dispatcher, the capability probe and the CUDA wrappers'
 input checks.  On a card (marker ``cuda``): each hand-written CUDA kernel,
 forward and backward, against its plain version.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ try:  # the machine with the card runs only the ``cuda`` tests, without jax
 except ImportError:
     jnp = None
 
+from repro_torch.configs import get_config
 from repro_torch.kernels import build as kernel_build
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
@@ -97,9 +100,12 @@ def test_ops_dispatch_cpu_goes_to_plain_version():
 
 
 def test_launch_counter_reset():
-    da.LAUNCHES, fa.LAUNCHES, fa.BWD_LAUNCHES, sg.LAUNCHES, sg.BWD_LAUNCHES = 7, 6, 5, 4, 3
+    da.LAUNCHES, fa.LAUNCHES, fa.BWD_LAUNCHES = 7, 6, 5
+    sg.LAUNCHES, sg.BWD_LAUNCHES = {"wgmma": 3, "simt": 1}, {"wgmma": 2, "simt": 1}
     assert ops.launch_counts() == {"decode_attention": 7, "flash_attention": 6,
-                                   "flash_attention_bwd": 5, "swiglu": 4, "swiglu_bwd": 3}
+                                   "flash_attention_bwd": 5, "swiglu": 4, "swiglu_bwd": 3,
+                                   "swiglu_wgmma": 3, "swiglu_simt": 1,
+                                   "swiglu_bwd_wgmma": 2, "swiglu_bwd_simt": 1}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
 
@@ -345,6 +351,68 @@ def test_swiglu_wrapper_rejects_before_building(bad, match):
         sg.swiglu_bwd(x, wg, wu, torch.zeros(40, 128, dtype=x.dtype))
 
 
+@pytest.mark.parametrize("offset", [0, 2, 16])
+@pytest.mark.parametrize("d,f", [(3072, 8192), (200, 520), (196, 512), (256, 300)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_swiglu_route(dtype, d, f, offset):
+    """wgmma only for bf16 with d and f multiples of 8 and 16-byte aligned
+    pointers (TMA's rules); everything else takes the simt kernel."""
+    base = torch.empty(64, dtype=torch.bfloat16).data_ptr()   # 64-byte aligned or more
+    ptrs = (base, base + 256, base + 512 + offset)
+    aligned = d % 8 == 0 and f % 8 == 0 and offset % 16 == 0
+    want = "wgmma" if dtype == torch.bfloat16 and aligned else "simt"
+    assert sg.route(dtype, d, f, *ptrs) == want
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "qwen2.5-14b"])
+def test_swiglu_route_takes_every_config_in_bf16(arch):
+    for cfg in (get_config(arch), get_config(arch).reduced()):
+        x = torch.empty(3, cfg.d_model, dtype=torch.bfloat16)
+        w = torch.empty(cfg.d_model, cfg.d_ff, dtype=torch.bfloat16)
+        assert sg.route(torch.bfloat16, cfg.d_model, cfg.d_ff, x[1:].data_ptr(),
+                        w.data_ptr(), w.data_ptr()) == "wgmma"
+
+
+class _CountingLib:
+    """Stands in for the kernel library: records which entry point ran."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append(name)
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("dtype,d,f,way", [(torch.bfloat16, 64, 128, "wgmma"),
+                                           (torch.bfloat16, 60, 128, "simt"),
+                                           (torch.float32, 64, 128, "simt")])
+def test_swiglu_wrappers_launch_and_count_by_route(monkeypatch, dtype, d, f, way):
+    # the CUDA checks and the library are stood in for, so the CPU can run
+    # the wrappers' routing and counting
+    lib = _CountingLib()
+    monkeypatch.setattr(sg, "build", lambda: lib)
+    monkeypatch.setattr(sg, "_check", lambda *tensors: None)
+    monkeypatch.setattr(sg._build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    x, wg, wu = (torch.zeros(s, dtype=dtype) for s in ((40, d), (d, f), (d, f)))
+    ops.reset_launch_counts()
+    for _ in range(2):
+        sg.swiglu_fwd(x, wg, wu)
+    sg.swiglu_bwd(x, wg, wu, torch.zeros(40, f, dtype=dtype))
+    name = "repro_swiglu_wgmma" if way == "wgmma" else "repro_swiglu"
+    assert lib.calls == [f"{name}_fwd"] * 2 + [f"{name}_bwd"]
+    other = "simt" if way == "wgmma" else "wgmma"
+    counts = ops.launch_counts()
+    assert (counts["swiglu"], counts["swiglu_bwd"]) == (2, 1)
+    assert (counts[f"swiglu_{way}"], counts[f"swiglu_bwd_{way}"]) == (2, 1)
+    assert (counts[f"swiglu_{other}"], counts[f"swiglu_bwd_{other}"]) == (0, 0)
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts().values()) == {0}
+
+
 # ----------------------------------------------------------- on the card
 def _grads(fn, inputs, dout):
     ts = [t.detach().clone().requires_grad_() for t in inputs]
@@ -382,20 +450,62 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, dtype):
     torch.cuda.synchronize()
 
 
+# the wgmma route's edges: T = 1 and 100 (ragged row tiles), d = 200 (a
+# ragged last k-tile), f = 520 (a ragged column tile)
+SWIGLU_EDGES = [(1, 256, 512), (100, 256, 512), (128, 200, 512), (128, 256, 520)]
+# a slice of phi3's FFN, in bf16 only: in fp32 at d = 3072 two correct sums
+# in different orders differ by more than 2e-5, and cuBLAS splits K at T = 256
+SWIGLU_SLICE = (256, 3072, 8192)
+
+
+@pytest.mark.cuda
+def test_cuda_swiglu_wgmma_products_match_matmul(cuda_device):
+    """The tensor-core mainloop alone, one tile and one k-tile first: g and
+    u (bf16) against fp32 matrix products of the same bf16 inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib = sg.build()
+    for T, d, f in [(128, 64, 128), (64, 64, 128), (128, 128, 256)] + SWIGLU_EDGES + [
+            SWIGLU_SLICE]:
+        x, wg, wu = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                     for a in _swiglu_inputs(T, d, f))
+        g, u = (torch.empty(T, f, dtype=torch.bfloat16, device=cuda_device) for _ in range(2))
+        err = lib.repro_swiglu_wgmma_products(x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+                                              g.data_ptr(), u.data_ptr(), T, d, f,
+                                              kernel_build.stream_of(x))
+        assert err == 0, f"launch failed: cudaError {err}"
+        for got, w, name in ((g, wg, "g"), (u, wu, "u")):
+            want = x.float() @ w.float()
+            torch.testing.assert_close(got.float(), want, rtol=1e-2, atol=1e-2,
+                                       msg=f"{name} T={T} d={d} f={f}")
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_swiglu_kernel_matches_plain(cuda_device, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
-    for T, d, f in SWIGLU_SHAPES + [(100, 256, 512), (37, 200, 300)]:
+    cases = SWIGLU_SHAPES + SWIGLU_EDGES + [(37, 200, 300)]
+    if dtype == torch.bfloat16:
+        cases.append(SWIGLU_SLICE)
+    for T, d, f in cases:
         x, wg, wu = (torch.from_numpy(a).to(cuda_device, dtype)
                      for a in _swiglu_inputs(T, d, f))
         dout = torch.randn((T, f), generator=torch.Generator(cuda_device).manual_seed(2),
                            device=cuda_device).to(dtype)
+        ops.reset_launch_counts()
         out, grads = _grads(ops.swiglu, (x, wg, wu), dout)
+        way = "wgmma" if dtype == torch.bfloat16 and (d % 8, f % 8) == (0, 0) else "simt"
+        counts = ops.launch_counts()
+        assert (counts[f"swiglu_{way}"], counts[f"swiglu_bwd_{way}"]) == (1, 1), counts
+        assert (counts["swiglu"], counts["swiglu_bwd"]) == (1, 1), counts
         ref, ref_grads = _grads(lambda a, b, c: ops.swiglu(a, b, c, impl="ref"),
                                 (x, wg, wu), dout)
         tol = _tol(dtype)
-        what = f"T={T} d={d} f={f} {dtype}"
+        what = f"T={T} d={d} f={f} {dtype} ({way})"
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol, msg=what)
         _assert_grads_close(grads, ref_grads, dtype, what)
+        dg, du = sg.swiglu_bwd(x, wg, wu, dout)
+        pdg, pdu = swiglu_bwd_ref(x, wg, wu, dout)
+        torch.testing.assert_close(dg.float(), pdg.float(), rtol=tol, atol=tol, msg=f"dg {what}")
+        torch.testing.assert_close(du.float(), pdu.float(), rtol=tol, atol=tol, msg=f"du {what}")
     torch.cuda.synchronize()
