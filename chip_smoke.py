@@ -8,13 +8,17 @@ and a non-zero exit:
 
 1. device -- CUDA must be present; the card's name and power limit.
 2. build -- compile the three kernel sources from ``src/`` with nvcc, one
-   process each, all at once; every kernel's registers and spills, and each
-   swiglu kernel's registers, shared memory and spills.
+   process each, all at once; every kernel's registers and spills, each
+   swiglu and flash-attention kernel's registers, shared memory and spills,
+   and the wgmma blocks' dynamic shared memory.
 3. kernel parity -- each CUDA kernel against its plain PyTorch version:
    decode attention on the sweep of ``tests/test_kernels.py::
    test_decode_attention`` and phi3-mini-3.8b's decode shape; flash
    attention (forward, and the backward's dq/dk/dv) on every case of
-   ``tests/test_kernels.py:18-58`` and the training shape [2,1024,32,96];
+   ``tests/test_kernels.py:18-58``, ragged S, qwen2.5-14b's GQA shape (bf16)
+   and the training shape [2,1024,32,96], each case's route asserted
+   through the launch counters (bf16 below hd 256 on wgmma) and two
+   backward calls held bit-equal;
    swiglu (forward, dg/du, and dx/dW_gate/dW_up) on the cases of
    ``:74-84``, the edges of its wgmma route (T 1 and 100, d 200, f 520), an
    odd bf16 shape that takes the simt route, a 256-row slice of phi3's FFN
@@ -23,9 +27,10 @@ and a non-zero exit:
    (bf16), gradients at 1e-4 (fp32) and 2e-2 x max|ref| (bf16).  Each
    kernel's median time at its main-path shape (CUDA events, L2 flushed)
    beside its bound, the plain version and a PyTorch yardstick
-   (``scaled_dot_product_attention``; for swiglu the compositions
-   ``silu(x@wg) * (x@wu)`` and its backward's ``dg``/``du``); swiglu's simt
-   kernels also in fp32.
+   (``scaled_dot_product_attention``, pinned to one backend, the flash
+   backend in bf16; for swiglu the compositions ``silu(x@wg) * (x@wu)`` and
+   its backward's ``dg``/``du``); the simt kernels of flash attention and
+   swiglu also in fp32.
 4. full-width serve -- phi3-mini-3.8b, all 32 layers, bf16, random weights
    from seed 0, a hand-built 4-stage serve plan run through
    ``run_serve_plan(..., use_kernels=True)``: kernel launches counted, tokens
@@ -41,19 +46,19 @@ and a non-zero exit:
 6. full-width training -- phi3-mini-3.8b at full width cut to 4 layers,
    bf16, seed 0: 2 stages x 2 replicas, 2 micro-batches of 2 x 1024 tokens,
    AdamW, 2 steps through ``run_plan(..., execution=Execution(...,
-   use_kernels=True))``.  Exact launch counts per step, every swiglu
-   launch on the wgmma route; in step 1 every
+   use_kernels=True))``.  Exact launch counts per step, every flash and
+   swiglu launch on the wgmma route; in step 1 every
    kernel call held against ``impl="ref"`` on its real inputs, outputs and
    gradients; finite losses; replicas bit-identical after each step; store
    drained; virtual clock, cost and ``StoreStats`` equal to a timing-only
    run; the first loss within 2e-2 of the plain path's (``use_kernels=
    False``).  Step wall time, peak memory and one profiled step.
 7. full-width fp32 training -- the same model in fp32, d = 1, SGD, 1 step,
-   kernels on and off: losses within 5e-5, every param within 1e-4; swiglu
-   on the simt route.
+   kernels on and off: losses within 5e-5, every param within 1e-4; flash
+   and swiglu on the simt route.
 8. reduced training -- phi3-mini-3.8b@reduced (4 layers, fp32) on the plan of
    ``tests/test_runtime.py:230-240``, kernels on and off: losses within
-   2e-4, params within 2e-3; swiglu on the simt route.
+   2e-4, params within 2e-3; flash and swiglu on the simt route.
 
 The last lines are the kernels' record, the ``nvidia-smi`` name/power line
 and ``{"ok": true, "device": {...}}``.
@@ -118,11 +123,15 @@ REDUCED = dict(batch=2, prefill_tokens=24, new_tokens=8)
 FP32_STEPS = 5                 # teacher-forced steps of the fp32 full-width check
 
 # training: flash cases of tests/test_kernels.py:18-58 (B, S, Hq, Hkv, hd,
-# causal, window), a ragged S, and the full-width train shape
+# causal, window), ragged S (100, and 200 with a window of 48), and the
+# full-width train shape; in bf16 also qwen2.5-14b's attention (GQA 40/8, hd
+# 128) on the wgmma route
 FLASH_CASES = [(2, S, Hq, Hkv, hd, True, 0) for S, Hq, Hkv, hd in (
     (128, 4, 4, 64), (256, 8, 2, 64), (256, 4, 1, 128), (128, 2, 2, 96), (384, 8, 4, 256))]
 FLASH_CASES += [(1, 256, 4, 2, 64, True, w) for w in (64, 128, 1024)]
-FLASH_CASES += [(2, 128, 4, 4, 80, False, 0), (2, 100, 4, 2, 96, True, 0)]
+FLASH_CASES += [(2, 128, 4, 4, 80, False, 0), (2, 100, 4, 2, 96, True, 0),
+                (1, 200, 4, 4, 64, True, 48)]
+FLASH_BF16_CASES = [(1, 1024, 40, 8, 128, True, 0)]
 FLASH_TRAIN = (2, 1024, 32, 32, 96, True, 0)
 # swiglu: the cases of tests/test_kernels.py:74-84, the wgmma route's edges
 # (T 1 and 100, a ragged last k-tile at d 200, a ragged column tile at f
@@ -215,6 +224,12 @@ def phase_build() -> None:
                       "spill_bytes": spills, "max_spill_bytes": max(spills, default=None)}
     libs["swiglu"]["per_kernel"] = _kernel_reports(info["swiglu"]["compiler_log"])
     libs["swiglu"]["wgmma_dynamic_smem_bytes"] = sg_kernel.build().repro_swiglu_wgmma_smem_bytes()
+    libs["flash_attention"]["per_kernel"] = _kernel_reports(
+        info["flash_attention"]["compiler_log"])
+    smem = fa_kernel.build().repro_flash_wgmma_smem_bytes
+    libs["flash_attention"]["wgmma_dynamic_smem_bytes"] = {
+        f"hd{hd}": dict(zip(("fwd", "dkdv", "dq"), (smem(kernel, hd) for kernel in range(3))))
+        for hd in fa_kernel.WGMMA_HEAD_DIMS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": libs})
 
 
@@ -311,76 +326,158 @@ def _check_kernel(kernel, plain, inputs, dout, what) -> dict:
             "grad": _grad_errs(grads, refs, dtype, what)}
 
 
+def _flash_way(dtype, hd: int) -> str:
+    """The route a flash call on fresh (aligned) tensors must take."""
+    return "wgmma" if dtype == torch.bfloat16 and hd in fa_kernel.WGMMA_HEAD_DIMS else "simt"
+
+
 def _flash_parity(gen, flush) -> tuple:
-    n_cases, train_err = 0, {}
+    n_cases, train_err, routes = 0, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        for B, S, Hq, Hkv, hd, causal, window in FLASH_CASES + [FLASH_TRAIN]:
+        extra = FLASH_BF16_CASES if dtype == torch.bfloat16 else []
+        for B, S, Hq, Hkv, hd, causal, window in FLASH_CASES + extra + [FLASH_TRAIN]:
             q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
             k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
                     for _ in range(2))
             do = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+            what = (f"flash B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} causal={causal} "
+                    f"window={window} {dtype}")
+            ops.reset_launch_counts()
             err = _check_kernel(
                 lambda a, b, c: ops.flash_attention(a, b, c, causal=causal, window=window),
                 lambda a, b, c: ops.flash_attention(a, b, c, causal=causal, window=window,
                                                     impl="ref"),
-                (q, k, v), do, f"flash B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
-                f"causal={causal} window={window} {dtype}")
+                (q, k, v), do, what)
+            # the backward twice on the same inputs: the same bits (no atomics)
+            o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+            grads = [fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                                   window=window) for _ in range(2)]
+            if not all(torch.equal(a, b) for a, b in zip(*grads)):
+                raise AssertionError(f"{what}: two backward calls differ")
+            way = _flash_way(dtype, hd)
+            counts = ops.launch_counts()
+            if (counts[f"flash_attention_{way}"], counts[f"flash_attention_bwd_{way}"]) != (2, 3) \
+                    or (counts["flash_attention"], counts["flash_attention_bwd"]) != (2, 3):
+                raise AssertionError(f"{what}: expected the {way} route, launches {counts}")
+            routes[f"{B}x{S}x{Hq}/{Hkv}x{hd} causal={causal} window={window} "
+                   f"{str(dtype)[6:]}"] = way
             n_cases += 1
             if (B, S, Hq, Hkv, hd, causal, window) == FLASH_TRAIN:
                 train_err[str(dtype)[6:]] = err
     torch.cuda.synchronize()
 
-    # timing at the training shape, bf16, causal: forward and backward
+    bf16 = _flash_timing(gen, flush, torch.bfloat16)
+    fp32 = _flash_timing(gen, flush, torch.float32)
     B, S, H, _, hd, _, _ = FLASH_TRAIN
-    q, k, v, do = (torch.randn(B, S, H, hd, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def rec(r, err):
+        return {k: v for k, v in r.items() if k not in ("bytes", "flops", "extra")} | \
+            {"max_abs_err": err}
+
+    recs = {"flash_attention": rec(bf16["fwd"], train_err["bfloat16"]["out"]),
+            "flash_attention_bwd": rec(bf16["bwd"], train_err["bfloat16"]["grad"]),
+            "flash_attention_simt": rec(fp32["fwd"], train_err["float32"]["out"]),
+            "flash_attention_bwd_simt": rec(fp32["bwd"], train_err["float32"]["grad"])}
+    detail = {"cases": n_cases, "routes": routes, "train_shape_max_abs_err": train_err,
+              "timing_shape": {"B": B, "S": S, "Hq": H, "Hkv": H, "hd": hd, "causal": True,
+                               "dtype": ["bfloat16", "float32"]},
+              "bytes_flops": {f"{k} {dtype}": {"bytes": r[k]["bytes"], "flops": r[k]["flops"],
+                                               "tflop_per_s": r[k]["tflop_per_s"]}
+                              for dtype, r in (("bfloat16", bf16), ("float32", fp32))
+                              for k in ("fwd", "bwd")},
+              "sdpa": {"bfloat16": bf16["sdpa"], "float32": fp32["sdpa"]},
+              "simt_kernels_on_bf16_ms": bf16["simt_bf16"]}
+    return recs, detail
+
+
+def _sdpa_times(q, k, v, do, flush, backend) -> dict:
+    """scaled_dot_product_attention (causal) forward, backward and both, in
+    [B, H, S, hd] layout, with the dispatcher pinned to ``backend`` (None:
+    its default choice): the yardstick of the flash kernels' times (the
+    port never calls it)."""
+    from torch.nn.attention import sdpa_kernel
+
+    qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (qh, kh, vh))
+    with sdpa_kernel(backend) if backend is not None else contextlib.nullcontext():
+        fwd = _time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), flush)
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        bwd = _time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), doh, retain_graph=True),
+                       flush)
+
+        def fwd_bwd():
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            torch.autograd.grad(o, (qs, ks, vs), doh)
+
+        both = _time_ms(fwd_bwd, flush)
+    return {"backend": backend.name if backend is not None else "default", "fwd_ms": fwd,
+            "bwd_ms": bwd, "fwd_bwd_ms": both}
+
+
+def _flash_timing(gen, flush, dtype) -> dict:
+    """The forward and backward kernels at the training shape (causal) in
+    ``dtype``, beside their plain versions, SDPA pinned to one backend
+    (flash attention in bf16, memory-efficient attention in fp32, which the
+    flash backend does not take) and the bound; SDPA's default dispatch
+    beside it."""
+    from torch.nn.attention import SDPBackend
+
+    B, S, H, _, hd, _, _ = FLASH_TRAIN
+    q, k, v, do = (torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
                    for _ in range(4))
+    way = _flash_way(dtype, hd)
+    ops.reset_launch_counts()
     o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=True)
     fwd_ms = _time_ms(lambda: fa_kernel.flash_attention_fwd(q, k, v, causal=True), flush)
     bwd_ms = _time_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
                       flush)
+    counts = ops.launch_counts()
+    if counts[f"flash_attention_{way}"] != counts["flash_attention"] or \
+            counts[f"flash_attention_bwd_{way}"] != counts["flash_attention_bwd"]:
+        raise AssertionError(f"timed flash {dtype} off the {way} route: {counts}")
+    backend = SDPBackend.FLASH_ATTENTION if dtype == torch.bfloat16 \
+        else SDPBackend.EFFICIENT_ATTENTION
+    sdpa = _sdpa_times(q, k, v, do, flush, backend)
+    sdpa["deterministic_algorithms"] = torch.are_deterministic_algorithms_enabled()
+    sdpa["default_dispatch"] = _sdpa_times(q, k, v, do, flush, None)
+    simt = {}
+    if way == "wgmma":
+        # the simt kernels on the same bf16 inputs, through their C entry
+        # points (uncounted): the design the wgmma kernels replace
+        lib, stream = fa_kernel.build(), kernel_build.stream_of(q)
+        so, slse = torch.empty_like(q), torch.empty_like(lse)
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        ptrs = [t.data_ptr() for t in (q, k, v)]
+        args = (B, S, H, H, hd, 1, 1, 0, hd ** -0.5, stream)
+        simt["fwd_ms"] = _time_ms(lambda: lib.repro_flash_attention_fwd(
+            *ptrs, so.data_ptr(), slse.data_ptr(), *args), flush, reps=10)
+        simt["bwd_ms"] = _time_ms(lambda: lib.repro_flash_attention_bwd(
+            *ptrs, o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *args), flush, reps=10)
+        _close(so, o, 2e-2, "flash simt vs wgmma, bf16")
     fwd_plain = _time_ms(lambda: ops.flash_attention(q, k, v, impl="ref"), flush)
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
     ref_out = ops.flash_attention(qg, kg, vg, impl="ref")
     bwd_plain = _time_ms(lambda: torch.autograd.grad(ref_out, (qg, kg, vg), do,
                                                      retain_graph=True), flush)
-    qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
-    fwd_lib = _time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), flush)
-    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (qh, kh, vh))
-    sdpa_out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    bwd_lib = _time_ms(lambda: torch.autograd.grad(sdpa_out, (qs, ks, vs), doh,
-                                                   retain_graph=True), flush)
-
-    def fwd_bwd_lib():
-        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-        torch.autograd.grad(out, (qs, ks, vs), doh)
-
-    fwd_bwd_lib_ms = _time_ms(fwd_bwd_lib, flush)
     slab = B * S * H * hd * q.element_size()     # one of q, k, v, o, do, dq, dk, dv
     pairs = B * H * S * (S + 1) // 2             # causal (q, k) pairs
     lse_b = B * H * S * 4
     fwd_b, fwd_f = 4 * slab + lse_b, 4 * hd * pairs            # QK^T, PV
     bwd_b, bwd_f = 8 * slab + lse_b, 10 * hd * pairs           # S, dP, dV, dK, dQ
-    fwd_bound, fwd_by = _bound(fwd_b, fwd_f, torch.bfloat16)
-    bwd_bound, bwd_by = _bound(bwd_b, bwd_f, torch.bfloat16)
-    recs = {
-        "flash_attention": {"ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": fwd_lib,
-                            "library_call": "scaled_dot_product_attention(is_causal=True)",
-                            "bound_ms": fwd_bound, "bound_by": fwd_by, "kernel_route": "simt",
-                            "tflop_per_s": fwd_f / fwd_ms / 1e9,
-                            "max_abs_err": train_err["bfloat16"]["out"]},
-        "flash_attention_bwd": {"ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": bwd_lib,
-                                "library_call": "autograd of scaled_dot_product_attention",
-                                "bound_ms": bwd_bound, "bound_by": bwd_by,
-                                "kernel_route": "simt", "tflop_per_s": bwd_f / bwd_ms / 1e9,
-                                "max_abs_err": train_err["bfloat16"]["grad"]},
-    }
-    detail = {"cases": n_cases, "train_shape_max_abs_err": train_err,
-              "timing_shape": {"B": B, "S": S, "Hq": H, "Hkv": H, "hd": hd, "causal": True,
-                               "dtype": "bfloat16"},
-              "fwd": {"bytes": fwd_b, "flops": fwd_f, "tflop_per_s": fwd_f / fwd_ms / 1e9},
-              "bwd": {"bytes": bwd_b, "flops": bwd_f, "tflop_per_s": bwd_f / bwd_ms / 1e9},
-              "sdpa_fwd_bwd_ms": fwd_bwd_lib_ms}
-    return recs, detail
+    fwd_bound, fwd_by = _bound(fwd_b, fwd_f, dtype)
+    bwd_bound, bwd_by = _bound(bwd_b, bwd_f, dtype)
+    call = f"scaled_dot_product_attention(is_causal=True), {sdpa['backend']} backend"
+    return {
+        "fwd": {"ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": sdpa["fwd_ms"],
+                "library_call": call, "bound_ms": fwd_bound, "bound_by": fwd_by,
+                "kernel_route": way, "tflop_per_s": fwd_f / fwd_ms / 1e9,
+                "bytes": fwd_b, "flops": fwd_f},
+        "bwd": {"ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": sdpa["bwd_ms"],
+                "library_call": f"autograd of {call}", "bound_ms": bwd_bound,
+                "bound_by": bwd_by, "kernel_route": way, "tflop_per_s": bwd_f / bwd_ms / 1e9,
+                "bytes": bwd_b, "flops": bwd_f},
+        "sdpa": sdpa, "simt_bf16": simt}
 
 
 def _swiglu_way(dtype, d: int, f: int) -> str:
@@ -647,12 +744,16 @@ def _profile_summary(prof, wall: float, steps: int) -> dict:
 
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / steps
+    # the port's kernels by source: every kernel whose name holds the word
+    by_source = {word: sum(dev_us(e) for e in kernels if word in e.key) / 1e3 / steps
+                 for word in ("flash", "swiglu", "decode_attention")}
     wall_ms = wall * 1e3 / steps
     top = sorted(kernels, key=dev_us, reverse=True)[:6]
     host = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:8]
     return {"steps": steps, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "port_kernels_ms_per_step": by_source,
             "top_kernels_ms_per_step": [[e.key[:80], dev_us(e) / 1e3 / steps, e.count // steps]
                                         for e in top],
             "top_host_ops_ms_per_step": [[e.key[:60], e.self_cpu_time_total / 1e3 / steps,
@@ -1001,18 +1102,21 @@ def training_kernels_as_plain():
 
 def _expected_launches(n: int, way: str) -> dict:
     """``ops.launch_counts()`` after n launches of each training kernel,
-    forward and backward, with swiglu on route ``way``."""
+    forward and backward, with flash attention and swiglu on route ``way``."""
     other = "simt" if way == "wgmma" else "wgmma"
-    return {"decode_attention": 0, "flash_attention": n, "flash_attention_bwd": n,
-            "swiglu": n, "swiglu_bwd": n, f"swiglu_{way}": n, f"swiglu_bwd_{way}": n,
-            f"swiglu_{other}": 0, f"swiglu_bwd_{other}": 0}
+    counts = {"decode_attention": 0}
+    for name in ("flash_attention", "swiglu"):
+        counts |= {name: n, f"{name}_bwd": n, f"{name}_{way}": n, f"{name}_bwd_{way}": n,
+                   f"{name}_{other}": 0, f"{name}_bwd_{other}": 0}
+    return counts
 
 
 def train_routes(cfg, spec, optimizer, params, *, d: int, steps: int, routes) -> dict:
     """One run_plan per route on the same params and batches: "kernel"
-    (``use_kernels=True``, swiglu on the simt route: these runs are fp32),
+    (``use_kernels=True``),
     "kernel_plain" (the same path with the kernels' plain versions) and
-    "plain" (``use_kernels=False``)."""
+    "plain" (``use_kernels=False``); flash attention and swiglu on the simt
+    route (these runs are fp32)."""
     prof, plat, config, M = train_setup(cfg, spec, d=d)
     batches = train_batches(cfg, spec, d, steps)
     per_run = d * spec["mu"] * cfg.n_layers * steps
@@ -1101,13 +1205,13 @@ def main() -> None:
     launches = {"decode_attention": phase_serve_full(smi)}
     phase_serve_reduced(smi)
     train = phase_train_full(smi)
-    launches.update({k: train[k] for k in ("flash_attention", "flash_attention_bwd")})
-    # the bf16 main path's swiglu launches all took the wgmma kernels, the
-    # fp32 path's the simt kernels
-    launches.update({"swiglu": train["swiglu_wgmma"], "swiglu_bwd": train["swiglu_bwd_wgmma"]})
     fp32 = phase_train_fp32(smi)
-    launches.update({"swiglu_simt": fp32["swiglu_simt"],
-                     "swiglu_bwd_simt": fp32["swiglu_bwd_simt"]})
+    # the bf16 main path's training launches all took the wgmma kernels, the
+    # fp32 path's the simt kernels
+    for name in ("flash_attention", "swiglu"):
+        launches |= {name: train[f"{name}_wgmma"], f"{name}_bwd": train[f"{name}_bwd_wgmma"],
+                     f"{name}_simt": fp32[f"{name}_simt"],
+                     f"{name}_bwd_simt": fp32[f"{name}_bwd_simt"]}
     phase_train_reduced(smi)
     source = "src/repro_torch/kernels/csrc/{}.cu"
     tpu = {"decode_attention": "src/repro/kernels/decode_attention.py:68",

@@ -4,7 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header, so ``nvcc`` builds it in seconds.  It is compiled for ``sm_90a`` on
 first use into ``build/torch_kernels/`` at the root of the checkout, into a
 library named by a hash of the source: an edited source is rebuilt, and a
-concurrent build never loads a half-written file.  ``nvcc``'s report (ptxas
+concurrent build never loads a half-written file.  The hash covers the
+source and every header of ``csrc/`` it includes (``hopper.cuh``), so an
+edited header rebuilds each library that includes it.  ``nvcc``'s report (ptxas
 registers and spills) is kept beside each library as ``lib<name>_<hash>.log``
 and read back when the library is already built.  The libraries are bound
 with ``ctypes``.  :func:`build_all` starts one ``nvcc`` per source at once.
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -47,10 +50,26 @@ def _nvcc() -> str:
         "port's kernels are compiled on the machine with the card")
 
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources_of(path: Path) -> list:
+    """``path`` and the headers beside it that it includes, transitively,
+    each once, in the order first met."""
+    found = [path]
+    for p in found:
+        for inc in _LOCAL_INCLUDE.findall(p.read_text()):
+            header = p.parent / inc
+            if header.exists() and header not in found:
+                found.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    tag = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{tag}.so"
+    digest = hashlib.sha256()
+    for path in sources_of(CSRC / f"{name}.cu"):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, dict]:

@@ -3,19 +3,61 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::
 // flash_attention (body _flash_kernel).  Same function: q [B,S,Hq,hd] and
 // k/v [B,S,Hkv,hd] in fp32 or bf16, query head h reading kv head h / G
-// (G = Hq / Hkv), scale hd^-0.5 applied to q in fp32, an fp32 online softmax,
-// l floored at 1e-30, the output cast to q's dtype.  Masks: causal, causal
-// with a sliding window (k_pos > q_pos - window), or none; positions are
-// arange(S), as on the Pallas path.  The Pallas kernel is forward-only; the
-// backward here is the standard flash-attention backward, checked against
-// autograd of the plain version (kernels/ref.py::flash_attention_ref).
+// (G = Hq / Hkv), scale hd^-0.5, an fp32 online softmax, l floored at 1e-30,
+// the output cast to q's dtype.  Masks: causal, causal with a sliding
+// window (k_pos > q_pos - window), or none; positions are arange(S), as on
+// the Pallas path.  The Pallas kernel is forward-only; the backward here is
+// the standard flash-attention backward, checked against autograd of the
+// plain version (kernels/ref.py::flash_attention_ref).  The forward also
+// writes the row log-sum-exp lse [B,Hq,S] (fp32), from which the backward
+// recomputes P without a second softmax pass.
 //
 // What bounds it on the card: at the training shape (S = 1024, hd = 96) the
-// work is operations (~4 S^2 hd / 2 flops a head against ~8 S hd bytes), so
-// the bound is the tensor cores' rate.  This first version runs on the CUDA
-// cores in fp32 (fp32 inputs have to stay fp32 to hold 2e-5), so it is far
-// from that bound; the design only keeps the operands in shared memory and
-// the output tile in registers:
+// work is operations (~4 S^2 hd / 2 flops a head forward, 10 S^2 hd / 2
+// backward, against ~8 S hd bytes), so the bound is the tensor cores' rate.
+// Two designs, chosen per call by flash_attention.py's route() before the
+// launch:
+//
+// "wgmma" -- bf16 at hd 64, 80, 96 or 128 with 16-byte aligned pointers
+// (TMA's rules):
+//   * TMA reads 4-D tensor maps (hd, H, S, B) laid straight on the
+//     [B,S,H,hd] tensors, in boxes of 64 columns x 1 head x R rows,
+//     128B-swizzled; no transposed copies.  TMA fills rows past S and
+//     columns past hd with zeros, so ragged S needs no masked loads, and hd
+//     80 and 96 are two boxes, the second partly zeros (the products over
+//     the head dim skip the zero k16 steps; P V and the gradients run at
+//     N = 128);
+//   * forward: one block per (batch, q head, 128 q rows): two consumer
+//     warpgroups of 64 rows (wgmma's M) and a producer warp (setmaxnreg 232
+//     / 40).  Q arrives once; K and V tiles of 128 keys through a 2-stage
+//     mbarrier ring, K and V on barriers of their own so that Q K^T starts
+//     before V lands.  S = Q K^T with both operands K-major from shared
+//     memory; the scale hd^-0.5 goes on the fp32 scores; masks only on
+//     tiles that hold a disallowed pair (the diagonal, the window's edge,
+//     keys past S); the online softmax runs on the accumulator fragments in
+//     the log2 domain, each row's four lanes reducing with shfl_xor in a
+//     fixed order; P is packed to bf16 in registers, which is the A
+//     fragment layout of a register-A wgmma, and O += P V reads V in place
+//     as the MN-major B operand (imm-trans-b = 1);
+//   * backward: three launches, no atomics.  D = rowsum(dO * O) [B,Hq,S]
+//     fp32, once.  dK/dV: one block per (batch, kv head, 128 keys) keeps K
+//     and V in shared memory and streams 64-row Q and dO tiles (with lse
+//     and D, which the producer warp's lanes copy beside them) over the G
+//     query heads of the group and the q tiles that see the keys; S^T =
+//     K Q^T and dP^T = V dO^T on wgmma, P^T = exp(S^T scale - lse),
+//     dS^T = P^T (dP^T - D), then dV += P^T dO and dK += dS^T Q with A from
+//     registers and B MN-major.  dQ: one block per (batch, q head, 128 q
+//     rows) keeps Q and dO and streams 64-key K and V tiles: S, dP, dS and
+//     dQ += dS K; dK and dQ are scaled once at the end.  The two passes
+//     recompute S and dP each: 14 hd flops a (q, k) pair against the 10 hd
+//     of one pass with an atomic dQ, paid for gradients that are the same
+//     bits on every run (train_full compares replicas bit for bit);
+//   * stores are bf16 pairs straight from the accumulators to global
+//     memory, masked at the edges.
+// "simt" -- fp32 (fp32 inputs have to stay fp32 to hold 2e-5) and hd 256
+// (its 128-column accumulators do not fit the wgmma design's registers):
+// fp32 FMAs on the CUDA cores, the operands in shared memory and the output
+// tile in registers:
 //   * TPU: the k-block grid axis is sequential with (m, l, acc) in VMEM.
 //     Here one thread block owns a (batch, q head, q tile) and loops over
 //     the k tiles itself, from the window's first tile to the causal
@@ -25,31 +67,30 @@
 //     columns tx, tx+16, ... of the output rows it owns (hd/16 of them, so
 //     hd = 80 and 96 need no padding);
 //   * tiles live in shared memory in fp32 with a row stride of hd+1, which
-//     keeps the 16 column threads on 16 different banks;
+//     keeps the 16 column threads on 16 different banks; q is scaled by
+//     hd^-0.5 in fp32 as it is loaded;
 //   * the 16 threads of a row reduce their maxima and sums with
-//     __shfl_xor_sync in a fixed order: every result is bit-reproducible.
-// The forward also writes the row log-sum-exp lse [B,Hq,S] (fp32), from
-// which the backward recomputes P without a second softmax pass.
-//
-// The backward is two launches of this source, with no atomics:
-//   * dkdv: one block per (batch, kv head, k tile) loops over the G query
-//     heads of its group and over the q tiles that see the k tile,
-//     accumulating dK and dV in registers;
-//   * dq: one block per (batch, q head, q tile) loops over the k tiles like
-//     the forward, accumulating dQ in registers.
-// Each recomputes D = rowsum(dO * O) for the q rows it loads, and
-// P = exp(s - lse).  Tensor cores (wgmma), TMA and a pipelined ring of tiles
-// are later work.
+//     __shfl_xor_sync in a fixed order: every result is bit-reproducible;
+//   * the backward is two launches with no atomics: dkdv, one block per
+//     (batch, kv head, k tile), loops over the G query heads of its group
+//     and the q tiles that see the k tile, accumulating dK and dV in
+//     registers; dq, one block per (batch, q head, q tile), loops over the k
+//     tiles like the forward.  Each recomputes D = rowsum(dO * O) for the q
+//     rows it loads, and P = exp(s - lse).
 //
 // Build: nvcc -gencode=arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
 // The C entry points take raw pointers and PyTorch's current stream; they
-// launch, do not synchronise and return the CUDA error.
+// launch, do not synchronise and return the CUDA error.  The wgmma entry
+// points encode their TMA descriptors on the host (hopper.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -523,6 +564,865 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o, cons
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ wgmma route
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kConsumers = 2;  // warpgroups of 64 rows each; warpgroup 2 loads
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kStages = 2;     // ring depth of the streamed tiles
+constexpr int kFwdBQ = 128;    // forward: q rows per block
+constexpr int kFwdBK = 128;    // forward: keys per k tile
+constexpr int kKvBK = 128;     // dK/dV pass: keys per block
+constexpr int kKvBQ = 64;      // dK/dV pass: q rows per streamed tile
+constexpr int kDqBQ = 128;     // dQ pass: q rows per block
+constexpr int kDqBK = 64;      // dQ pass: keys per streamed tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// d[64x64] (+)= A[64x16] * B[16x64], both K-major in shared memory;
+// d is overwritten when scale_d is 0.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64x128] (+)= A[64x16] * B[16x128], both K-major in shared memory;
+// d is overwritten when scale_d is 0.
+__device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64x64] += A[64x16] * B[16x64]: A in registers (bf16 pairs in the
+// accumulator layout), B MN-major in shared memory (imm-trans-b = 1).
+__device__ __forceinline__ void mma_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// d[64x128] += A[64x16] * B[16x128]: A in registers (bf16 pairs in the
+// accumulator layout), B MN-major in shared memory (imm-trans-b = 1).
+__device__ __forceinline__ void mma_rs(float (&d)[64], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+// Keep the compiler from reusing a register A fragment before the wgmma
+// that reads it has completed.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A tile of R rows of one head of a [B, S, H, hd] tensor lies in shared
+// memory as HDP / 64 TMA boxes of R rows x 64 columns (128 bytes a row,
+// 128B-swizzled), box after box; HDP is hd rounded up to 64 or 128, and the
+// columns past hd are TMA's zeros.
+__host__ __device__ constexpr int n_boxes(int hd) { return hd > 64 ? 2 : 1; }
+
+template <int HD, int R>
+__host__ __device__ constexpr uint32_t tile_bytes() {
+  return n_boxes(HD) * R * 128;
+}
+
+template <int HD, int R>
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int head, int row0, int b) {
+#pragma unroll
+  for (int nb = 0; nb < n_boxes(HD); ++nb)
+    tma_load_4d(dst + nb * R * 128, map, bar, 64 * nb, head, row0, b);
+}
+
+// K-major operand (A or B of a product reduced over the head dim): rows
+// row0.. of an R-row tile, k16 step kk of the head dim (32 bytes of a box
+// row); 8-row groups 1 KB apart.
+template <int R>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0, int kk) {
+  return desc(tile + (kk / 4) * (R * 128) + row0 * 128 + (kk % 4) * 32, 16, 1024);
+}
+
+// MN-major B operand (a product reduced over the tile's R rows, N = the
+// head dim): k16 step kk of the rows (2 KB); the leading offset steps
+// between the 64-column boxes along N, the stride offset between 8-row
+// groups.
+template <int R>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  return desc(tile + kk * 2048, R * 128, 1024);
+}
+
+// Whether a tile pair [q0, q0 + bq) x [k0, k0 + bk) holds a disallowed
+// (q, k) pair or a position past S: only such tiles apply masks.
+__device__ __forceinline__ bool needs_mask(int q0, int bq, int k0, int bk, int S, int causal,
+                                           int window) {
+  return q0 + bq > S || k0 + bk > S ||
+         (causal && (k0 + bk - 1 > q0 || (window > 0 && q0 + bq - 1 - k0 >= window)));
+}
+
+// Accumulator i of a thread of a consumer warpgroup: row 16 * warp + lane / 4
+// + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2 * (lane % 4) + i % 2.  Packing
+// pairs (2j, 2j + 1) to bf16 gives register j of the A fragment of a
+// register-A wgmma, registers 4kk .. 4kk + 3 for its k16 step kk.
+
+// ---------------------------------------------------------------- forward
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S, int Hq,
+                       int Hkv, int causal, int window, float scale_log2) {
+  constexpr int BQ = kFwdBQ, BK = kFwdBK, HDP = 64 * n_boxes(HD);
+  constexpr uint32_t kQ = tile_bytes<HD, BQ>(), kKV = tile_bytes<HD, BK>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_tile = base;
+  auto k_tile = [&](int s) { return base + kQ + s * kKV; };
+  auto v_tile = [&](int s) { return base + kQ + (kStages + s) * kKV; };
+  const uint32_t bars = base + kQ + 2 * kStages * kKV;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  auto k_empty = [&](int s) { return bars + 8 * (1 + 2 * kStages + s); };
+  auto v_empty = [&](int s) { return bars + 8 * (1 + 3 * kStages + s); };
+
+  // causal: the q tiles with the most k tiles start first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ;
+  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq, hk = h / (Hq / Hkv);
+  int kt_lo, kt_hi;
+  k_tile_range(q0, BQ, BK, S, causal, window, &kt_lo, &kt_hi);
+  const int n = kt_hi - kt_lo;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), kConsumers);
+      mbar_init(v_empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer: one thread loads Q once, then K and V tiles into the ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(q_full, kQ);
+      load_tile<HD, BQ>(q_tile, &map_q, q_full, h, q0, b);
+      for (int it = 0; it < n; ++it) {
+        const int s = it % kStages;
+        const uint32_t ph = ((it / kStages) & 1) ^ 1;  // the first round passes at once
+        const int k0 = (kt_lo + it) * BK;
+        mbar_wait(k_empty(s), ph);
+        mbar_expect_tx(k_full(s), kKV);
+        load_tile<HD, BK>(k_tile(s), &map_k, k_full(s), hk, k0, b);
+        mbar_wait(v_empty(s), ph);
+        mbar_expect_tx(v_full(s), kKV);
+        load_tile<HD, BK>(v_tile(s), &map_v, v_full(s), hk, k0, b);
+      }
+    }
+  } else {
+    // ---- consumers: q rows q0 + 64 wg .. q0 + 64 wg + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // rows row0 and row0 + 8
+    const int col0 = 2 * (lane % 4);
+    float m[2] = {-1e30f, -1e30f};  // finite: a fully masked row leaves m, l and acc as they are
+    float l[2] = {0.f, 0.f};
+    float acc[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n; ++it) {
+      const int s = it % kStages;
+      const uint32_t ph = (it / kStages) & 1;
+      const int k0 = (kt_lo + it) * BK;
+
+      // S = Q K^T: A = Q, B = K, both K-major (the head dim is contiguous)
+      float sc[BK / 2];
+      mbar_wait(k_full(s), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        mma_ss(sc, kmajor<BQ>(q_tile, wg * 64, kk), kmajor<BK>(k_tile(s), 0, kk), kk);
+      wgmma_commit_wait();
+      fence_acc(sc);
+      if (threadIdx.x % 128 == 0) mbar_arrive(k_empty(s));
+
+      // scale in fp32, masks only on tiles that hold a disallowed pair (the
+      // diagonal, the window's edge, keys past S), online softmax in the
+      // log2 domain; each row's four lanes reduce in a fixed order
+      const bool mask = needs_mask(q0, BQ, k0, BK, S, causal, window);
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int hh = (i / 2) % 2;
+        float x = sc[i] * scale_log2;
+        if (mask && !allowed(row0 + 8 * hh, k0 + 8 * (i / 4) + col0 + i % 2, S, causal, window))
+          x = -INFINITY;
+        sc[i] = x;
+        mx[hh] = fmaxf(mx[hh], x);
+      }
+      float corr[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+        const float m_new = fmaxf(m[hh], mx[hh]);
+        corr[hh] = exp2f(m[hh] - m_new);
+        m[hh] = m_new;
+        l[hh] *= corr[hh];
+      }
+#pragma unroll
+      for (int i = 0; i < HDP / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+      uint32_t p[BK / 4];
+#pragma unroll
+      for (int j = 0; j < BK / 4; ++j) {
+        const float p0 = exp2f(sc[2 * j] - m[j % 2]), p1 = exp2f(sc[2 * j + 1] - m[j % 2]);
+        l[j % 2] += p0 + p1;
+        p[j] = pack_bf16(p0, p1);
+      }
+
+      // O += P V: A = P from registers, B = V, MN-major, read in place
+      mbar_wait(v_full(s), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        mma_rs(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+               mnmajor<BK>(v_tile(s), kk));
+      wgmma_commit_wait();
+      fence_acc(acc);
+      fence_regs(p);
+      if (threadIdx.x % 128 == 0) mbar_arrive(v_empty(s));
+    }
+
+    // epilogue: o = acc / l in bf16 pairs, lse = m + log(l) in fp32
+    const size_t row_stride = static_cast<size_t>(Hq) * HD;
+    __nv_bfloat16* ob = o + static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * HD;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      l[hh] = fmaxf(l[hh], 1e-30f);
+      const int row = row0 + 8 * hh;
+      if (row >= S) continue;
+      const float inv = 1.f / l[hh];
+#pragma unroll
+      for (int j = 0; j < HDP / 8; ++j) {
+        const int col = 8 * j + col0;
+        if (col < HD)
+          *reinterpret_cast<__nv_bfloat162*>(ob + row * row_stride + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
+      }
+      if (lane % 4 == 0)
+        lse[(static_cast<size_t>(b) * Hq + h) * S + row] = (m[hh] + log2f(l[hh])) * kLn2;
+    }
+  }
+}
+
+// ------------------------------------------- backward: D = rowsum(dO * O)
+// One warp per row of [B, S, Hq, hd], in memory order; D is [B, Hq, S].
+template <int HD>
+__global__ void __launch_bounds__(256)
+flash_wgmma_delta_kernel(const __nv_bfloat16* __restrict__ o,
+                         const __nv_bfloat16* __restrict__ dout, float* __restrict__ delta,
+                         int rows, int S, int Hq) {
+  const int r = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (r >= rows) return;  // whole warps
+  const size_t at = static_cast<size_t>(r) * HD;
+  float d = 0.f;
+#pragma unroll
+  for (int c = 2 * lane; c < HD; c += 64) {
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + at + c));
+    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + at + c));
+    d = fmaf(x.x, y.x, fmaf(x.y, y.y, d));
+  }
+  d = warp_sum(d);
+  if (lane == 0) {
+    const int bs = r / Hq, h = r % Hq;
+    delta[(static_cast<size_t>(bs / S) * Hq + h) * S + bs % S] = d;
+  }
+}
+
+// ------------------------------------------------------- backward: dK, dV
+// One block per (batch, kv head, 128 keys); K and V stay in shared memory,
+// Q and dO tiles of 64 rows (with their lse and D) stream through the ring
+// over the G query heads of the group and the q tiles that see the keys.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v,
+                        const __grid_constant__ CUtensorMap map_do,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S,
+                        int Hq, int Hkv, int causal, int window, float scale, float scale_log2) {
+  constexpr int BK = kKvBK, BQ = kKvBQ, HDP = 64 * n_boxes(HD);
+  constexpr uint32_t kK = tile_bytes<HD, BK>(), kQ = tile_bytes<HD, BQ>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - smem_addr(smem_raw));  // generic address of base
+  const uint32_t k_tile = base, v_tile = base + kK;
+  auto q_tile = [&](int s) { return base + 2 * kK + s * 2 * kQ; };
+  auto do_tile = [&](int s) { return base + 2 * kK + s * 2 * kQ + kQ; };
+  const uint32_t stats = 2 * kK + kStages * 2 * kQ;  // offset of lse * log2(e), then D, per stage
+  auto lse_s = [&](int s) { return reinterpret_cast<float*>(gbase + stats + s * 2 * BQ * 4); };
+  auto d_s = [&](int s) { return lse_s(s) + BQ; };
+  const uint32_t bars = base + stats + kStages * 2 * BQ * 4;
+  const uint32_t kv_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+
+  const int k0 = blockIdx.x * BK;
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const int G = Hq / Hkv;
+  // the q rows that see keys [k0, k0 + BK)
+  int q_lo = 0, q_hi = S;
+  if (causal) {
+    q_lo = k0;
+    if (window > 0) q_hi = min(S, k0 + BK - 1 + window);
+  }
+  const int qt_lo = q_lo / BQ, nq = (q_hi + BQ - 1) / BQ - qt_lo;
+  const int n = G * nq;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 32);  // the producer warp's lanes: lse and D by hand, lane 0 the TMA
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer: warp 0 of the warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x / 32 == kConsumers * 4) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * kK);
+        load_tile<HD, BK>(k_tile, &map_k, kv_full, hk, k0, b);
+        load_tile<HD, BK>(v_tile, &map_v, kv_full, hk, k0, b);
+      }
+      for (int it = 0; it < n; ++it) {
+        const int h = hk * G + it / nq, q0 = (qt_lo + it % nq) * BQ;
+        const int s = it % kStages;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        const size_t row = (static_cast<size_t>(b) * Hq + h) * S;
+#pragma unroll
+        for (int r = lane; r < BQ; r += 32) {
+          const int q = q0 + r;
+          lse_s(s)[r] = q < S ? lse[row + q] * kLog2e : 0.f;
+          d_s(s)[r] = q < S ? delta[row + q] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full(s), 2 * kQ);
+          load_tile<HD, BQ>(q_tile(s), &map_q, full(s), h, q0, b);
+          load_tile<HD, BQ>(do_tile(s), &map_do, full(s), h, q0, b);
+        } else {
+          mbar_arrive(full(s));
+        }
+      }
+    }
+  } else {
+    // ---- consumers: keys k0 + 64 wg .. k0 + 64 wg + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int key0 = k0 + wg * 64 + warp * 16 + lane / 4;  // keys key0 and key0 + 8
+    const int col0 = 2 * (lane % 4);
+    float dk_acc[HDP / 2], dv_acc[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n; ++it) {
+      const int q0 = (qt_lo + it % nq) * BQ;
+      const int s = it % kStages;
+      mbar_wait(full(s), (it / kStages) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T, all four operands K-major
+      float st[BQ / 2], dpt[BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        mma_ss(st, kmajor<BK>(k_tile, wg * 64, kk), kmajor<BQ>(q_tile(s), 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        mma_ss(dpt, kmajor<BK>(v_tile, wg * 64, kk), kmajor<BQ>(do_tile(s), 0, kk), kk);
+      wgmma_commit_wait();
+      fence_acc(st);
+      fence_acc(dpt);
+
+      // P^T = exp(S^T * scale - lse), dS^T = P^T (dP^T - D); masks only on
+      // tiles that hold a disallowed pair or rows past S
+      const float* ls = lse_s(s);
+      const float* ds = d_s(s);
+      const bool mask = needs_mask(q0, BQ, k0, BK, S, causal, window);
+      uint32_t pt[BQ / 4], dst[BQ / 4];
+#pragma unroll
+      for (int j = 0; j < BQ / 4; ++j) {
+        float pv[2], dsv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * j + e, c = 8 * (i / 4) + col0 + e;
+          float p = exp2f(st[i] * scale_log2 - ls[c]);
+          if (mask && !(q0 + c < S && allowed(q0 + c, key0 + 8 * (j % 2), S, causal, window)))
+            p = 0.f;
+          pv[e] = p;
+          dsv[e] = p * (dpt[i] - ds[c]);
+        }
+        pt[j] = pack_bf16(pv[0], pv[1]);
+        dst[j] = pack_bf16(dsv[0], dsv[1]);
+      }
+
+      // dV += P^T dO and dK += dS^T Q: A from registers, B MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        mma_rs(dv_acc, pt[4 * kk], pt[4 * kk + 1], pt[4 * kk + 2], pt[4 * kk + 3],
+               mnmajor<BQ>(do_tile(s), kk));
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        mma_rs(dk_acc, dst[4 * kk], dst[4 * kk + 1], dst[4 * kk + 2], dst[4 * kk + 3],
+               mnmajor<BQ>(q_tile(s), kk));
+      wgmma_commit_wait();
+      fence_acc(dv_acc);
+      fence_acc(dk_acc);
+      fence_regs(pt);
+      fence_regs(dst);
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty(s));
+    }
+
+    const size_t row_stride = static_cast<size_t>(Hkv) * HD;
+    const size_t head = static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(hk) * HD;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = key0 + 8 * hh;
+      if (key >= S) continue;
+#pragma unroll
+      for (int j = 0; j < HDP / 8; ++j) {
+        const int col = 8 * j + col0;
+        if (col >= HD) continue;
+        const size_t at = head + key * row_stride + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
+            dk_acc[4 * j + 2 * hh] * scale, dk_acc[4 * j + 2 * hh + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dv_acc[4 * j + 2 * hh], dv_acc[4 * j + 2 * hh + 1]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------ backward: dQ
+// One block per (batch, q head, 128 q rows); Q and dO stay in shared
+// memory, K and V tiles of 64 keys stream through the ring.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
+                      const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int S,
+                      int Hq, int Hkv, int causal, int window, float scale, float scale_log2) {
+  constexpr int BQ = kDqBQ, BK = kDqBK, HDP = 64 * n_boxes(HD);
+  constexpr uint32_t kQ = tile_bytes<HD, BQ>(), kK = tile_bytes<HD, BK>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_tile = base, do_tile = base + kQ;
+  auto k_tile = [&](int s) { return base + 2 * kQ + s * 2 * kK; };
+  auto v_tile = [&](int s) { return base + 2 * kQ + s * 2 * kK + kK; };
+  const uint32_t bars = base + 2 * kQ + kStages * 2 * kK;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ;
+  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq, hk = h / (Hq / Hkv);
+  int kt_lo, kt_hi;
+  k_tile_range(q0, BQ, BK, S, causal, window, &kt_lo, &kt_hi);
+  const int n = kt_hi - kt_lo;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      mbar_expect_tx(q_full, 2 * kQ);
+      load_tile<HD, BQ>(q_tile, &map_q, q_full, h, q0, b);
+      load_tile<HD, BQ>(do_tile, &map_do, q_full, h, q0, b);
+      for (int it = 0; it < n; ++it) {
+        const int s = it % kStages;
+        const int k0 = (kt_lo + it) * BK;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * kK);
+        load_tile<HD, BK>(k_tile(s), &map_k, full(s), hk, k0, b);
+        load_tile<HD, BK>(v_tile(s), &map_v, full(s), hk, k0, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // rows row0 and row0 + 8
+    const int col0 = 2 * (lane % 4);
+    const size_t stat = (static_cast<size_t>(b) * Hq + h) * S;
+    float lse2[2], dd[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      lse2[hh] = row < S ? lse[stat + row] * kLog2e : 0.f;
+      dd[hh] = row < S ? delta[stat + row] : 0.f;
+    }
+    float acc[HDP / 2];
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+
+    mbar_wait(q_full, 0);
+    for (int it = 0; it < n; ++it) {
+      const int s = it % kStages;
+      const int k0 = (kt_lo + it) * BK;
+      mbar_wait(full(s), (it / kStages) & 1);
+
+      // S = Q K^T and dP = dO V^T, all four operands K-major
+      float sc[BK / 2], dp[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        mma_ss(sc, kmajor<BQ>(q_tile, wg * 64, kk), kmajor<BK>(k_tile(s), 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        mma_ss(dp, kmajor<BQ>(do_tile, wg * 64, kk), kmajor<BK>(v_tile(s), 0, kk), kk);
+      wgmma_commit_wait();
+      fence_acc(sc);
+      fence_acc(dp);
+
+      const bool mask = needs_mask(q0, BQ, k0, BK, S, causal, window);
+      uint32_t dsr[BK / 4];
+#pragma unroll
+      for (int j = 0; j < BK / 4; ++j) {
+        const int hh = j % 2;
+        float dsv[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 2 * j + e;
+          float p = exp2f(sc[i] * scale_log2 - lse2[hh]);
+          if (mask && !allowed(row0 + 8 * hh, k0 + 8 * (i / 4) + col0 + e, S, causal, window))
+            p = 0.f;
+          dsv[e] = p * (dp[i] - dd[hh]);
+        }
+        dsr[j] = pack_bf16(dsv[0], dsv[1]);
+      }
+
+      // dQ += dS K: A from registers, B = K, MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        mma_rs(acc, dsr[4 * kk], dsr[4 * kk + 1], dsr[4 * kk + 2], dsr[4 * kk + 3],
+               mnmajor<BK>(k_tile(s), kk));
+      wgmma_commit_wait();
+      fence_acc(acc);
+      fence_regs(dsr);
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty(s));
+    }
+
+    const size_t row_stride = static_cast<size_t>(Hq) * HD;
+    __nv_bfloat16* dqb = dq + static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * HD;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = row0 + 8 * hh;
+      if (row >= S) continue;
+#pragma unroll
+      for (int j = 0; j < HDP / 8; ++j) {
+        const int col = 8 * j + col0;
+        if (col < HD)
+          *reinterpret_cast<__nv_bfloat162*>(dqb + row * row_stride + col) = __floats2bfloat162_rn(
+              acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
+      }
+    }
+  }
+}
+
+// -------------------------------------------------------------- the probe
+// One 64 x BK tile of S = Q K^T (fp32) and O = bf16(S) V (fp32) from one
+// warpgroup: the forward's descriptors and fragment layouts alone.
+template <int HD, int BK>
+__global__ void __launch_bounds__(128, 1)
+flash_wgmma_probe_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v, float* __restrict__ s_out,
+                         float* __restrict__ o_out) {
+  constexpr int HDP = 64 * n_boxes(HD);
+  constexpr uint32_t kQ = tile_bytes<HD, 64>(), kK = tile_bytes<HD, BK>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_tile = base, k_tile = base + kQ, v_tile = base + kQ + kK;
+  const uint32_t bar = base + kQ + 2 * kK;
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar, kQ + 2 * kK);
+    load_tile<HD, 64>(q_tile, &map_q, bar, 0, 0, 0);
+    load_tile<HD, BK>(k_tile, &map_k, bar, 0, 0, 0);
+    load_tile<HD, BK>(v_tile, &map_v, bar, 0, 0, 0);
+  }
+  mbar_wait(bar, 0);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = warp * 16 + lane / 4, col0 = 2 * (lane % 4);
+  float sc[BK / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    mma_ss(sc, kmajor<64>(q_tile, 0, kk), kmajor<BK>(k_tile, 0, kk), kk);
+  wgmma_commit_wait();
+  fence_acc(sc);
+  uint32_t p[BK / 4];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i)
+    s_out[(row0 + 8 * ((i / 2) % 2)) * BK + 8 * (i / 4) + col0 + i % 2] = sc[i];
+#pragma unroll
+  for (int j = 0; j < BK / 4; ++j) p[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+
+  float acc[HDP / 2];
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    mma_rs(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3], mnmajor<BK>(v_tile, kk));
+  wgmma_commit_wait();
+  fence_acc(acc);
+  fence_regs(p);
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) {
+    const int col = 8 * (i / 4) + col0 + i % 2;
+    if (col < HD) o_out[(row0 + 8 * ((i / 2) % 2)) * HD + col] = acc[i];
+  }
+}
+
+// ---------------------------------------------------------------- launches
+// A [B, S, H, hd] bf16 tensor as a 4-D tensor map (hd, H, S, B), boxes of 64
+// columns x 1 head x box_rows rows, 128B-swizzled; elements out of bounds
+// (rows past S, columns past hd) read as zeros.  Flattening to 2-D would
+// not do: a box past hd would read the next head's columns.
+bool encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;
+  const cuuint64_t strides[3] = {row, row * H, row * H * S};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Dynamic shared memory of each block: the tiles, the barriers and up to
+// 1 KB to align the first tile.
+template <int HD>
+constexpr int fwd_smem() {
+  return tile_bytes<HD, kFwdBQ>() + 2 * kStages * tile_bytes<HD, kFwdBK>() +
+         8 * (1 + 4 * kStages) + 1024;
+}
+template <int HD>
+constexpr int dkdv_smem() {
+  return 2 * tile_bytes<HD, kKvBK>() + kStages * 2 * tile_bytes<HD, kKvBQ>() +
+         kStages * 2 * kKvBQ * 4 + 8 * (1 + 2 * kStages) + 1024;
+}
+template <int HD>
+constexpr int dq_smem() {
+  return 2 * tile_bytes<HD, kDqBQ>() + kStages * 2 * tile_bytes<HD, kDqBK>() +
+         8 * (1 + 2 * kStages) + 1024;
+}
+
+template <int HD>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
+                int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!encode_bshd(&mq, q, B, S, Hq, HD, kFwdBQ) || !encode_bshd(&mk, k, B, S, Hkv, HD, kFwdBK) ||
+      !encode_bshd(&mv, v, B, S, Hkv, HD, kFwdBK))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_wgmma_fwd_kernel<HD>;
+  cudaError_t err = allow_smem(kernel, fwd_smem<HD>());
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + kFwdBQ - 1) / kFwdBQ, B * Hq);
+  kernel<<<grid, kThreads, fwd_smem<HD>(), stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S, Hq, Hkv, causal,
+      window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t bwd(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                const void* dout, void* delta, void* dq, void* dk, void* dv, int B, int S, int Hq,
+                int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+  CUtensorMap kv_q, kv_k, kv_v, kv_do, q_q, q_k, q_v, q_do;
+  // the dK/dV pass streams 64-row Q and dO tiles against 128 keys, the dQ
+  // pass 64-key K and V tiles against 128 q rows
+  if (!encode_bshd(&kv_q, q, B, S, Hq, HD, kKvBQ) ||
+      !encode_bshd(&kv_do, dout, B, S, Hq, HD, kKvBQ) ||
+      !encode_bshd(&kv_k, k, B, S, Hkv, HD, kKvBK) ||
+      !encode_bshd(&kv_v, v, B, S, Hkv, HD, kKvBK) ||
+      !encode_bshd(&q_q, q, B, S, Hq, HD, kDqBQ) ||
+      !encode_bshd(&q_do, dout, B, S, Hq, HD, kDqBQ) ||
+      !encode_bshd(&q_k, k, B, S, Hkv, HD, kDqBK) ||
+      !encode_bshd(&q_v, v, B, S, Hkv, HD, kDqBK))
+    return cudaErrorInvalidValue;
+  auto dkdv = flash_wgmma_dkdv_kernel<HD>;
+  auto dqk = flash_wgmma_dq_kernel<HD>;
+  cudaError_t err = allow_smem(dkdv, dkdv_smem<HD>());
+  if (err == cudaSuccess) err = allow_smem(dqk, dq_smem<HD>());
+  if (err != cudaSuccess) return err;
+  const float* lt = static_cast<const float*>(lse);
+  float* dt = static_cast<float*>(delta);
+  const int rows = B * S * Hq;
+  flash_wgmma_delta_kernel<HD><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), dt, rows, S,
+      Hq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid_kv((S + kKvBK - 1) / kKvBK, B * Hkv);
+  dkdv<<<grid_kv, kThreads, dkdv_smem<HD>(), stream>>>(
+      kv_q, kv_k, kv_v, kv_do, lt, dt, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), S, Hq, Hkv, causal, window, scale, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid_q((S + kDqBQ - 1) / kDqBQ, B * Hq);
+  dqk<<<grid_q, kThreads, dq_smem<HD>(), stream>>>(q_q, q_k, q_v, q_do, lt, dt,
+                                                    static_cast<__nv_bfloat16*>(dq), S, Hq, Hkv,
+                                                    causal, window, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int HD, int BK>
+cudaError_t probe(const void* q, const void* k, const void* v, void* s, void* o,
+                  cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!encode_bshd(&mq, q, 1, 64, 1, HD, 64) || !encode_bshd(&mk, k, 1, BK, 1, HD, BK) ||
+      !encode_bshd(&mv, v, 1, BK, 1, HD, BK))
+    return cudaErrorInvalidValue;
+  constexpr int smem = tile_bytes<HD, 64>() + 2 * tile_bytes<HD, BK>() + 8 + 1024;
+  auto kernel = flash_wgmma_probe_kernel<HD, BK>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<1, 128, smem, stream>>>(mq, mk, mv, static_cast<float*>(s), static_cast<float*>(o));
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+#define REPRO_WGMMA_HEAD_DIMS(X) X(64) X(80) X(96) X(128)
+
 #define REPRO_HEAD_DIMS(X) X(64) X(80) X(96) X(128) X(256)
 
 }  // namespace
@@ -565,4 +1465,58 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   REPRO_HEAD_DIMS(REPRO_BWD)
 #undef REPRO_BWD
   return (int)cudaErrorInvalidValue;
+}
+
+// The wgmma route: bf16, hd 64, 80, 96 or 128, every pointer 16-byte aligned
+// (flash_attention.py's route() decides).  Same arguments as above, no dtype.
+extern "C" int repro_flash_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
+                                     void* lse, int B, int S, int Hq, int Hkv, int hd, int causal,
+                                     int window, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_WGMMA_FWD(HD) \
+  if (hd == HD) return (int)tc::fwd<HD>(q, k, v, o, lse, B, S, Hq, Hkv, causal, window, scale, st);
+  REPRO_WGMMA_HEAD_DIMS(REPRO_WGMMA_FWD)
+#undef REPRO_WGMMA_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward's three launches: D = rowsum(dO * O) into `delta` ([B, Hq, S]
+// fp32 scratch), the dK/dV pass, the dQ pass.
+extern "C" int repro_flash_wgmma_bwd(const void* q, const void* k, const void* v, const void* o,
+                                     const void* lse, const void* dout, void* delta, void* dq,
+                                     void* dk, void* dv, int B, int S, int Hq, int Hkv, int hd,
+                                     int causal, int window, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_WGMMA_BWD(HD)                                                                     \
+  if (hd == HD)                                                                                 \
+    return (int)tc::bwd<HD>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, S, Hq, Hkv, causal,    \
+                            window, scale, st);
+  REPRO_WGMMA_HEAD_DIMS(REPRO_WGMMA_BWD)
+#undef REPRO_WGMMA_BWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// One tile of the forward's products, for checking the descriptors and
+// fragment layouts against a matrix product: q [64, hd], k and v [bk, hd]
+// bf16; s = q k^T [64, bk] and o = bf16(s) v [64, hd], both fp32.  hd 96 or
+// 128, bk 64 or 128.
+extern "C" int repro_flash_wgmma_probe(const void* q, const void* k, const void* v, void* s,
+                                       void* o, int hd, int bk, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 96 && bk == 64) return (int)tc::probe<96, 64>(q, k, v, s, o, st);
+  if (hd == 96 && bk == 128) return (int)tc::probe<96, 128>(q, k, v, s, o, st);
+  if (hd == 128 && bk == 64) return (int)tc::probe<128, 64>(q, k, v, s, o, st);
+  if (hd == 128 && bk == 128) return (int)tc::probe<128, 128>(q, k, v, s, o, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of a wgmma block at head dim hd, for build reports:
+// kernel 0 the forward, 1 the dK/dV pass, 2 the dQ pass; -1 for another hd.
+extern "C" int repro_flash_wgmma_smem_bytes(int kernel, int hd) {
+#define REPRO_WGMMA_SMEM(HD) \
+  if (hd == HD)              \
+    return kernel == 0 ? tc::fwd_smem<HD>() : kernel == 1 ? tc::dkdv_smem<HD>() : tc::dq_smem<HD>();
+  REPRO_WGMMA_HEAD_DIMS(REPRO_WGMMA_SMEM)
+#undef REPRO_WGMMA_SMEM
+  return -1;
 }

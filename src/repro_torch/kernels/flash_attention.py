@@ -5,10 +5,14 @@ The kernels (``csrc/flash_attention.cu``) replace the Pallas TPU kernel
 the Pallas kernel lacks.  :func:`flash_attention` is the differentiable
 entry: a ``torch.autograd.Function`` whose forward launches the forward
 kernel (output and row log-sum-exp) and whose backward launches the
-backward kernel.  Positions are ``arange(S)``, as on the Pallas path.
+backward kernels.  Positions are ``arange(S)``, as on the Pallas path.
 
-``LAUNCHES`` and ``BWD_LAUNCHES`` count the forward and backward launches
-(one backward call launches its dK/dV and dQ passes from one C call).
+Each direction has two designs, and :func:`route` picks one before the
+launch from the dtype, the head dim and the pointers: ``"wgmma"`` (tensor
+cores fed by TMA, bf16 at hd 64-128) or ``"simt"`` (fp32 FMAs on the CUDA
+cores).  ``LAUNCHES`` and ``BWD_LAUNCHES`` count the forward and backward
+launches by route (one backward call launches all its passes from one C
+call).
 """
 from __future__ import annotations
 
@@ -17,11 +21,13 @@ import torch
 from repro_torch.kernels import build as _build
 
 HEAD_DIMS = (64, 80, 96, 128, 256)
+WGMMA_HEAD_DIMS = (64, 80, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: launches since the last reset (see ``kernels.ops``)
-LAUNCHES = 0
-BWD_LAUNCHES = 0
+ROUTES = ("wgmma", "simt")
+#: launches since the last reset (see ``kernels.ops``), by route
+LAUNCHES = dict.fromkeys(ROUTES, 0)
+BWD_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def build():
@@ -30,7 +36,23 @@ def build():
     return _build.load("flash_attention", {
         "repro_flash_attention_fwd": [P] * 5 + [I] * 8 + [F, P],
         "repro_flash_attention_bwd": [P] * 9 + [I] * 8 + [F, P],
+        "repro_flash_wgmma_fwd": [P] * 5 + [I] * 7 + [F, P],
+        "repro_flash_wgmma_bwd": [P] * 10 + [I] * 7 + [F, P],
+        "repro_flash_wgmma_probe": [P] * 5 + [I] * 2 + [P],
+        "repro_flash_wgmma_smem_bytes": [I] * 2,
     })
+
+
+def route(dtype: torch.dtype, hd: int, *ptrs: int) -> str:
+    """The kernel a call takes, decided before its launch: ``"wgmma"`` for
+    bf16 with hd 64, 80, 96 or 128 and every pointer 16-byte aligned (TMA's
+    rules: base addresses 16-byte aligned; the row strides ``H * hd * 2``
+    bytes are multiples of 16 at these head dims), ``"simt"`` for
+    everything else (fp32, hd 256)."""
+    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS \
+            and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "simt"
 
 
 def _check(q, k, v, *rest) -> None:
@@ -59,26 +81,29 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int = 0):
     """Launch the forward kernel: q [B,S,Hq,hd], k/v [B,S,Hkv,hd] ->
     (o like q, lse [B,Hq,S] fp32)."""
-    global LAUNCHES
     _check(q, k, v)
     B, S, Hq, hd = q.shape
     lib = build()
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
+    way = route(q.dtype, hd, *ptrs)
+    args = (B, S, Hq, k.shape[2], hd)
     with torch.cuda.device(q.device):
-        err = lib.repro_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            B, S, Hq, k.shape[2], hd, _DTYPES[q.dtype], int(causal), int(window),
-            hd ** -0.5, _build.stream_of(q))
+        if way == "wgmma":
+            err = lib.repro_flash_wgmma_fwd(*ptrs, *args, int(causal), int(window),
+                                            hd ** -0.5, _build.stream_of(q))
+        else:
+            err = lib.repro_flash_attention_fwd(*ptrs, *args, _DTYPES[q.dtype], int(causal),
+                                                int(window), hd ** -0.5, _build.stream_of(q))
     if err != 0:
-        raise RuntimeError(f"flash_attention forward launch failed: cudaError {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"flash_attention forward launch ({way}) failed: cudaError {err}")
+    LAUNCHES[way] += 1
     return o, lse
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0):
-    """Launch the backward kernel -> (dq, dk, dv)."""
-    global BWD_LAUNCHES
+    """Launch the backward kernels -> (dq, dk, dv)."""
     _check(q, k, v, o, lse, do)
     B, S, Hq, hd = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
@@ -89,15 +114,23 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
         raise ValueError(f"lse must be [B,Hq,S] float32, got {tuple(lse.shape)} {lse.dtype}")
     lib = build()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr())
+    outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    way = route(q.dtype, hd, *ins, *outs)
+    args = (B, S, Hq, k.shape[2], hd)
     with torch.cuda.device(q.device):
-        err = lib.repro_flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, S, Hq, k.shape[2], hd, _DTYPES[q.dtype], int(causal), int(window),
-            hd ** -0.5, _build.stream_of(q))
+        if way == "wgmma":
+            # D = rowsum(dO * O), written by the first of the three launches
+            delta = torch.empty_like(lse)
+            err = lib.repro_flash_wgmma_bwd(*ins, delta.data_ptr(), *outs, *args, int(causal),
+                                            int(window), hd ** -0.5, _build.stream_of(q))
+        else:
+            err = lib.repro_flash_attention_bwd(*ins, *outs, *args, _DTYPES[q.dtype],
+                                                int(causal), int(window), hd ** -0.5,
+                                                _build.stream_of(q))
     if err != 0:
-        raise RuntimeError(f"flash_attention backward launch failed: cudaError {err}")
-    BWD_LAUNCHES += 1
+        raise RuntimeError(f"flash_attention backward launch ({way}) failed: cudaError {err}")
+    BWD_LAUNCHES[way] += 1
     return dq, dk, dv
 
 

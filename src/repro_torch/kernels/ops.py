@@ -50,24 +50,23 @@ def decode_attention(q, k_cache, v_cache, length, *, impl: str = "auto"):
 
 def launch_counts() -> dict:
     """Kernel launches since the last :func:`reset_launch_counts`, backward
-    launches apart; swiglu's also by route (``swiglu_wgmma``,
-    ``swiglu_bwd_simt``, ...)."""
-    counts = {"decode_attention": _da.LAUNCHES,
-              "flash_attention": _fa.LAUNCHES,
-              "flash_attention_bwd": _fa.BWD_LAUNCHES,
-              "swiglu": sum(_sg.LAUNCHES.values()),
-              "swiglu_bwd": sum(_sg.BWD_LAUNCHES.values())}
-    for way in _sg.ROUTES:
-        counts[f"swiglu_{way}"] = _sg.LAUNCHES[way]
-        counts[f"swiglu_bwd_{way}"] = _sg.BWD_LAUNCHES[way]
+    launches apart; flash attention's and swiglu's also by route
+    (``flash_attention_wgmma``, ``swiglu_bwd_simt``, ...)."""
+    counts = {"decode_attention": _da.LAUNCHES}
+    for name, mod in (("flash_attention", _fa), ("swiglu", _sg)):
+        counts[name] = sum(mod.LAUNCHES.values())
+        counts[f"{name}_bwd"] = sum(mod.BWD_LAUNCHES.values())
+        for way in mod.ROUTES:
+            counts[f"{name}_{way}"] = mod.LAUNCHES[way]
+            counts[f"{name}_bwd_{way}"] = mod.BWD_LAUNCHES[way]
     return counts
 
 
 def reset_launch_counts() -> None:
     _da.LAUNCHES = 0
-    _fa.LAUNCHES = _fa.BWD_LAUNCHES = 0
-    _sg.LAUNCHES = dict.fromkeys(_sg.ROUTES, 0)
-    _sg.BWD_LAUNCHES = dict.fromkeys(_sg.ROUTES, 0)
+    for mod in (_fa, _sg):
+        mod.LAUNCHES = dict.fromkeys(mod.ROUTES, 0)
+        mod.BWD_LAUNCHES = dict.fromkeys(mod.ROUTES, 0)
 
 
 def decode_attention_capable(*, n_q_heads: int, n_kv_heads: int,

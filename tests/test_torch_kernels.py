@@ -4,9 +4,11 @@ On the CPU: the port's plain versions (``decode_attention_ref``,
 ``flash_attention_ref``, ``swiglu_ref``) against the JAX oracles and, for
 some cases, the Pallas kernels in interpret mode (the cases of
 ``tests/test_kernels.py``); their autograd gradients against ``jax.vjp`` of
-the oracles; the dispatcher, the capability probe and the CUDA wrappers'
-input checks.  On a card (marker ``cuda``): each hand-written CUDA kernel,
-forward and backward, against its plain version.
+the oracles; the dispatcher, the capability probe, the CUDA wrappers' input checks,
+routes and launch counts, and the build cache.  On a card (marker
+``cuda``): each hand-written CUDA kernel, forward and backward, against its
+plain version, and the wgmma kernels' one-tile probes against matrix
+products.
 """
 import contextlib
 
@@ -100,14 +102,18 @@ def test_ops_dispatch_cpu_goes_to_plain_version():
 
 
 def test_launch_counter_reset():
-    da.LAUNCHES, fa.LAUNCHES, fa.BWD_LAUNCHES = 7, 6, 5
+    da.LAUNCHES = 7
+    fa.LAUNCHES, fa.BWD_LAUNCHES = {"wgmma": 4, "simt": 2}, {"wgmma": 3, "simt": 2}
     sg.LAUNCHES, sg.BWD_LAUNCHES = {"wgmma": 3, "simt": 1}, {"wgmma": 2, "simt": 1}
     assert ops.launch_counts() == {"decode_attention": 7, "flash_attention": 6,
-                                   "flash_attention_bwd": 5, "swiglu": 4, "swiglu_bwd": 3,
+                                   "flash_attention_bwd": 5, "flash_attention_wgmma": 4,
+                                   "flash_attention_simt": 2, "flash_attention_bwd_wgmma": 3,
+                                   "flash_attention_bwd_simt": 2, "swiglu": 4, "swiglu_bwd": 3,
                                    "swiglu_wgmma": 3, "swiglu_simt": 1,
                                    "swiglu_bwd_wgmma": 2, "swiglu_bwd_simt": 1}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
+    assert fa.LAUNCHES == fa.BWD_LAUNCHES == {"wgmma": 0, "simt": 0}
 
 
 @pytest.mark.parametrize("bad", ["cpu", "dtype", "head_dim", "groups", "length"])
@@ -143,6 +149,25 @@ def test_build_cache_hit_keeps_compiler_report(tmp_path, monkeypatch):
     lib.with_suffix(".log").unlink()
     kernel_build.BUILD_INFO.clear()
     assert kernel_build.build_all(["swiglu"])["swiglu"]["compiler_log"] == ""
+
+
+def test_build_header_edit_changes_library_path(tmp_path, monkeypatch):
+    """A library's name hashes its source and every header of ``csrc/`` the
+    source includes, so an edited shared header is never served from a
+    stale cached library; a source that includes no header keeps its name."""
+    for name in ("flash_attention", "swiglu", "decode_attention"):
+        (tmp_path / f"{name}.cu").write_bytes((kernel_build.CSRC / f"{name}.cu").read_bytes())
+    header = tmp_path / "hopper.cuh"
+    header.write_bytes((kernel_build.CSRC / "hopper.cuh").read_bytes())
+    monkeypatch.setattr(kernel_build, "CSRC", tmp_path)
+    assert kernel_build.sources_of(tmp_path / "swiglu.cu") == [tmp_path / "swiglu.cu", header]
+    before = {n: kernel_build.library_path(n) for n in ("flash_attention", "swiglu",
+                                                         "decode_attention")}
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: kernel_build.library_path(n) for n in before}
+    assert after["flash_attention"] != before["flash_attention"]
+    assert after["swiglu"] != before["swiglu"]
+    assert after["decode_attention"] == before["decode_attention"]
 
 
 def test_capability_probe():
@@ -373,6 +398,28 @@ def test_swiglu_route_takes_every_config_in_bf16(arch):
                         w.data_ptr(), w.data_ptr()) == "wgmma"
 
 
+@pytest.mark.parametrize("offset", [0, 2, 16])
+@pytest.mark.parametrize("hd", [64, 80, 96, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_route(dtype, hd, offset):
+    """wgmma only for bf16 at hd 64-128 with 16-byte aligned pointers (TMA's
+    rules); fp32, hd 256 and misaligned tensors take the simt kernels."""
+    base = torch.empty(64, dtype=torch.bfloat16).data_ptr()   # 64-byte aligned or more
+    ptrs = (base, base + 256, base + 512 + offset, base + 1024)
+    want = "wgmma" if dtype == torch.bfloat16 and hd != 256 and offset % 16 == 0 else "simt"
+    assert fa.route(dtype, hd, *ptrs) == want
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "qwen2.5-14b"])
+def test_flash_route_takes_every_config_in_bf16(arch):
+    # phi3 hd 96, qwen2.5 hd 128, both reduced configs hd 64
+    for cfg in (get_config(arch), get_config(arch).reduced()):
+        q = torch.empty(1, 3, cfg.n_heads, cfg.head_dim, dtype=torch.bfloat16)
+        kv = torch.empty(1, 3, cfg.n_kv_heads, cfg.head_dim, dtype=torch.bfloat16)
+        assert fa.route(torch.bfloat16, cfg.head_dim, q[:, 1:].data_ptr(), kv.data_ptr(),
+                        kv[:, 2:].data_ptr()) == "wgmma"
+
+
 class _CountingLib:
     """Stands in for the kernel library: records which entry point ran."""
 
@@ -413,6 +460,64 @@ def test_swiglu_wrappers_launch_and_count_by_route(monkeypatch, dtype, d, f, way
     assert set(ops.launch_counts().values()) == {0}
 
 
+class _RecordingLib:
+    """Stands in for ``kernels.build.load``'s library: records each entry
+    point's name and arguments, and the argument types it was bound with."""
+
+    def __init__(self):
+        self.calls, self.argtypes = [], {}
+
+    def load(self, name, functions):
+        self.argtypes.update(functions)
+        return self
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("dtype,hd,way", [(torch.bfloat16, 96, "wgmma"),
+                                          (torch.bfloat16, 256, "simt"),
+                                          (torch.float32, 96, "simt")])
+def test_flash_wrappers_launch_and_count_by_route(monkeypatch, dtype, hd, way):
+    # the CUDA checks and the library are stood in for, so the CPU can run
+    # the wrappers' routing, argument lists and counting
+    lib = _RecordingLib()
+    monkeypatch.setattr(fa._build, "load", lib.load)
+    monkeypatch.setattr(fa, "_check", lambda *tensors: None)
+    monkeypatch.setattr(fa._build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    q = torch.zeros(2, 40, 8, hd, dtype=dtype)
+    k = v = torch.zeros(2, 40, 2, hd, dtype=dtype)
+    ops.reset_launch_counts()
+    for _ in range(2):
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=16)
+    assert o.shape == q.shape and lse.shape == (2, 8, 40) and lse.dtype == torch.float32
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, torch.zeros_like(q))
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    names = (["repro_flash_wgmma_fwd"] * 2 + ["repro_flash_wgmma_bwd"] if way == "wgmma"
+             else ["repro_flash_attention_fwd"] * 2 + ["repro_flash_attention_bwd"])
+    assert [name for name, _ in lib.calls] == names
+    for name, args in lib.calls:   # every call matches the arity it was bound with
+        assert len(args) == len(lib.argtypes[name]), name
+    # (B, S, Hq, Hkv, hd) follow the pointers; the wgmma backward also passes
+    # its D scratch, the simt kernels the dtype code
+    n_ptrs = {"repro_flash_wgmma_fwd": 5, "repro_flash_wgmma_bwd": 10,
+              "repro_flash_attention_fwd": 5, "repro_flash_attention_bwd": 9}
+    for name, args in lib.calls:
+        assert args[n_ptrs[name]:n_ptrs[name] + 5] == (2, 40, 8, 2, hd), name
+    assert lib.calls[0][1][-2] == pytest.approx(hd ** -0.5)
+    other = "simt" if way == "wgmma" else "wgmma"
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (2, 1)
+    assert (counts[f"flash_attention_{way}"], counts[f"flash_attention_bwd_{way}"]) == (2, 1)
+    assert (counts[f"flash_attention_{other}"], counts[f"flash_attention_bwd_{other}"]) == (0, 0)
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts().values()) == {0}
+
+
 # ----------------------------------------------------------- on the card
 def _grads(fn, inputs, dout):
     ts = [t.detach().clone().requires_grad_() for t in inputs]
@@ -431,22 +536,68 @@ def _assert_grads_close(got, want, dtype, what):
 
 
 @pytest.mark.cuda
+def test_cuda_flash_wgmma_probe_matches_matmul(cuda_device):
+    """The wgmma route's descriptors and fragment layouts alone, on one tile:
+    S = Q K^T (fp32 out) against an fp32 matrix product of the same bf16
+    inputs, and O = bf16(S) V against the product of the kernel's own S,
+    rounded alike.  hd 96 (two boxes, the second partly zeros) and 128;
+    64 and 128 keys (the backward's and the forward's tiles)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib = fa.build()
+    rng = np.random.default_rng(13)
+    for hd in (96, 128):
+        for bk in (64, 128):
+            q, k, v = (torch.from_numpy(rng.standard_normal((rows, hd), dtype=np.float32))
+                       .to(cuda_device, torch.bfloat16) for rows in (64, bk, bk))
+            s = torch.full((64, bk), float("nan"), device=cuda_device)
+            o = torch.full((64, hd), float("nan"), device=cuda_device)
+            err = lib.repro_flash_wgmma_probe(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                              s.data_ptr(), o.data_ptr(), hd, bk,
+                                              kernel_build.stream_of(q))
+            assert err == 0, f"launch failed: cudaError {err}"
+            torch.cuda.synchronize()
+            what = f"hd={hd} bk={bk}"
+            torch.testing.assert_close(s, q.float() @ k.float().T, rtol=1e-3, atol=1e-3,
+                                       msg=f"S {what}")
+            torch.testing.assert_close(o, s.bfloat16().float() @ v.float(), rtol=1e-3,
+                                       atol=1e-2, msg=f"PV {what}")
+
+
+# the wgmma route's edges beyond the repo's cases: ragged S (100, 200), a
+# window that is not a tile multiple, and qwen2.5-14b's attention (GQA 40/8,
+# hd 128)
+FLASH_EDGES = [(2, 100, 4, 2, 96, True, 0), (1, 200, 4, 4, 64, True, 48),
+               (1, 1024, 40, 8, 128, True, 0)]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_kernel_matches_plain(cuda_device, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = _flash_cases() + [(2, 100, 4, 2, 96, True, 0), (1, 200, 4, 4, 64, True, 48)]
-    for B, S, Hq, Hkv, hd, causal, window in cases:
+    for B, S, Hq, Hkv, hd, causal, window in _flash_cases() + FLASH_EDGES:
         q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in _qkv(B, S, Hq, Hkv, hd))
         do = torch.randn(q.shape, generator=torch.Generator(cuda_device).manual_seed(1),
                          device=cuda_device).to(dtype)
-        what = f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} causal={causal} window={window} {dtype}"
+        way = "wgmma" if dtype == torch.bfloat16 and hd != 256 else "simt"
+        what = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} causal={causal} window={window} "
+                f"{dtype} ({way})")
+        ops.reset_launch_counts()
         out, grads = _grads(lambda a, b, c: ops.flash_attention(
             a, b, c, causal=causal, window=window), (q, k, v), do)
+        counts = ops.launch_counts()
+        assert (counts[f"flash_attention_{way}"], counts[f"flash_attention_bwd_{way}"]) == (1, 1), \
+            f"{what}: {counts}"
+        assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (1, 1), counts
         ref, ref_grads = _grads(lambda a, b, c: ops.flash_attention(
             a, b, c, causal=causal, window=window, impl="ref"), (q, k, v), do)
         tol = _tol(dtype)
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol, msg=what)
         _assert_grads_close(grads, ref_grads, dtype, what)
+        # no atomics: the same inputs give the same bits
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        first = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        second = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), f"{what}: not bit-equal"
     torch.cuda.synchronize()
 
 
