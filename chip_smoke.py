@@ -110,6 +110,7 @@ from repro_torch.serving import (  # noqa: E402
     run_serve_plan,
 )
 
+SLEEP_CYCLES = 4_000_000       # ~2 ms at the H100's clock: covers a call's host side
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -159,12 +160,17 @@ def _close(out, ref, tol, what):
 
 def _time_ms(fn, flush, reps=25):
     """Median of ``reps`` single-call CUDA-event timings, L2 flushed before
-    each (the decode path finds each layer's cache cold)."""
+    each (the decode path finds each layer's cache cold).  A sleep kernel
+    holds the card while the host enqueues the call (python, autograd,
+    launches), so the time is the card's alone: without it a call whose
+    host side outlasts its kernels, as autograd of SDPA does, times the
+    host."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -744,9 +750,18 @@ def _profile_summary(prof, wall: float, steps: int) -> dict:
 
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / steps
-    # the port's kernels by source: every kernel whose name holds the word
+    # the port's kernels by source (every kernel whose name holds the word)
+    # and one by one
+    words = ("flash", "swiglu", "decode_attention")
     by_source = {word: sum(dev_us(e) for e in kernels if word in e.key) / 1e3 / steps
-                 for word in ("flash", "swiglu", "decode_attention")}
+                 for word in words}
+    port = {}
+    for e in kernels:
+        name = re.search(r"(\w+_kernel)", e.key)
+        if name and any(word in e.key for word in words):
+            key = name.group(1)
+            ms, n = port.get(key, (0.0, 0))
+            port[key] = (ms + dev_us(e) / 1e3 / steps, n + e.count // steps)
     wall_ms = wall * 1e3 / steps
     top = sorted(kernels, key=dev_us, reverse=True)[:6]
     host = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
@@ -754,6 +769,7 @@ def _profile_summary(prof, wall: float, steps: int) -> dict:
     return {"steps": steps, "wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "port_kernels_ms_per_step": by_source,
+            "port_kernels_ms_launches_per_step": port,
             "top_kernels_ms_per_step": [[e.key[:80], dev_us(e) / 1e3 / steps, e.count // steps]
                                         for e in top],
             "top_host_ops_ms_per_step": [[e.key[:60], e.self_cpu_time_total / 1e3 / steps,

@@ -32,13 +32,18 @@
 //     / 40).  Q arrives once; K and V tiles of 128 keys through a 2-stage
 //     mbarrier ring, K and V on barriers of their own so that Q K^T starts
 //     before V lands.  S = Q K^T with both operands K-major from shared
-//     memory; the scale hd^-0.5 goes on the fp32 scores; masks only on
-//     tiles that hold a disallowed pair (the diagonal, the window's edge,
-//     keys past S); the online softmax runs on the accumulator fragments in
-//     the log2 domain, each row's four lanes reducing with shfl_xor in a
-//     fixed order; P is packed to bf16 in registers, which is the A
-//     fragment layout of a register-A wgmma, and O += P V reads V in place
-//     as the MN-major B operand (imm-trans-b = 1);
+//     memory; the scale hd^-0.5 goes on the fp32 scores, folded with
+//     log2(e) into the FMA that feeds each exponent; masks only on tiles
+//     that hold a disallowed pair (the diagonal, the window's edge, keys
+//     past S); the online softmax runs on the accumulator fragments in the
+//     log2 domain, each row's four lanes reducing with shfl_xor in a fixed
+//     order; P is packed to bf16 in registers, which is the A fragment
+//     layout of a register-A wgmma, and O += P V reads V in place as the
+//     MN-major B operand (imm-trans-b = 1);
+//   * exponents are one ex2.approx.ftz each on the special-function unit:
+//     the softmax, not the tensor cores, is the long pole of these kernels,
+//     and exp2f without fast math costs several instructions more per
+//     score;
 //   * backward: three launches, no atomics.  D = rowsum(dO * O) [B,Hq,S]
 //     fp32, once.  dK/dV: one block per (batch, kv head, 128 keys) keeps K
 //     and V in shared memory and streams 64-row Q and dO tiles (with lse
@@ -698,6 +703,19 @@ __device__ __forceinline__ void wgmma_commit_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// 2^x on the special-function unit, one instruction (denormal results
+// flush to zero, far below what a bf16 probability can hold).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Fetch a tensor map's descriptor ahead of its first TMA load.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -784,6 +802,9 @@ flash_wgmma_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
+    prefetch_map(&map_q);
+    prefetch_map(&map_k);
+    prefetch_map(&map_v);
     mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(k_full(s), 1);
@@ -842,36 +863,37 @@ flash_wgmma_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       fence_acc(sc);
       if (threadIdx.x % 128 == 0) mbar_arrive(k_empty(s));
 
-      // scale in fp32, masks only on tiles that hold a disallowed pair (the
-      // diagonal, the window's edge, keys past S), online softmax in the
-      // log2 domain; each row's four lanes reduce in a fixed order
-      const bool mask = needs_mask(q0, BQ, k0, BK, S, causal, window);
-      float mx[2] = {-INFINITY, -INFINITY};
+      // masks only on tiles that hold a disallowed pair (the diagonal, the
+      // window's edge, keys past S); online softmax in the log2 domain, m
+      // being the running maximum of the scaled scores times log2(e), so
+      // that the fp32 scale folds into the exponent's FMA; each row's four
+      // lanes reduce in a fixed order
+      if (needs_mask(q0, BQ, k0, BK, S, causal, window)) {
 #pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        const int hh = (i / 2) % 2;
-        float x = sc[i] * scale_log2;
-        if (mask && !allowed(row0 + 8 * hh, k0 + 8 * (i / 4) + col0 + i % 2, S, causal, window))
-          x = -INFINITY;
-        sc[i] = x;
-        mx[hh] = fmaxf(mx[hh], x);
+        for (int i = 0; i < BK / 2; ++i)
+          if (!allowed(row0 + 8 * ((i / 2) % 2), k0 + 8 * (i / 4) + col0 + i % 2, S, causal,
+                       window))
+            sc[i] = -INFINITY;
       }
-      float corr[2];
+      float mx[2] = {-INFINITY, -INFINITY}, corr[2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
         mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-        const float m_new = fmaxf(m[hh], mx[hh]);
-        corr[hh] = exp2f(m[hh] - m_new);
+        const float m_new = fmaxf(m[hh], mx[hh] * scale_log2);
+        corr[hh] = ex2(m[hh] - m_new);
         m[hh] = m_new;
         l[hh] *= corr[hh];
       }
 #pragma unroll
       for (int i = 0; i < HDP / 2; ++i) acc[i] *= corr[(i / 2) % 2];
-      uint32_t p[BK / 4];
+      uint32_t p[BK / 4];  // P in bf16: the A fragment of P V
 #pragma unroll
       for (int j = 0; j < BK / 4; ++j) {
-        const float p0 = exp2f(sc[2 * j] - m[j % 2]), p1 = exp2f(sc[2 * j + 1] - m[j % 2]);
+        const float p0 = ex2(fmaf(sc[2 * j], scale_log2, -m[j % 2]));
+        const float p1 = ex2(fmaf(sc[2 * j + 1], scale_log2, -m[j % 2]));
         l[j % 2] += p0 + p1;
         p[j] = pack_bf16(p0, p1);
       }
@@ -914,24 +936,34 @@ flash_wgmma_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 // ------------------------------------------- backward: D = rowsum(dO * O)
-// One warp per row of [B, S, Hq, hd], in memory order; D is [B, Hq, S].
+// Eight lanes a row of [B, S, Hq, hd], in memory order, 16 bytes a load;
+// D is [B, Hq, S].
 template <int HD>
 __global__ void __launch_bounds__(256)
 flash_wgmma_delta_kernel(const __nv_bfloat16* __restrict__ o,
                          const __nv_bfloat16* __restrict__ dout, float* __restrict__ delta,
                          int rows, int S, int Hq) {
-  const int r = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (r >= rows) return;  // whole warps
-  const size_t at = static_cast<size_t>(r) * HD;
+  const int r = blockIdx.x * 32 + threadIdx.x / 8, sub = threadIdx.x % 8;
   float d = 0.f;
+  if (r < rows) {
+    const size_t at = static_cast<size_t>(r) * HD;
 #pragma unroll
-  for (int c = 2 * lane; c < HD; c += 64) {
-    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + at + c));
-    const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + at + c));
-    d = fmaf(x.x, y.x, fmaf(x.y, y.y, d));
+    for (int c = 8 * sub; c < HD; c += 64) {
+      const uint4 x = *reinterpret_cast<const uint4*>(o + at + c);
+      const uint4 y = *reinterpret_cast<const uint4*>(dout + at + c);
+      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 a = __bfloat1622float2(xp[k]), b = __bfloat1622float2(yp[k]);
+        d = fmaf(a.x, b.x, fmaf(a.y, b.y, d));
+      }
+    }
   }
-  d = warp_sum(d);
-  if (lane == 0) {
+  d += __shfl_xor_sync(0xffffffffu, d, 1);
+  d += __shfl_xor_sync(0xffffffffu, d, 2);
+  d += __shfl_xor_sync(0xffffffffu, d, 4);
+  if (r < rows && sub == 0) {
     const int bs = r / Hq, h = r % Hq;
     delta[(static_cast<size_t>(bs / S) * Hq + h) * S + bs % S] = d;
   }
@@ -980,6 +1012,10 @@ flash_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
+    prefetch_map(&map_q);
+    prefetch_map(&map_k);
+    prefetch_map(&map_v);
+    prefetch_map(&map_do);
     mbar_init(kv_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full(s), 32);  // the producer warp's lanes: lse and D by hand, lane 0 the TMA
@@ -1056,18 +1092,19 @@ flash_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       uint32_t pt[BQ / 4], dst[BQ / 4];
 #pragma unroll
       for (int j = 0; j < BQ / 4; ++j) {
-        float pv[2], dsv[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 2 * j + e, c = 8 * (i / 4) + col0 + e;
-          float p = exp2f(st[i] * scale_log2 - ls[c]);
-          if (mask && !(q0 + c < S && allowed(q0 + c, key0 + 8 * (j % 2), S, causal, window)))
-            p = 0.f;
-          pv[e] = p;
-          dsv[e] = p * (dpt[i] - ds[c]);
+        // accumulators 2j, 2j + 1: key key0 + 8 (j % 2), q columns c, c + 1
+        const int c = 8 * (j / 2) + col0;
+        const float2 lc = *reinterpret_cast<const float2*>(ls + c);
+        const float2 dc = *reinterpret_cast<const float2*>(ds + c);
+        float p0 = ex2(fmaf(st[2 * j], scale_log2, -lc.x));
+        float p1 = ex2(fmaf(st[2 * j + 1], scale_log2, -lc.y));
+        if (mask) {
+          const int key = key0 + 8 * (j % 2);
+          if (!(q0 + c < S && allowed(q0 + c, key, S, causal, window))) p0 = 0.f;
+          if (!(q0 + c + 1 < S && allowed(q0 + c + 1, key, S, causal, window))) p1 = 0.f;
         }
-        pt[j] = pack_bf16(pv[0], pv[1]);
-        dst[j] = pack_bf16(dsv[0], dsv[1]);
+        pt[j] = pack_bf16(p0, p1);
+        dst[j] = pack_bf16(p0 * (dpt[2 * j] - dc.x), p1 * (dpt[2 * j + 1] - dc.y));
       }
 
       // dV += P^T dO and dK += dS^T Q: A from registers, B MN-major
@@ -1140,6 +1177,10 @@ flash_wgmma_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
+    prefetch_map(&map_q);
+    prefetch_map(&map_k);
+    prefetch_map(&map_v);
+    prefetch_map(&map_do);
     mbar_init(q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full(s), 1);
@@ -1209,7 +1250,7 @@ flash_wgmma_dq_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int i = 2 * j + e;
-          float p = exp2f(sc[i] * scale_log2 - lse2[hh]);
+          float p = ex2(fmaf(sc[i], scale_log2, -lse2[hh]));
           if (mask && !allowed(row0 + 8 * hh, k0 + 8 * (i / 4) + col0 + e, S, causal, window))
             p = 0.f;
           dsv[e] = p * (dp[i] - dd[hh]);
@@ -1386,7 +1427,7 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o, cons
   const float* lt = static_cast<const float*>(lse);
   float* dt = static_cast<float*>(delta);
   const int rows = B * S * Hq;
-  flash_wgmma_delta_kernel<HD><<<(rows + 7) / 8, 256, 0, stream>>>(
+  flash_wgmma_delta_kernel<HD><<<(rows + 31) / 32, 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), dt, rows, S,
       Hq);
   err = cudaGetLastError();
