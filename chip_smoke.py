@@ -25,12 +25,12 @@ and a non-zero exit:
    (bf16) and the training shape T 2048, d 3072, f 8192, each case's route
    asserted through the launch counters.  Outputs at 2e-5 (fp32) and 2e-2
    (bf16), gradients at 1e-4 (fp32) and 2e-2 x max|ref| (bf16).  Each
-   kernel's median time at its main-path shape (CUDA events, L2 flushed)
-   beside its bound, the plain version and a PyTorch yardstick
-   (``scaled_dot_product_attention``, pinned to one backend, the flash
-   backend in bf16; for swiglu the compositions ``silu(x@wg) * (x@wu)`` and
-   its backward's ``dg``/``du``); the simt kernels of flash attention and
-   swiglu also in fp32.
+   kernel's median time at its main-path shape (CUDA events, L2 flushed, a
+   sleep kernel covering the host's enqueue) beside its bound, the plain
+   version and a PyTorch yardstick (``scaled_dot_product_attention``,
+   pinned to one backend, the flash backend in bf16; for swiglu the
+   compositions ``silu(x@wg) * (x@wu)`` and its backward's ``dg``/``du``);
+   the simt kernels of flash attention and swiglu also in fp32.
 4. full-width serve -- phi3-mini-3.8b, all 32 layers, bf16, random weights
    from seed 0, a hand-built 4-stage serve plan run through
    ``run_serve_plan(..., use_kernels=True)``: kernel launches counted, tokens
@@ -47,9 +47,8 @@ and a non-zero exit:
    bf16, seed 0: 2 stages x 2 replicas, 2 micro-batches of 2 x 1024 tokens,
    AdamW, 2 steps through ``run_plan(..., execution=Execution(...,
    use_kernels=True))``.  Exact launch counts per step, every flash and
-   swiglu launch on the wgmma route; in step 1 every
-   kernel call held against ``impl="ref"`` on its real inputs, outputs and
-   gradients; finite losses; replicas bit-identical after each step; store
+   swiglu launch on the wgmma route; in step 1 every kernel call held
+   against ``impl="ref"`` on its real inputs, outputs and gradients; finite losses; replicas bit-identical after each step; store
    drained; virtual clock, cost and ``StoreStats`` equal to a timing-only
    run; the first loss within 2e-2 of the plain path's (``use_kernels=
    False``).  Step wall time, peak memory and one profiled step.
@@ -60,8 +59,9 @@ and a non-zero exit:
    ``tests/test_runtime.py:230-240``, kernels on and off: losses within
    2e-4, params within 2e-3; flash and swiglu on the simt route.
 
-The last lines are the kernels' record, the ``nvidia-smi`` name/power line
-and ``{"ok": true, "device": {...}}``.
+The last lines are the kernels' record (nine rows: the bf16 main path's
+kernels on the wgmma route where they have one, then the fp32 simt rows),
+the ``nvidia-smi`` name/power line and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -334,7 +334,7 @@ def _check_kernel(kernel, plain, inputs, dout, what) -> dict:
 
 def _flash_way(dtype, hd: int) -> str:
     """The route a flash call on fresh (aligned) tensors must take."""
-    return "wgmma" if dtype == torch.bfloat16 and hd in fa_kernel.WGMMA_HEAD_DIMS else "simt"
+    return "wgmma" if dtype == torch.bfloat16 and hd < 256 else "simt"
 
 
 def _flash_parity(gen, flush) -> tuple:
