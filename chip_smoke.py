@@ -9,16 +9,18 @@ and a non-zero exit:
 1. device -- CUDA must be present; the card's name and power limit.
 2. build -- compile the three kernel sources from ``src/`` with nvcc, one
    process each, all at once; every kernel's registers and spills, each
-   swiglu and flash-attention kernel's registers, shared memory and spills,
-   and the wgmma blocks' dynamic shared memory.
-3. kernel parity -- each CUDA kernel against its plain PyTorch version:
+   swiglu and flash-attention kernel's registers, shared memory and spills
+   (the tf32x3 kernels' apart), and the tensor-core blocks' dynamic shared
+   memory.
+3. kernel parity -- first the tf32x3 route's one-tile probe against fp32
+   matrix products; then each CUDA kernel against its plain PyTorch version:
    decode attention on the sweep of ``tests/test_kernels.py::
    test_decode_attention`` and phi3-mini-3.8b's decode shape; flash
    attention (forward, and the backward's dq/dk/dv) on every case of
    ``tests/test_kernels.py:18-58``, ragged S, qwen2.5-14b's GQA shape (bf16)
    and the training shape [2,1024,32,96], each case's route asserted
-   through the launch counters (bf16 below hd 256 on wgmma) and two
-   backward calls held bit-equal;
+   through the launch counters (below hd 256 bf16 on wgmma and fp32 on
+   tf32x3, hd 256 on simt) and two backward calls held bit-equal;
    swiglu (forward, dg/du, and dx/dW_gate/dW_up) on the cases of
    ``:74-84``, the edges of its wgmma route (T 1 and 100, d 200, f 520), an
    odd bf16 shape that takes the simt route, a 256-row slice of phi3's FFN
@@ -30,7 +32,9 @@ and a non-zero exit:
    version and a PyTorch yardstick (``scaled_dot_product_attention``,
    pinned to one backend, the flash backend in bf16; for swiglu the
    compositions ``silu(x@wg) * (x@wu)`` and its backward's ``dg``/``du``);
-   the simt kernels of flash attention and swiglu also in fp32.
+   flash attention also in fp32 (tf32x3, with the simt kernels on the same
+   inputs) and on the simt route at gemma3-4b's hd-256 shape; swiglu's simt
+   kernels also in fp32.
 4. full-width serve -- phi3-mini-3.8b, all 32 layers, bf16, random weights
    from seed 0, a hand-built 4-stage serve plan run through
    ``run_serve_plan(..., use_kernels=True)``: kernel launches counted, tokens
@@ -54,14 +58,16 @@ and a non-zero exit:
    False``).  Step wall time, peak memory and one profiled step.
 7. full-width fp32 training -- the same model in fp32, d = 1, SGD, 1 step,
    kernels on and off: losses within 5e-5, every param within 1e-4; flash
-   and swiglu on the simt route.
+   on the tf32x3 route, swiglu on the simt route.
 8. reduced training -- phi3-mini-3.8b@reduced (4 layers, fp32) on the plan of
    ``tests/test_runtime.py:230-240``, kernels on and off: losses within
-   2e-4, params within 2e-3; flash and swiglu on the simt route.
+   2e-4, params within 2e-3; flash on tf32x3 (hd 64, S 16: a tile's ragged
+   edge), swiglu on simt.
 
 The last lines are the kernels' record (nine rows: the bf16 main path's
-kernels on the wgmma route where they have one, then the fp32 simt rows),
-the ``nvidia-smi`` name/power line and ``{"ok": true, "device": {...}}``.
+kernels on the wgmma route where they have one, then the fp32 rows: flash
+attention on tf32x3, swiglu on simt), the ``nvidia-smi`` name/power line and
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -111,9 +117,13 @@ from repro_torch.serving import (  # noqa: E402
 )
 
 SLEEP_CYCLES = 4_000_000       # ~2 ms at the H100's clock: covers a call's host side
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).  fp32-accurate
+# products run on the tensor cores as three TF32 products each (the tf32x3
+# route), so the least time for fp32 work is three TF32 products a flop at
+# the dense TF32 rate, 495 / 3 = 165 TFLOP/s, not the CUDA cores' 67: one
+# yardstick for every fp32 row, which none can read over.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 
 KERNEL_CASES = [(512, 1), (512, 511), (1024, 700), (2048, 2048)]
 KERNEL_HEADS = [(8, 2, 64), (4, 4, 128), (16, 2, 128)]
@@ -134,6 +144,9 @@ FLASH_CASES += [(2, 128, 4, 4, 80, False, 0), (2, 100, 4, 2, 96, True, 0),
                 (1, 200, 4, 4, 64, True, 48)]
 FLASH_BF16_CASES = [(1, 1024, 40, 8, 128, True, 0)]
 FLASH_TRAIN = (2, 1024, 32, 32, 96, True, 0)
+# the simt route's timing shape: gemma3-4b's attention (Hq 8, Hkv 4, hd 256),
+# bf16, at the training shape's batch and length; no path of this run takes it
+FLASH_HD256 = (2, 1024, 8, 4, 256, True, 0)
 # swiglu: the cases of tests/test_kernels.py:74-84, the wgmma route's edges
 # (T 1 and 100, a ragged last k-tile at d 200, a ragged column tile at f
 # 520) and an odd shape that bf16 sends to the simt route; a slice of phi3's
@@ -151,11 +164,15 @@ def emit(doc: dict) -> None:
     print(json.dumps(doc), flush=True)
 
 
-def _close(out, ref, tol, what):
+def _close_at(out, ref, rtol, atol, what):
     err = float((out.float() - ref.float()).abs().max())
-    if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+    if not torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol):
         raise AssertionError(f"{what}: kernel disagrees with plain, max |err| {err}")
     return err
+
+
+def _close(out, ref, tol, what):
+    return _close_at(out, ref, tol, tol, what)
 
 
 def _time_ms(fn, flush, reps=25):
@@ -181,6 +198,28 @@ def _time_ms(fn, flush, reps=25):
     return statistics.median(times)
 
 
+def _device_ms_by_kernel(fn, flush, calls=5) -> dict:
+    """Device ms a call of ``fn`` by kernel (``torch.profiler`` over ``calls``
+    calls, L2 flushed before each): which pass of a kernel pair takes the
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        name = re.search(r"(\w+_kernel)", e.key)
+        if name and e.device_type == torch.autograd.DeviceType.CUDA and "flash" in e.key:
+            us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+            out[name.group(1)] = out.get(name.group(1), 0.0) + us / 1e3 / calls
+    return out
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this smoke "
@@ -197,17 +236,47 @@ def phase_device() -> str:
     return smi
 
 
+def _entry_label(mangled: str) -> str:
+    """``flash_tf32x3_fwd_kernel<96>``-like label of a mangled entry name
+    (``_ZN<len><name>...<len><name>I<args>EEv...``): the nested name's
+    identifier that ends in ``_kernel``, with its template arguments."""
+    def ident(at):   # <length><identifier> at ``at`` -> (identifier, end)
+        digits = re.match(r"\d+", mangled[at:])
+        end = at + digits.end() + int(digits.group())
+        return mangled[at + digits.end():end], end
+
+    at = 3
+    while mangled.startswith("_ZN") and at < len(mangled) and mangled[at].isdigit():
+        name, at = ident(at)
+        if not name.endswith("_kernel"):
+            continue
+        args, close = [], mangled.find("EEv", at)
+        at += 1 if mangled.startswith("I", at) else len(mangled)
+        while at < close:
+            value = re.match(r"Li(-?\d+)E", mangled[at:])
+            if value:
+                args.append(value.group(1))
+                at += value.end()
+            elif mangled[at].isdigit():
+                arg, at = ident(at)
+                args.append(arg)
+            else:
+                args.append({"f": "float", "i": "int"}.get(mangled[at], mangled[at]))
+                at += 1
+        return name + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
 def _kernel_reports(log: str) -> list:
     """Per entry function of a ptxas -v report: registers, static shared
     memory and spill bytes."""
     out = []
     for block in log.split("Compiling entry function '")[1:]:
         name = block.split("'", 1)[0]
-        label = re.search(r"([a-z_]+_kernel)(I\w*?E)?E*v", name)
         regs = re.search(r"Used (\d+) registers", block)
         smem = re.search(r"(\d+) bytes smem", block)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
-        out.append({"entry": (label.group(1) + (label.group(2) or "")) if label else name,
+        out.append({"entry": _entry_label(name),
                     "registers": int(regs.group(1)) if regs else None,
                     "static_smem_bytes": int(smem.group(1)) if smem else 0,
                     "spill_bytes": int(spill.group(1)) + int(spill.group(2)) if spill else None})
@@ -232,10 +301,16 @@ def phase_build() -> None:
     libs["swiglu"]["wgmma_dynamic_smem_bytes"] = sg_kernel.build().repro_swiglu_wgmma_smem_bytes()
     libs["flash_attention"]["per_kernel"] = _kernel_reports(
         info["flash_attention"]["compiler_log"])
-    smem = fa_kernel.build().repro_flash_wgmma_smem_bytes
-    libs["flash_attention"]["wgmma_dynamic_smem_bytes"] = {
-        f"hd{hd}": dict(zip(("fwd", "dkdv", "dq"), (smem(kernel, hd) for kernel in range(3))))
-        for hd in fa_kernel.WGMMA_HEAD_DIMS}
+    lib = fa_kernel.build()
+    for way in ("wgmma", "tf32x3"):
+        smem = getattr(lib, f"repro_flash_{way}_smem_bytes")
+        libs["flash_attention"][f"{way}_dynamic_smem_bytes"] = {
+            f"hd{hd}": dict(zip(("fwd", "dkdv", "dq"), (smem(kernel, hd) for kernel in range(3))))
+            for hd in fa_kernel.WGMMA_HEAD_DIMS}
+    # the tf32x3 kernels' ptxas report on a line of its own
+    libs["flash_attention"]["tf32x3_kernels"] = [
+        r for r in libs["flash_attention"]["per_kernel"]
+        if "tf32x3" in r["entry"] or r["entry"].startswith("flash_delta_kernel")]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": libs})
 
 
@@ -334,7 +409,31 @@ def _check_kernel(kernel, plain, inputs, dout, what) -> dict:
 
 def _flash_way(dtype, hd: int) -> str:
     """The route a flash call on fresh (aligned) tensors must take."""
-    return "wgmma" if dtype == torch.bfloat16 and hd < 256 else "simt"
+    if hd == 256:
+        return "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+
+
+def _flash_tf32x3_probe(gen) -> dict:
+    """The tf32x3 route's one-tile probe (``repro_flash_tf32x3_probe``), run
+    before any full case: S = Q K^T against an fp32 matrix product (TF32
+    off) and O = S V against the product of the kernel's own S, at bars one
+    TF32 product would miss; max |err| by hd."""
+    lib = fa_kernel.build()
+    out = {}
+    for hd in (96, 128):
+        q, k, v = (torch.randn(rows, hd, generator=gen, device="cuda") for rows in (16, 32, 32))
+        s = torch.full((16, 32), float("nan"), device="cuda")
+        o = torch.full((16, hd), float("nan"), device="cuda")
+        err = lib.repro_flash_tf32x3_probe(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                           s.data_ptr(), o.data_ptr(), hd,
+                                           kernel_build.stream_of(q))
+        if err != 0:
+            raise RuntimeError(f"tf32x3 probe launch failed: cudaError {err}")
+        torch.cuda.synchronize()
+        out[f"hd{hd}"] = {"S": _close_at(s, q @ k.T, 1e-5, 1e-4, f"tf32x3 probe S hd={hd}"),
+                          "SV": _close_at(o, s @ v, 1e-5, 1e-3, f"tf32x3 probe SV hd={hd}")}
+    return out
 
 
 def _flash_parity(gen, flush) -> tuple:
@@ -374,16 +473,18 @@ def _flash_parity(gen, flush) -> tuple:
 
     bf16 = _flash_timing(gen, flush, torch.bfloat16)
     fp32 = _flash_timing(gen, flush, torch.float32)
+    hd256 = _flash_timing(gen, flush, torch.bfloat16, FLASH_HD256)
     B, S, H, _, hd, _, _ = FLASH_TRAIN
 
     def rec(r, err):
-        return {k: v for k, v in r.items() if k not in ("bytes", "flops", "extra")} | \
+        return {k: v for k, v in r.items() if k not in ("bytes", "flops")} | \
             {"max_abs_err": err}
 
+    fp32_way = _flash_way(torch.float32, hd)
     recs = {"flash_attention": rec(bf16["fwd"], train_err["bfloat16"]["out"]),
             "flash_attention_bwd": rec(bf16["bwd"], train_err["bfloat16"]["grad"]),
-            "flash_attention_simt": rec(fp32["fwd"], train_err["float32"]["out"]),
-            "flash_attention_bwd_simt": rec(fp32["bwd"], train_err["float32"]["grad"])}
+            f"flash_attention_{fp32_way}": rec(fp32["fwd"], train_err["float32"]["out"]),
+            f"flash_attention_bwd_{fp32_way}": rec(fp32["bwd"], train_err["float32"]["grad"])}
     detail = {"cases": n_cases, "routes": routes, "train_shape_max_abs_err": train_err,
               "timing_shape": {"B": B, "S": S, "Hq": H, "Hkv": H, "hd": hd, "causal": True,
                                "dtype": ["bfloat16", "float32"]},
@@ -392,7 +493,15 @@ def _flash_parity(gen, flush) -> tuple:
                               for dtype, r in (("bfloat16", bf16), ("float32", fp32))
                               for k in ("fwd", "bwd")},
               "sdpa": {"bfloat16": bf16["sdpa"], "float32": fp32["sdpa"]},
-              "simt_kernels_on_bf16_ms": bf16["simt_bf16"]}
+              "simt_kernels_on_bf16_ms": bf16["simt"],
+              "simt_kernels_on_fp32_ms": fp32["simt"],
+              "bwd_passes_ms": {"bfloat16": bf16["bwd_passes_ms"],
+                                "float32": fp32["bwd_passes_ms"]},
+              # gemma3-4b's attention on the simt route (0 launches on this
+              # run's paths): its time, bound and SDPA's flash backend
+              "simt_hd256": {"shape": dict(zip(("B", "S", "Hq", "Hkv", "hd"), FLASH_HD256)),
+                             "dtype": "bfloat16",
+                             "fwd": hd256["fwd"], "bwd": hd256["bwd"], "sdpa": hd256["sdpa"]}}
     return recs, detail
 
 
@@ -403,6 +512,8 @@ def _sdpa_times(q, k, v, do, flush, backend) -> dict:
     port never calls it)."""
     from torch.nn.attention import sdpa_kernel
 
+    G = q.shape[2] // k.shape[2]   # GQA: K and V heads repeated to the query heads
+    k, v = (t.repeat_interleave(G, dim=2) for t in (k, v))
     qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (qh, kh, vh))
     with sdpa_kernel(backend) if backend is not None else contextlib.nullcontext():
@@ -420,23 +531,26 @@ def _sdpa_times(q, k, v, do, flush, backend) -> dict:
             "bwd_ms": bwd, "fwd_bwd_ms": both}
 
 
-def _flash_timing(gen, flush, dtype) -> dict:
-    """The forward and backward kernels at the training shape (causal) in
-    ``dtype``, beside their plain versions, SDPA pinned to one backend
-    (flash attention in bf16, memory-efficient attention in fp32, which the
-    flash backend does not take) and the bound; SDPA's default dispatch
-    beside it."""
+def _flash_timing(gen, flush, dtype, shape=FLASH_TRAIN) -> dict:
+    """The forward and backward kernels at ``shape`` (causal; the training
+    shape by default) in ``dtype``, beside their plain versions, SDPA pinned
+    to one backend (flash attention in bf16, memory-efficient attention in
+    fp32, which the flash backend does not take) and the bound; SDPA's
+    default dispatch beside it; on a tensor-core route, the simt kernels on
+    the same inputs too."""
     from torch.nn.attention import SDPBackend
 
-    B, S, H, _, hd, _, _ = FLASH_TRAIN
-    q, k, v, do = (torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype)
-                   for _ in range(4))
+    B, S, H, Hkv, hd, _, _ = shape
+    q, do = (torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
     way = _flash_way(dtype, hd)
     ops.reset_launch_counts()
     o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=True)
     fwd_ms = _time_ms(lambda: fa_kernel.flash_attention_fwd(q, k, v, causal=True), flush)
     bwd_ms = _time_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
                       flush)
+    passes = _device_ms_by_kernel(
+        lambda: fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=True), flush)
     counts = ops.launch_counts()
     if counts[f"flash_attention_{way}"] != counts["flash_attention"] or \
             counts[f"flash_attention_bwd_{way}"] != counts["flash_attention_bwd"]:
@@ -447,30 +561,31 @@ def _flash_timing(gen, flush, dtype) -> dict:
     sdpa["deterministic_algorithms"] = torch.are_deterministic_algorithms_enabled()
     sdpa["default_dispatch"] = _sdpa_times(q, k, v, do, flush, None)
     simt = {}
-    if way == "wgmma":
-        # the simt kernels on the same bf16 inputs, through their C entry
-        # points (uncounted): the design the wgmma kernels replace
+    if way != "simt":
+        # the simt kernels on the same inputs, through their C entry points
+        # (uncounted): the design the tensor-core kernels replace
         lib, stream = fa_kernel.build(), kernel_build.stream_of(q)
         so, slse = torch.empty_like(q), torch.empty_like(lse)
-        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         ptrs = [t.data_ptr() for t in (q, k, v)]
-        args = (B, S, H, H, hd, 1, 1, 0, hd ** -0.5, stream)
+        args = (B, S, H, Hkv, hd, fa_kernel._DTYPES[dtype], 1, 0, hd ** -0.5, stream)
         simt["fwd_ms"] = _time_ms(lambda: lib.repro_flash_attention_fwd(
             *ptrs, so.data_ptr(), slse.data_ptr(), *args), flush, reps=10)
         simt["bwd_ms"] = _time_ms(lambda: lib.repro_flash_attention_bwd(
             *ptrs, o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), *args), flush, reps=10)
-        _close(so, o, 2e-2, "flash simt vs wgmma, bf16")
+        _close(so, o, 2e-5 if dtype == torch.float32 else 2e-2, f"flash simt vs {way}, {dtype}")
     fwd_plain = _time_ms(lambda: ops.flash_attention(q, k, v, impl="ref"), flush)
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
     ref_out = ops.flash_attention(qg, kg, vg, impl="ref")
     bwd_plain = _time_ms(lambda: torch.autograd.grad(ref_out, (qg, kg, vg), do,
                                                      retain_graph=True), flush)
-    slab = B * S * H * hd * q.element_size()     # one of q, k, v, o, do, dq, dk, dv
+    slab = B * S * H * hd * q.element_size()     # one of q, o, do, dq
+    kv_slab = B * S * Hkv * hd * q.element_size()  # one of k, v, dk, dv
     pairs = B * H * S * (S + 1) // 2             # causal (q, k) pairs
     lse_b = B * H * S * 4
-    fwd_b, fwd_f = 4 * slab + lse_b, 4 * hd * pairs            # QK^T, PV
-    bwd_b, bwd_f = 8 * slab + lse_b, 10 * hd * pairs           # S, dP, dV, dK, dQ
+    fwd_b, fwd_f = 2 * slab + 2 * kv_slab + lse_b, 4 * hd * pairs    # QK^T, PV
+    bwd_b, bwd_f = 4 * slab + 4 * kv_slab + lse_b, 10 * hd * pairs   # S, dP, dV, dK, dQ
     fwd_bound, fwd_by = _bound(fwd_b, fwd_f, dtype)
     bwd_bound, bwd_by = _bound(bwd_b, bwd_f, dtype)
     call = f"scaled_dot_product_attention(is_causal=True), {sdpa['backend']} backend"
@@ -483,7 +598,7 @@ def _flash_timing(gen, flush, dtype) -> dict:
                 "library_call": f"autograd of {call}", "bound_ms": bwd_bound,
                 "bound_by": bwd_by, "kernel_route": way, "tflop_per_s": bwd_f / bwd_ms / 1e9,
                 "bytes": bwd_b, "flops": bwd_f},
-        "sdpa": sdpa, "simt_bf16": simt}
+        "sdpa": sdpa, "simt": simt, "bwd_passes_ms": passes}
 
 
 def _swiglu_way(dtype, d: int, f: int) -> str:
@@ -604,11 +719,13 @@ def _swiglu_parity(gen, flush) -> tuple:
 def phase_kernel_parity(smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    probe = _flash_tf32x3_probe(gen)
     decode, decode_detail = _decode_parity(gen, flush)
     flash, flash_detail = _flash_parity(gen, flush)
     swiglu, swiglu_detail = _swiglu_parity(gen, flush)
     recs = {"decode_attention": decode, **flash, **swiglu}
     emit({"phase": "kernel_parity", "card": smi, "kernels": recs,
+          "flash_tf32x3_probe_max_abs_err": probe,
           "decode_attention": decode_detail, "flash_attention": flash_detail,
           "swiglu": swiglu_detail})
     return recs
@@ -1020,7 +1137,7 @@ def phase_train_full(smi: str) -> dict:
     launches = counts[-1]
 
     step_counts = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
-    expect = _expected_launches(per_step, "wgmma")
+    expect = _expected_launches(per_step, "wgmma", "wgmma")
     if any(c != expect for c in step_counts):
         raise AssertionError(f"launches per step {step_counts}, expected {expect}")
     if checker.failures:
@@ -1116,23 +1233,31 @@ def training_kernels_as_plain():
         ops.flash_attention, ops.swiglu = real
 
 
-def _expected_launches(n: int, way: str) -> dict:
+def _expected_launches(n: int, flash_way: str, swiglu_way: str) -> dict:
     """``ops.launch_counts()`` after n launches of each training kernel,
-    forward and backward, with flash attention and swiglu on route ``way``."""
-    other = "simt" if way == "wgmma" else "wgmma"
+    forward and backward, flash attention on route ``flash_way`` and swiglu
+    on ``swiglu_way``."""
     counts = {"decode_attention": 0}
-    for name in ("flash_attention", "swiglu"):
-        counts |= {name: n, f"{name}_bwd": n, f"{name}_{way}": n, f"{name}_bwd_{way}": n,
-                   f"{name}_{other}": 0, f"{name}_bwd_{other}": 0}
+    for name, mod, way in (("flash_attention", fa_kernel, flash_way),
+                           ("swiglu", sg_kernel, swiglu_way)):
+        counts |= {name: n, f"{name}_bwd": n}
+        for route in mod.ROUTES:
+            counts |= {f"{name}_{route}": n if route == way else 0,
+                       f"{name}_bwd_{route}": n if route == way else 0}
     return counts
+
+
+# the routes of the fp32 training runs (train_fp32 at hd 96, train_reduced
+# at hd 64): flash attention on the tensor cores, swiglu on the CUDA cores
+FP32_WAYS = {"flash_attention": "tf32x3", "swiglu": "simt"}
 
 
 def train_routes(cfg, spec, optimizer, params, *, d: int, steps: int, routes) -> dict:
     """One run_plan per route on the same params and batches: "kernel"
-    (``use_kernels=True``),
-    "kernel_plain" (the same path with the kernels' plain versions) and
-    "plain" (``use_kernels=False``); flash attention and swiglu on the simt
-    route (these runs are fp32)."""
+    (``use_kernels=True``), "kernel_plain" (the same path with the kernels'
+    plain versions) and "plain" (``use_kernels=False``); these runs are fp32,
+    so flash attention takes the tf32x3 route and swiglu the simt route
+    (``FP32_WAYS``)."""
     prof, plat, config, M = train_setup(cfg, spec, d=d)
     batches = train_batches(cfg, spec, d, steps)
     per_run = d * spec["mu"] * cfg.n_layers * steps
@@ -1146,7 +1271,8 @@ def train_routes(cfg, spec, optimizer, params, *, d: int, steps: int, routes) ->
                 batch_fn=lambda k: batches[k], use_kernels=route != "plain", device="cuda"))
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        want = _expected_launches(per_run if route == "kernel" else 0, "simt")
+        want = _expected_launches(per_run if route == "kernel" else 0,
+                                  FP32_WAYS["flash_attention"], FP32_WAYS["swiglu"])
         if counts != want:
             raise AssertionError(f"route {route}: launches {counts}, expected {want}")
         out[route] = (res.losses, res.params, counts)
@@ -1223,11 +1349,12 @@ def main() -> None:
     train = phase_train_full(smi)
     fp32 = phase_train_fp32(smi)
     # the bf16 main path's training launches all took the wgmma kernels, the
-    # fp32 path's the simt kernels
-    for name in ("flash_attention", "swiglu"):
+    # fp32 path's flash attention the tf32x3 kernels and its swiglu the simt
+    # kernels
+    for name, way in FP32_WAYS.items():
         launches |= {name: train[f"{name}_wgmma"], f"{name}_bwd": train[f"{name}_bwd_wgmma"],
-                     f"{name}_simt": fp32[f"{name}_simt"],
-                     f"{name}_bwd_simt": fp32[f"{name}_bwd_simt"]}
+                     f"{name}_{way}": fp32[f"{name}_{way}"],
+                     f"{name}_bwd_{way}": fp32[f"{name}_bwd_{way}"]}
     phase_train_reduced(smi)
     source = "src/repro_torch/kernels/csrc/{}.cu"
     tpu = {"decode_attention": "src/repro/kernels/decode_attention.py:68",
@@ -1235,7 +1362,7 @@ def main() -> None:
            "swiglu": "src/repro/kernels/swiglu.py:57"}
     kernels = []
     for name, rec in recs.items():
-        base = name.removesuffix("_simt").removesuffix("_bwd")
+        base = name.removesuffix("_simt").removesuffix("_tf32x3").removesuffix("_bwd")
         kernels.append({"name": name, "route": "cuda", "source": source.format(base),
                         "replaces": tpu[base], "launches": launches[name], **rec})
     emit({"kernels": kernels})

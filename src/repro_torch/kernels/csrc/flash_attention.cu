@@ -15,7 +15,7 @@
 // What bounds it on the card: at the training shape (S = 1024, hd = 96) the
 // work is operations (~4 S^2 hd / 2 flops a head forward, 10 S^2 hd / 2
 // backward, against ~8 S hd bytes), so the bound is the tensor cores' rate.
-// Two designs, chosen per call by flash_attention.py's route() before the
+// Three designs, chosen per call by flash_attention.py's route() before the
 // launch:
 //
 // "wgmma" -- bf16 at hd 64, 80, 96 or 128 with 16-byte aligned pointers
@@ -59,10 +59,60 @@
 //     bits on every run (train_full compares replicas bit for bit);
 //   * stores are bf16 pairs straight from the accumulators to global
 //     memory, masked at the edges.
-// "simt" -- fp32 (fp32 inputs have to stay fp32 to hold 2e-5) and hd 256
-// (its 128-column accumulators do not fit the wgmma design's registers):
-// fp32 FMAs on the CUDA cores, the operands in shared memory and the output
-// tile in registers:
+// "tf32x3" -- fp32 at hd 64, 80, 96 or 128 with 16-byte aligned pointers
+// (replaces the simt kernels below for these shapes; the Pallas kernel's
+// fp32 path is the same function):
+//   * why three products: fp32 inputs have to hold 2e-5 (outputs) and 1e-4
+//     (gradients), and one TF32 product (10-bit mantissas) misses that by
+//     two orders of magnitude.  Each operand x is split once into hi =
+//     tf32(x) (cvt.rna) and lo = tf32(x - hi), and each product is
+//     a_lo b_hi + a_hi b_lo + a_hi b_hi, three TF32 products into one fp32
+//     accumulator in that fixed order; the dropped a_lo b_lo is ~2^-22 of
+//     the product, so the result is as close to fp32 as fp32 FMAs are;
+//   * the bound: 3 TF32 products per counted flop at the dense TF32 rate
+//     (495 TFLOP/s), 165 TFLOP/s of fp32-accurate work, against the CUDA
+//     cores' 67; mma.sync itself peaks near two thirds of the dense rate
+//     (tools/mma_sync_ceiling.py);
+//   * mma.sync.m16n8k8.tf32, not wgmma: wgmma takes a TF32 B operand from
+//     shared memory K-major only, and P V, P^T dO, dS^T Q and dS K have
+//     their B MN-major as [B, S, H, hd] lays it out; mma.sync's fragments
+//     are loaded by the threads (ldmatrix where the layout allows), so any
+//     layout serves;
+//   * tiles are split once into hi and lo planes as they enter shared
+//     memory, rows hd + 4 floats apart so that fragment loads hit 32 banks;
+//   * P and dS are split in registers.  The fragment permutation: the m16n8
+//     accumulator holds columns 2t and 2t + 1 of each 8-column block, the
+//     A fragment wants columns t and t + 4.  A product reduced over those
+//     8 columns may take them in any order A and B agree on, so A takes
+//     the accumulator registers as they are (c0, c2, c1, c3) and B reads
+//     rows 2t and 2t + 1 of V (dO, Q, K) where it would read rows t and
+//     t + 4: no shuffle;
+//   * the tensor cores' fp32 accumulation truncates.  The products that
+//     sum over a streamed dimension (P V, P^T dO, dS^T Q, dS K) take each
+//     tile in a fresh accumulator and add it to the running sum with IEEE
+//     adds: one accumulator over 5,120 q rows (dV at S 1024, G 5) drifted
+//     by more than 1e-4;
+//   * forward: one block per (batch, q head, 64 q rows), 4 warps of 16 rows,
+//     two blocks an SM; K and V tiles of 32 keys (16 at hd 128) loaded into
+//     registers one tile ahead; the online softmax on the accumulator
+//     fragments as on the wgmma route (log2 domain, one ex2.approx.ftz per
+//     score fed by an FMA that folds scale * log2(e), fixed-order shfl_xor
+//     reductions, masks only on tiles that hold a disallowed pair, masked
+//     tiles skipped);
+//   * backward: D = rowsum(dO * O) once in a launch of its own (shared with
+//     the wgmma route), then a dK/dV pass (64 keys resident, Q and dO tiles
+//     streamed over the G heads of the group) and a dQ pass (64 q rows
+//     resident, K and V tiles streamed), each recomputing S and dP; all
+//     five products on 3xTF32; no atomics.  The passes' planes fill shared
+//     memory for one block an SM, so a block has 8 warps: warps w and w + 4
+//     share 16 resident rows, take half of each streamed tile (staged by
+//     cp.async) and add their two partial sums once at the end.  At hd 128
+//     dK and dV together do not fit the registers: the dK/dV pass runs as
+//     two launches, dV and then dK.
+// "simt" -- hd 256 (its 128-column accumulators fit neither tensor-core
+// design's registers) and tensors the other routes cannot load (misaligned
+// pointers): fp32 FMAs on the CUDA cores, the operands in shared memory
+// and the output tile in registers:
 //   * TPU: the k-block grid axis is sequential with (m, l, acc) in VMEM.
 //     Here one thread block owns a (batch, q head, q tile) and loops over
 //     the k tiles itself, from the window's first tile to the causal
@@ -87,7 +137,9 @@
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
 // The C entry points take raw pointers and PyTorch's current stream; they
 // launch, do not synchronise and return the CUDA error.  The wgmma entry
-// points encode their TMA descriptors on the host (hopper.cuh).
+// points encode their TMA descriptors on the host (hopper.cuh).  Each
+// tensor-core route has a one-tile probe entry point that checks its
+// fragment layouts against a matrix product.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -569,6 +621,39 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o, cons
   return cudaGetLastError();
 }
 
+// ------------------------------------------- backward: D = rowsum(dO * O)
+// The first launch of both tensor-core backwards.  Eight lanes a row of
+// [B, S, Hq, hd], in memory order, 16 bytes a load, each pair of elements
+// folded in the same order in either dtype; D is [B, Hq, S] fp32.
+template <typename T, int HD>
+__global__ void __launch_bounds__(256)
+flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
+                   int rows, int S, int Hq) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int r = blockIdx.x * 32 + threadIdx.x / 8, sub = threadIdx.x % 8;
+  float d = 0.f;
+  if (r < rows) {
+    const size_t at = static_cast<size_t>(r) * HD;
+#pragma unroll
+    for (int c = kVec * sub; c < HD; c += 8 * kVec) {
+      const uint4 x = *reinterpret_cast<const uint4*>(o + at + c);
+      const uint4 y = *reinterpret_cast<const uint4*>(dout + at + c);
+      const T* xp = reinterpret_cast<const T*>(&x);
+      const T* yp = reinterpret_cast<const T*>(&y);
+#pragma unroll
+      for (int e = 0; e < kVec; e += 2)
+        d = fmaf(to_f32(xp[e]), to_f32(yp[e]), fmaf(to_f32(xp[e + 1]), to_f32(yp[e + 1]), d));
+    }
+  }
+  d += __shfl_xor_sync(0xffffffffu, d, 1);
+  d += __shfl_xor_sync(0xffffffffu, d, 2);
+  d += __shfl_xor_sync(0xffffffffu, d, 4);
+  if (r < rows && sub == 0) {
+    const int bs = r / Hq, h = r % Hq;
+    delta[(static_cast<size_t>(bs / S) * Hq + h) * S + bs % S] = d;
+  }
+}
+
 // ------------------------------------------------------------ wgmma route
 namespace tc {
 
@@ -932,40 +1017,6 @@ flash_wgmma_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       if (lane % 4 == 0)
         lse[(static_cast<size_t>(b) * Hq + h) * S + row] = (m[hh] + log2f(l[hh])) * kLn2;
     }
-  }
-}
-
-// ------------------------------------------- backward: D = rowsum(dO * O)
-// Eight lanes a row of [B, S, Hq, hd], in memory order, 16 bytes a load;
-// D is [B, Hq, S].
-template <int HD>
-__global__ void __launch_bounds__(256)
-flash_wgmma_delta_kernel(const __nv_bfloat16* __restrict__ o,
-                         const __nv_bfloat16* __restrict__ dout, float* __restrict__ delta,
-                         int rows, int S, int Hq) {
-  const int r = blockIdx.x * 32 + threadIdx.x / 8, sub = threadIdx.x % 8;
-  float d = 0.f;
-  if (r < rows) {
-    const size_t at = static_cast<size_t>(r) * HD;
-#pragma unroll
-    for (int c = 8 * sub; c < HD; c += 64) {
-      const uint4 x = *reinterpret_cast<const uint4*>(o + at + c);
-      const uint4 y = *reinterpret_cast<const uint4*>(dout + at + c);
-      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
-      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float2 a = __bfloat1622float2(xp[k]), b = __bfloat1622float2(yp[k]);
-        d = fmaf(a.x, b.x, fmaf(a.y, b.y, d));
-      }
-    }
-  }
-  d += __shfl_xor_sync(0xffffffffu, d, 1);
-  d += __shfl_xor_sync(0xffffffffu, d, 2);
-  d += __shfl_xor_sync(0xffffffffu, d, 4);
-  if (r < rows && sub == 0) {
-    const int bs = r / Hq, h = r % Hq;
-    delta[(static_cast<size_t>(bs / S) * Hq + h) * S + bs % S] = d;
   }
 }
 
@@ -1427,7 +1478,7 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o, cons
   const float* lt = static_cast<const float*>(lse);
   float* dt = static_cast<float*>(delta);
   const int rows = B * S * Hq;
-  flash_wgmma_delta_kernel<HD><<<(rows + 31) / 32, 256, 0, stream>>>(
+  flash_delta_kernel<__nv_bfloat16, HD><<<(rows + 31) / 32, 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), dt, rows, S,
       Hq);
   err = cudaGetLastError();
@@ -1461,6 +1512,877 @@ cudaError_t probe(const void* q, const void* k, const void* v, void* s, void* o,
 }
 
 }  // namespace tc
+
+// ----------------------------------------------------------- tf32x3 route
+namespace x3 {
+
+using tc::ex2;
+using tc::kLn2;
+using tc::kLog2e;
+using tc::needs_mask;
+
+constexpr int kThreads = 128;     // the forward: 4 warps of 16 resident rows each
+constexpr int kBwdThreads = 256;  // the backward passes: warps w and w + 4 share 16
+                                  // resident rows and take half of each streamed tile
+constexpr int kRows = 64;         // resident rows of a block: q rows, or keys in the dK/dV pass
+
+// Rows of a streamed tile (K and V in the forward and the dQ pass, Q and dO
+// in the dK/dV pass): 16 at hd 128, so that the planes, the staging and the
+// accumulators fit in shared memory and registers.
+template <int HD>
+__host__ __device__ constexpr int stream_rows() { return HD > 96 ? 16 : 32; }
+
+// Row stride of a plane, in floats: hd + 4 is 4 x an odd number at hd 64, 80,
+// 96 and 128, so the fragment loads below (8 rows x 4 columns, or rows 2t
+// and 2t + 1 of 8 columns) fall on 32 different banks.
+template <int HD>
+__host__ __device__ constexpr int ld() { return HD + 4; }
+
+// tf32(x), rounded to nearest with ties away from zero: the low 13 bits of
+// the fp32 pattern cleared.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi) (x - hi is
+// exact in fp32).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// One 16 x 8 x 8 TF32 product with fp32 accumulation: d += a b.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Fragments of mma.m16n8k8.tf32, lane = 4 g + t: A (16 x 8) registers
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (8 x 8) (t, g), (t + 4, g);
+// the accumulator (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// d[n] += a b[n] for n < N, each as three TF32 products into its one fp32
+// accumulator in a fixed order, the small terms first: lo hi, hi lo, hi hi
+// (lo lo, ~2^-22 of the product, is dropped).  The N accumulators take
+// turns, product by product, so that no product waits on the one before.
+template <int N>
+__device__ __forceinline__ void mma3(float (&d)[N][4], const FragA& a, const FragB (&b)[N]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n], a.lo, b[n].hi);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n], a.hi, b[n].lo);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma(d[n], a.hi, b[n].hi);
+}
+
+// Four 8 x 4 tiles of 32-bit elements in one instruction: lane 8i + r gives
+// the address of row r of tile i, and register i of lane 4g + t receives
+// element (g, t) of tile i (ldmatrix of 8 x 8 16-bit tiles, read as pairs).
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const uint32_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(hopper::smem_addr(p)));
+}
+
+// A fragment of rows m0.., columns k0.. of a row-major [rows][LD] plane pair.
+template <int LD>
+__device__ __forceinline__ FragA load_a(const uint32_t* hi, const uint32_t* lo, int m0, int k0,
+                                        int g, int t) {
+  // tiles (m0, k0), (m0 + 8, k0), (m0, k0 + 4), (m0 + 8, k0 + 4)
+  const int lane = 4 * g + t, i = lane / 8;
+  const int at = (m0 + lane % 8 + 8 * (i % 2)) * LD + k0 + 4 * (i / 2);
+  FragA a;
+  ldsm4(a.hi, hi + at);
+  ldsm4(a.lo, lo + at);
+  return a;
+}
+
+// B fragment of a product reduced over the plane's columns (B = X^T, X
+// rows n0.., columns k0..): Q K^T, K Q^T, dO V^T, V dO^T.
+template <int LD>
+__device__ __forceinline__ FragB load_bt(const uint32_t* hi, const uint32_t* lo, int n0, int k0,
+                                         int g, int t) {
+  const int i = (n0 + g) * LD + k0 + t;
+  return {{hi[i], hi[i + 4]}, {lo[i], lo[i + 4]}};
+}
+
+// The B fragments of N such blocks, rows n0 + 8 j, two blocks an ldmatrix
+// (tiles (n0, k0), (n0, k0 + 4), (n0 + 8, k0), (n0 + 8, k0 + 4)) where N is
+// even.
+template <int LD, int N>
+__device__ __forceinline__ void load_bts(FragB (&b)[N], const uint32_t* hi, const uint32_t* lo,
+                                         int n0, int k0, int g, int t) {
+  if constexpr (N % 2 == 0) {
+    const int lane = 4 * g + t, i = lane / 8;
+    const int at = (n0 + lane % 8 + 8 * (i / 2)) * LD + k0 + 4 * (i % 2);
+#pragma unroll
+    for (int j = 0; j < N; j += 2) {
+      uint32_t h[4], l[4];
+      ldsm4(h, hi + at + 8 * j * LD);
+      ldsm4(l, lo + at + 8 * j * LD);
+      b[j] = {{h[0], h[1]}, {l[0], l[1]}};
+      b[j + 1] = {{h[2], h[3]}, {l[2], l[3]}};
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) b[j] = load_bt<LD>(hi, lo, n0 + 8 * j, k0, g, t);
+  }
+}
+
+// The permutation that feeds an accumulator to the next product without a
+// shuffle: the accumulator of an n8 block holds columns 2t and 2t + 1, the A
+// fragment wants columns t and t + 4.  A product reduced over those 8
+// columns may take them in any order that A and B share, so A's column t is
+// accumulator column 2t and its column t + 4 is column 2t + 1: A = (c0, c2,
+// c1, c3), split into hi and lo in registers, and B's row t is plane row
+// k0 + 2t, its row t + 4 plane row k0 + 2t + 1 (load_bp).
+__device__ __forceinline__ FragA split_acc(const float (&c)[4]) {
+  FragA a;
+  split(c[0], a.hi[0], a.lo[0]);
+  split(c[2], a.hi[1], a.lo[1]);
+  split(c[1], a.hi[2], a.lo[2]);
+  split(c[3], a.hi[3], a.lo[3]);
+  return a;
+}
+
+// B fragment of a product reduced over the plane's rows k0..k0 + 7 in the
+// permuted order, columns n0..: P V, P^T dO, dS^T Q, dS K.
+template <int LD>
+__device__ __forceinline__ FragB load_bp(const uint32_t* hi, const uint32_t* lo, int k0, int n0,
+                                         int g, int t) {
+  const int i = (k0 + 2 * t) * LD + n0 + g;
+  return {{hi[i], hi[i + LD]}, {lo[i], lo[i + LD]}};
+}
+
+// The products that accumulate over a streamed dimension (P V over the
+// keys, P^T dO and dS^T Q over the q rows of G heads, dS K over the keys)
+// add each streamed tile's contribution, taken in a fresh accumulator (at
+// most 12 products), into the running fp32 sum with IEEE round-to-nearest
+// adds: the tensor cores' fp32 accumulation truncates, and thousands of
+// truncating accumulations into one sum (dV over 5,120 q rows at S 1024,
+// G 5) bias it by ~1e-4.  run[c0 + cc] += sum over j of a[j] B(j, c0 + cc)
+// for cc < 2 (every head dim here has an even number of column blocks).
+template <int LD, int J, int N>
+__device__ __forceinline__ void mma3_tile(float (&run)[N][4], int c0, const FragA (&a)[J],
+                                          const uint32_t* hi, const uint32_t* lo, int g, int t) {
+  float part[2][4] = {};
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const FragB b[2] = {load_bp<LD>(hi, lo, 8 * j, 8 * c0, g, t),
+                        load_bp<LD>(hi, lo, 8 * j, 8 * c0 + 8, g, t)};
+    mma3(part, a[j], b);
+  }
+#pragma unroll
+  for (int cc = 0; cc < 2; ++cc)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) run[c0 + cc][e] += part[cc][e];
+}
+
+// ------------------------------------------------------- loading the tiles
+// Float4 i of a tile of one head's rows [r0, r0 + R) of a [B, S, H, HD] fp32
+// tensor (row stride `stride` floats, `src` at the head's first column) is
+// row i / (HD / 4), columns 4 (i % (HD / 4)); rows past S read as zeros.
+
+// 16 bytes global -> shared without registers (cp.async); zeros when `in`
+// is false (no bytes are read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// The raw tile into a shared staging buffer [R][HD] by NT threads,
+// asynchronously; the caller commits the group and waits for it.
+template <int HD, int R, int NT>
+__device__ __forceinline__ void stage_async(float* stage, const float* src, size_t stride, int r0,
+                                            int S) {
+#pragma unroll
+  for (int i = threadIdx.x; i < R * HD / 4; i += NT) {
+    const int row = i / (HD / 4), c = 4 * (i % (HD / 4));
+    const bool in = r0 + row < S;
+    cp_async16(stage + 4 * i, src + static_cast<size_t>(in ? r0 + row : r0) * stride + c, in);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One float4 split once into the hi and lo planes [rows][LD] at float4 i.
+template <int HD>
+__device__ __forceinline__ void store_split(uint32_t* hi, uint32_t* lo, int i, float4 x) {
+  const int at = (i / (HD / 4)) * ld<HD>() + 4 * (i % (HD / 4));
+  uint4 h, l;
+  split(x.x, h.x, l.x);
+  split(x.y, h.y, l.y);
+  split(x.z, h.z, l.z);
+  split(x.w, h.w, l.w);
+  *reinterpret_cast<uint4*>(hi + at) = h;
+  *reinterpret_cast<uint4*>(lo + at) = l;
+}
+
+// A staged tile into its planes, by NT threads.
+template <int HD, int R, int NT>
+__device__ __forceinline__ void split_stage(uint32_t* hi, uint32_t* lo, const float* stage) {
+#pragma unroll
+  for (int i = threadIdx.x; i < R * HD / 4; i += NT)
+    store_split<HD>(hi, lo, i, *reinterpret_cast<const float4*>(stage + 4 * i));
+}
+
+// A tile loaded into registers (the forward's K and V, one tile ahead: the
+// forward keeps two blocks an SM, which a staging buffer would not leave
+// room for), then split into its planes.
+template <int HD, int R>
+struct Tile {
+  static_assert(R * HD % (4 * kThreads) == 0, "a tile is a whole number of float4s a thread");
+  static constexpr int kPerThread = R * HD / 4 / kThreads;
+  float4 v[kPerThread];
+
+  __device__ __forceinline__ void load(const float* src, size_t stride, int r0, int S) {
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) {
+      const int i = threadIdx.x + j * kThreads, row = i / (HD / 4), c = 4 * (i % (HD / 4));
+      v[j] = r0 + row < S
+                 ? __ldg(reinterpret_cast<const float4*>(src + static_cast<size_t>(r0 + row) * stride + c))
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  __device__ __forceinline__ void store(uint32_t* hi, uint32_t* lo) const {
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) store_split<HD>(hi, lo, threadIdx.x + j * kThreads, v[j]);
+  }
+};
+
+// A resident tile of R rows, loaded and split by NT threads.
+template <int HD, int R, int NT>
+__device__ __forceinline__ void load_planes(uint32_t* hi, uint32_t* lo, const float* src,
+                                            size_t stride, int r0, int S) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < R * HD / 4; i += NT) {
+    const int row = i / (HD / 4), c = 4 * (i % (HD / 4));
+    store_split<HD>(hi, lo, i,
+                    r0 + row < S ? __ldg(reinterpret_cast<const float4*>(
+                                       src + static_cast<size_t>(r0 + row) * stride + c))
+                                 : make_float4(0.f, 0.f, 0.f, 0.f));
+  }
+}
+
+// The two partial sums of each warp pair (w, w + 4) added in a fixed order:
+// warps 4..7 leave theirs in `scratch` (4 x M x N x 128 floats, over planes
+// that are consumed), warps 0..3 add them to their own.
+template <int M, int N>
+__device__ __forceinline__ void pair_sum(float (&acc)[M][N][4], float* scratch, int warp,
+                                         int lane) {
+  float* at = scratch + (warp % 4) * M * N * 128 + lane;
+  __syncthreads();
+  if (warp >= 4) {
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) at[((m * N + n) * 4 + e) * 32] = acc[m][n][e];
+  }
+  __syncthreads();
+  if (warp < 4) {
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] += at[((m * N + n) * 4 + e) * 32];
+  }
+}
+
+// ---------------------------------------------------------------- forward
+// One block per (batch, q head, 64 q rows), warp w owning rows 16w..16w+15;
+// Q split once into shared memory, K and V tiles loaded into registers one
+// tile ahead (the loads fly during the tile's products) and split into
+// their planes between two barriers.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_tf32x3_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int S, int Hq, int Hkv, int causal, int window,
+                        float scale_log2) {
+  constexpr int BQ = kRows, BK = stream_rows<HD>(), LD = ld<HD>();
+  extern __shared__ __align__(16) uint32_t smem_x3[];
+  uint32_t* q_hi = smem_x3;
+  uint32_t* q_lo = q_hi + BQ * LD;
+  uint32_t* k_hi = q_lo + BQ * LD;
+  uint32_t* k_lo = k_hi + BK * LD;
+  uint32_t* v_hi = k_lo + BK * LD;
+  uint32_t* v_lo = v_hi + BK * LD;
+
+  // causal: the q tiles with the most k tiles start first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ;
+  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq, hk = h / (Hq / Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const size_t qs = static_cast<size_t>(Hq) * HD, ks = static_cast<size_t>(Hkv) * HD;
+  const float* kb = k + static_cast<size_t>(b) * S * ks + static_cast<size_t>(hk) * HD;
+  const float* vb = v + static_cast<size_t>(b) * S * ks + static_cast<size_t>(hk) * HD;
+  int kt_lo, kt_hi;
+  k_tile_range(q0, BQ, BK, S, causal, window, &kt_lo, &kt_hi);
+
+  Tile<HD, BK> kr, vr;
+  if (kt_lo < kt_hi) {
+    kr.load(kb, ks, kt_lo * BK, S);
+    vr.load(vb, ks, kt_lo * BK, S);
+  }
+  load_planes<HD, BQ, kThreads>(
+      q_hi, q_lo, q + static_cast<size_t>(b) * S * qs + static_cast<size_t>(h) * HD, qs, q0, S);
+
+  const int row0 = q0 + warp * 16 + g;  // rows row0 and row0 + 8
+  float m[2] = {-1e30f, -1e30f};        // finite: a fully masked row leaves m, l and acc as they are
+  float l[2] = {0.f, 0.f};
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's planes are consumed
+    kr.store(k_hi, k_lo);
+    vr.store(v_hi, v_lo);
+    __syncthreads();
+    if (kt + 1 < kt_hi) {
+      kr.load(kb, ks, k0 + BK, S);
+      vr.load(vb, ks, k0 + BK, S);
+    }
+
+    // S = Q K^T, unscaled fp32
+    float sc[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      FragB bk[BK / 8];
+      load_bts<LD>(bk, k_hi, k_lo, 0, 8 * kk, g, t);
+      mma3(sc, load_a<LD>(q_hi, q_lo, warp * 16, 8 * kk, g, t), bk);
+    }
+
+    // masks only on tiles that hold a disallowed pair; the online softmax in
+    // the log2 domain (m is the running maximum of the scaled scores times
+    // log2(e), so the scale folds into each exponent's FMA), each row's four
+    // lanes reducing with shfl_xor in a fixed order
+    if (needs_mask(q0, BQ, k0, BK, S, causal, window)) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!allowed(row0 + 8 * (e / 2), k0 + 8 * j + 2 * t + e % 2, S, causal, window))
+            sc[j][e] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY}, corr[2];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sc[j][e]);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh] * scale_log2);
+      corr[hh] = ex2(m[hh] - m_new);
+      m[hh] = m_new;
+      l[hh] *= corr[hh];
+    }
+
+    // P in registers, split; O = O corr + P V, the tile's P V in a fresh
+    // accumulator
+    FragA p[BK / 8];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = ex2(fmaf(sc[j][e], scale_log2, -m[e / 2]));  // 0 where masked
+        l[e / 2] += sc[j][e];
+      }
+      p[j] = split_acc(sc[j]);
+    }
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e / 2];
+#pragma unroll
+    for (int n = 0; n < HD / 8; n += 2) mma3_tile<LD, BK / 8>(acc, n, p, v_hi, v_lo, g, t);
+  }
+
+  // epilogue: o = acc / l in float2 pairs, lse = m + log(l)
+  float* ob = o + static_cast<size_t>(b) * S * qs + static_cast<size_t>(h) * HD;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    l[hh] = fmaxf(l[hh], 1e-30f);
+    const int row = row0 + 8 * hh;
+    if (row >= S) continue;
+    const float inv = 1.f / l[hh];
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<float2*>(ob + row * qs + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * hh] * inv, acc[n][2 * hh + 1] * inv);
+    if (t == 0) lse[(static_cast<size_t>(b) * Hq + h) * S + row] = (m[hh] + log2f(l[hh])) * kLn2;
+  }
+}
+
+// ------------------------------------------------------- backward: dK, dV
+// One block per (batch, kv head, 64 keys) of 8 warps: warps w and w + 4 own
+// keys 16 (w % 4).. and take the first and the second half of each streamed
+// q tile.  K and V split once into shared memory; Q and dO tiles (with their
+// lse and D) staged by cp.async one tile ahead, over the G query heads of
+// the group and the q tiles that see the keys.  S^T = K Q^T and dP^T =
+// V dO^T, P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - D), then dV +=
+// P^T dO and dK += dS^T Q; each pair adds its two halves at the end.
+// PARTS says which gradients a launch computes: both, or at hd 128, where
+// dK and dV together (128 registers a thread) leave too few registers for
+// the rest, one a launch (dV from S^T alone, then dK, recomputing S^T).
+constexpr int kDK = 1, kDV = 2;
+
+template <int HD>
+constexpr int dkdv_parts() { return HD > 96 ? kDV : kDK | kDV; }
+
+template <int HD, int PARTS>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_tf32x3_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv, int S, int Hq, int Hkv,
+                         int causal, int window, float scale, float scale_log2) {
+  constexpr int BK = kRows, BQ = stream_rows<HD>(), LD = ld<HD>(), JW = BQ / 16;
+  constexpr bool kWantDK = PARTS & kDK, kWantDV = PARTS & kDV;
+  constexpr int M = kWantDK + kWantDV;  // accumulators: dK first, then dV
+  extern __shared__ __align__(16) uint32_t smem_x3[];
+  uint32_t* k_hi = smem_x3;
+  uint32_t* k_lo = k_hi + BK * LD;
+  uint32_t* v_hi = k_lo + BK * LD;
+  uint32_t* v_lo = v_hi + BK * LD;
+  uint32_t* q_hi = v_lo + BK * LD;
+  uint32_t* q_lo = q_hi + BQ * LD;
+  uint32_t* do_hi = q_lo + BQ * LD;
+  uint32_t* do_lo = do_hi + BQ * LD;
+  float* q_stage = reinterpret_cast<float*>(do_lo + BQ * LD);  // [BQ][HD], raw
+  float* do_stage = q_stage + BQ * HD;
+  float* ls = do_stage + BQ * HD;  // lse * log2(e) of the tile's rows
+  float* ds = ls + BQ;             // D of the tile's rows
+
+  const int k0 = blockIdx.x * BK;
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const int G = Hq / Hkv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int j0 = (warp / 4) * JW;  // the warp's first k-step (8 q rows) of each tile
+  const size_t qs = static_cast<size_t>(Hq) * HD, ks = static_cast<size_t>(Hkv) * HD;
+  // the q rows [first, end) that see keys [k0, k0 + BK)
+  int first = 0, end = S;
+  if (causal) {
+    first = k0;
+    if (window > 0) end = min(S, k0 + BK - 1 + window);
+  }
+  const int qt_lo = first / BQ, nq = (end + BQ - 1) / BQ - qt_lo;
+  const int n = G * nq;
+
+  // tile it: query head hk * G + it / nq, rows from (qt_lo + it % nq) * BQ;
+  // its lse and D wait in registers of the first BQ threads
+  float lr = 0.f, dr = 0.f;
+  auto fetch = [&](int it) {
+    const int h = hk * G + it / nq, q0 = (qt_lo + it % nq) * BQ;
+    const size_t head = static_cast<size_t>(b) * S * qs + static_cast<size_t>(h) * HD;
+    stage_async<HD, BQ, kBwdThreads>(q_stage, q + head, qs, q0, S);
+    stage_async<HD, BQ, kBwdThreads>(do_stage, dout + head, qs, q0, S);
+    cp_async_commit();
+    if (threadIdx.x < BQ) {
+      const size_t row = (static_cast<size_t>(b) * Hq + h) * S + q0 + threadIdx.x;
+      const bool in = q0 + static_cast<int>(threadIdx.x) < S;
+      lr = in ? lse[row] * kLog2e : 0.f;
+      dr = in ? delta[row] : 0.f;
+    }
+  };
+  if (n > 0) fetch(0);
+  const size_t kv_head = static_cast<size_t>(b) * S * ks + static_cast<size_t>(hk) * HD;
+  load_planes<HD, BK, kBwdThreads>(k_hi, k_lo, k + kv_head, ks, k0, S);
+  load_planes<HD, BK, kBwdThreads>(v_hi, v_lo, v + kv_head, ks, k0, S);
+
+  const int key0 = k0 + (warp % 4) * 16 + g;  // keys key0 and key0 + 8
+  float acc[M][HD / 8][4];
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][c][e] = 0.f;
+
+  for (int it = 0; it < n; ++it) {
+    const int q0 = (qt_lo + it % nq) * BQ;
+    cp_async_wait();
+    __syncthreads();  // the tile is staged; the previous tile's planes are consumed
+    split_stage<HD, BQ, kBwdThreads>(q_hi, q_lo, q_stage);
+    split_stage<HD, BQ, kBwdThreads>(do_hi, do_lo, do_stage);
+    if (threadIdx.x < BQ) {
+      ls[threadIdx.x] = lr;
+      ds[threadIdx.x] = dr;
+    }
+    __syncthreads();  // the planes are ready; the staging buffers are free
+    if (it + 1 < n) fetch(it + 1);
+
+    // S^T = K Q^T and dP^T = V dO^T over the warp's half: columns are q rows
+    // 8 j0 .. 8 (j0 + JW) - 1 of the tile
+    float st[JW][4], dpt[JW][4];
+#pragma unroll
+    for (int j = 0; j < JW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      FragB bq[JW], bd[JW];
+      load_bts<LD>(bq, q_hi, q_lo, 8 * j0, 8 * kk, g, t);
+      mma3(st, load_a<LD>(k_hi, k_lo, (warp % 4) * 16, 8 * kk, g, t), bq);
+      if constexpr (kWantDK) {
+        load_bts<LD>(bd, do_hi, do_lo, 8 * j0, 8 * kk, g, t);
+        mma3(dpt, load_a<LD>(v_hi, v_lo, (warp % 4) * 16, 8 * kk, g, t), bd);
+      }
+    }
+
+    // P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - D); masks only on tiles
+    // that hold a disallowed pair or rows past S
+    const bool mask = needs_mask(q0, BQ, k0, BK, S, causal, window);
+#pragma unroll
+    for (int j = 0; j < JW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * (j0 + j) + 2 * t + e % 2;
+        float p = ex2(fmaf(st[j][e], scale_log2, -ls[c]));
+        if (mask && !(q0 + c < S && allowed(q0 + c, key0 + 8 * (e / 2), S, causal, window)))
+          p = 0.f;
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - ds[c]);
+      }
+
+    // dV += P^T dO, then dK += dS^T Q, reduced over the warp's half of the
+    // tile, each A operand split in registers just before its products
+    const int half = 8 * j0 * LD;
+    if constexpr (kWantDV) {
+      FragA pa[JW];
+#pragma unroll
+      for (int j = 0; j < JW; ++j) pa[j] = split_acc(st[j]);
+#pragma unroll
+      for (int c = 0; c < HD / 8; c += 2)
+        mma3_tile<LD, JW>(acc[M - 1], c, pa, do_hi + half, do_lo + half, g, t);
+    }
+    if constexpr (kWantDK) {
+      FragA da[JW];
+#pragma unroll
+      for (int j = 0; j < JW; ++j) da[j] = split_acc(dpt[j]);
+#pragma unroll
+      for (int c = 0; c < HD / 8; c += 2)
+        mma3_tile<LD, JW>(acc[0], c, da, q_hi + half, q_lo + half, g, t);
+    }
+  }
+
+  pair_sum(acc, reinterpret_cast<float*>(smem_x3), warp, lane);
+  if (warp >= 4) return;
+  float* dkb = dk + kv_head;
+  float* dvb = dv + kv_head;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = key0 + 8 * hh;
+    if (key >= S) continue;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) {
+      const size_t at = key * ks + 8 * c + 2 * t;
+      if constexpr (kWantDK)
+        *reinterpret_cast<float2*>(dkb + at) =
+            make_float2(acc[0][c][2 * hh] * scale, acc[0][c][2 * hh + 1] * scale);
+      if constexpr (kWantDV)
+        *reinterpret_cast<float2*>(dvb + at) =
+            make_float2(acc[M - 1][c][2 * hh], acc[M - 1][c][2 * hh + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------ backward: dQ
+// One block per (batch, q head, 64 q rows) of 8 warps: warps w and w + 4 own
+// rows 16 (w % 4).. and take the first and the second half of each streamed
+// k tile.  Q and dO split once into shared memory, K and V tiles staged by
+// cp.async one tile ahead: S = Q K^T, dP = dO V^T, dS = P (dP - D), dQ +=
+// dS K; each pair adds its two halves at the end, and dQ (like dK) is scaled
+// once.
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_tf32x3_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, const float* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       float* __restrict__ dq, int S, int Hq, int Hkv, int causal, int window,
+                       float scale, float scale_log2) {
+  constexpr int BQ = kRows, BK = stream_rows<HD>(), LD = ld<HD>(), JW = BK / 16;
+  extern __shared__ __align__(16) uint32_t smem_x3[];
+  uint32_t* q_hi = smem_x3;
+  uint32_t* q_lo = q_hi + BQ * LD;
+  uint32_t* do_hi = q_lo + BQ * LD;
+  uint32_t* do_lo = do_hi + BQ * LD;
+  uint32_t* k_hi = do_lo + BQ * LD;
+  uint32_t* k_lo = k_hi + BK * LD;
+  uint32_t* v_hi = k_lo + BK * LD;
+  uint32_t* v_lo = v_hi + BK * LD;
+  float* k_stage = reinterpret_cast<float*>(v_lo + BK * LD);  // [BK][HD], raw
+  float* v_stage = k_stage + BK * HD;
+
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * BQ;
+  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq, hk = h / (Hq / Hkv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int j0 = (warp / 4) * JW;  // the warp's first k-step (8 keys) of each tile
+  const size_t qs = static_cast<size_t>(Hq) * HD, ks = static_cast<size_t>(Hkv) * HD;
+  const size_t head = static_cast<size_t>(b) * S * qs + static_cast<size_t>(h) * HD;
+  const float* kb = k + static_cast<size_t>(b) * S * ks + static_cast<size_t>(hk) * HD;
+  const float* vb = v + static_cast<size_t>(b) * S * ks + static_cast<size_t>(hk) * HD;
+  int kt_lo, kt_hi;
+  k_tile_range(q0, BQ, BK, S, causal, window, &kt_lo, &kt_hi);
+
+  auto fetch = [&](int kt) {
+    stage_async<HD, BK, kBwdThreads>(k_stage, kb, ks, kt * BK, S);
+    stage_async<HD, BK, kBwdThreads>(v_stage, vb, ks, kt * BK, S);
+    cp_async_commit();
+  };
+  if (kt_lo < kt_hi) fetch(kt_lo);
+  load_planes<HD, BQ, kBwdThreads>(q_hi, q_lo, q + head, qs, q0, S);
+  load_planes<HD, BQ, kBwdThreads>(do_hi, do_lo, dout + head, qs, q0, S);
+
+  const int row0 = q0 + (warp % 4) * 16 + g;  // rows row0 and row0 + 8
+  const size_t stat = (static_cast<size_t>(b) * Hq + h) * S;
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    lse2[hh] = row < S ? lse[stat + row] * kLog2e : 0.f;
+    dd[hh] = row < S ? delta[stat + row] : 0.f;
+  }
+  float acc[1][HD / 8][4];
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][c][e] = 0.f;
+
+  for (int kt = kt_lo; kt < kt_hi; ++kt) {
+    const int k0 = kt * BK;
+    cp_async_wait();
+    __syncthreads();  // the tile is staged; the previous tile's planes are consumed
+    split_stage<HD, BK, kBwdThreads>(k_hi, k_lo, k_stage);
+    split_stage<HD, BK, kBwdThreads>(v_hi, v_lo, v_stage);
+    __syncthreads();  // the planes are ready; the staging buffers are free
+    if (kt + 1 < kt_hi) fetch(kt + 1);
+
+    // S = Q K^T and dP = dO V^T over the warp's half of the tile's keys
+    float sc[JW][4], dp[JW][4];
+#pragma unroll
+    for (int j = 0; j < JW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+      FragB bk[JW], bv[JW];
+      load_bts<LD>(bk, k_hi, k_lo, 8 * j0, 8 * kk, g, t);
+      load_bts<LD>(bv, v_hi, v_lo, 8 * j0, 8 * kk, g, t);
+      mma3(sc, load_a<LD>(q_hi, q_lo, (warp % 4) * 16, 8 * kk, g, t), bk);
+      mma3(dp, load_a<LD>(do_hi, do_lo, (warp % 4) * 16, 8 * kk, g, t), bv);
+    }
+
+    // dS = P (dP - D), split in registers; then dQ += dS K over the warp's keys
+    const bool mask = needs_mask(q0, BQ, k0, BK, S, causal, window);
+    FragA da[JW];
+#pragma unroll
+    for (int j = 0; j < JW; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(fmaf(sc[j][e], scale_log2, -lse2[e / 2]));
+        if (mask && !allowed(row0 + 8 * (e / 2), k0 + 8 * (j0 + j) + 2 * t + e % 2, S, causal,
+                             window))
+          p = 0.f;
+        dp[j][e] = p * (dp[j][e] - dd[e / 2]);
+      }
+      da[j] = split_acc(dp[j]);
+    }
+    const int half = 8 * j0 * LD;
+#pragma unroll
+    for (int c = 0; c < HD / 8; c += 2)
+      mma3_tile<LD, JW>(acc[0], c, da, k_hi + half, k_lo + half, g, t);
+  }
+
+  pair_sum(acc, reinterpret_cast<float*>(smem_x3), warp, lane);
+  if (warp >= 4) return;
+  float* dqb = dq + head;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= S) continue;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c)
+      *reinterpret_cast<float2*>(dqb + row * qs + 8 * c + 2 * t) =
+          make_float2(acc[0][c][2 * hh] * scale, acc[0][c][2 * hh + 1] * scale);
+  }
+}
+
+// -------------------------------------------------------------- the probe
+// One warp's 16-row tile of the forward's products, through the forward's
+// planes, fragment loads and permutation: s = q k^T [16, 32] and o = s v
+// [16, hd] (s itself as P), q [16, hd], k and v [32, hd], all fp32.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_tf32x3_probe_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ s_out,
+                          float* __restrict__ o_out) {
+  constexpr int BK = 32, LD = ld<HD>();
+  extern __shared__ __align__(16) uint32_t smem_x3[];
+  uint32_t* q_hi = smem_x3;
+  uint32_t* q_lo = q_hi + 16 * LD;
+  uint32_t* k_hi = q_lo + 16 * LD;
+  uint32_t* k_lo = k_hi + BK * LD;
+  uint32_t* v_hi = k_lo + BK * LD;
+  uint32_t* v_lo = v_hi + BK * LD;
+  Tile<HD, 16> qr;
+  Tile<HD, BK> kr, vr;
+  qr.load(q, HD, 0, 16);
+  kr.load(k, HD, 0, BK);
+  vr.load(v, HD, 0, BK);
+  qr.store(q_hi, q_lo);
+  kr.store(k_hi, k_lo);
+  vr.store(v_hi, v_lo);
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+
+  const int g = threadIdx.x / 4, t = threadIdx.x % 4;
+  float sc[BK / 8][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk) {
+    FragB bk[BK / 8];
+    load_bts<LD>(bk, k_hi, k_lo, 0, 8 * kk, g, t);
+    mma3(sc, load_a<LD>(q_hi, q_lo, 0, 8 * kk, g, t), bk);
+  }
+  FragA p[BK / 8];
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s_out[(g + 8 * (e / 2)) * BK + 8 * j + 2 * t + e % 2] = sc[j][e];
+    p[j] = split_acc(sc[j]);
+  }
+  float acc[HD / 8][4] = {};
+#pragma unroll
+  for (int c = 0; c < HD / 8; c += 2) mma3_tile<LD, BK / 8>(acc, c, p, v_hi, v_lo, g, t);
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_out[(g + 8 * (e / 2)) * HD + 8 * c + 2 * t + e % 2] = acc[c][e];
+}
+
+// ---------------------------------------------------------------- launches
+// Dynamic shared memory of each block: the hi and lo planes; the backward
+// passes' staging buffers (and the dK/dV pass's lse and D).
+template <int HD>
+constexpr int fwd_smem() {
+  return 4 * 2 * (kRows + 2 * stream_rows<HD>()) * ld<HD>();
+}
+template <int HD>
+constexpr int dkdv_smem() {
+  constexpr int R = stream_rows<HD>();
+  return 4 * (2 * (2 * kRows + 2 * R) * ld<HD>() + 2 * R * HD + 2 * R);
+}
+template <int HD>
+constexpr int dq_smem() {
+  constexpr int R = stream_rows<HD>();
+  return 4 * (2 * (2 * kRows + 2 * R) * ld<HD>() + 2 * R * HD);
+}
+
+template <int HD>
+cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
+                int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+  auto kernel = flash_tf32x3_fwd_kernel<HD>;
+  cudaError_t err = allow_smem(kernel, fwd_smem<HD>());
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + kRows - 1) / kRows, B * Hq);
+  kernel<<<grid, kThreads, fwd_smem<HD>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), S, Hq, Hkv, causal, window,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t bwd(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                const void* dout, void* delta, void* dq, void* dk, void* dv, int B, int S, int Hq,
+                int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+  auto dkdv = flash_tf32x3_dkdv_kernel<HD, dkdv_parts<HD>()>;
+  auto dqk = flash_tf32x3_dq_kernel<HD>;
+  cudaError_t err = allow_smem(dkdv, dkdv_smem<HD>());
+  if (err == cudaSuccess) err = allow_smem(dqk, dq_smem<HD>());
+  if (err != cudaSuccess) return err;
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* dot = static_cast<const float*>(dout);
+  const float* lt = static_cast<const float*>(lse);
+  float* dt = static_cast<float*>(delta);
+  const int rows = B * S * Hq;
+  flash_delta_kernel<float, HD><<<(rows + 31) / 32, 256, 0, stream>>>(
+      static_cast<const float*>(o), dot, dt, rows, S, Hq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid_kv((S + kRows - 1) / kRows, B * Hkv);
+  dkdv<<<grid_kv, kBwdThreads, dkdv_smem<HD>(), stream>>>(qt, kt, vt, dot, lt, dt,
+                                                        static_cast<float*>(dk),
+                                                        static_cast<float*>(dv), S, Hq, Hkv,
+                                                        causal, window, scale, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if constexpr (dkdv_parts<HD>() == kDV) {  // hd 128: dK in a second launch
+    auto dk_only = flash_tf32x3_dkdv_kernel<HD, kDK>;
+    err = allow_smem(dk_only, dkdv_smem<HD>());
+    if (err != cudaSuccess) return err;
+    dk_only<<<grid_kv, kBwdThreads, dkdv_smem<HD>(), stream>>>(
+        qt, kt, vt, dot, lt, dt, static_cast<float*>(dk), static_cast<float*>(dv), S, Hq, Hkv,
+        causal, window, scale, scale * kLog2e);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid_q((S + kRows - 1) / kRows, B * Hq);
+  dqk<<<grid_q, kBwdThreads, dq_smem<HD>(), stream>>>(qt, kt, vt, dot, lt, dt, static_cast<float*>(dq),
+                                                    S, Hq, Hkv, causal, window, scale,
+                                                    scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t probe(const void* q, const void* k, const void* v, void* s, void* o,
+                  cudaStream_t stream) {
+  constexpr int smem = 4 * 2 * (16 + 2 * 32) * ld<HD>();
+  auto kernel = flash_tf32x3_probe_kernel<HD>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<1, kThreads, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                         static_cast<const float*>(v), static_cast<float*>(s),
+                                         static_cast<float*>(o));
+  return cudaGetLastError();
+}
+
+}  // namespace x3
 
 #define REPRO_WGMMA_HEAD_DIMS(X) X(64) X(80) X(96) X(128)
 
@@ -1559,5 +2481,57 @@ extern "C" int repro_flash_wgmma_smem_bytes(int kernel, int hd) {
     return kernel == 0 ? tc::fwd_smem<HD>() : kernel == 1 ? tc::dkdv_smem<HD>() : tc::dq_smem<HD>();
   REPRO_WGMMA_HEAD_DIMS(REPRO_WGMMA_SMEM)
 #undef REPRO_WGMMA_SMEM
+  return -1;
+}
+
+// The tf32x3 route: fp32, hd 64, 80, 96 or 128, every pointer 16-byte
+// aligned (flash_attention.py's route() decides).  The same arguments as the
+// wgmma route's entry points; the backward's three launches are D =
+// rowsum(dO * O) into `delta`, the dK/dV pass and the dQ pass.
+extern "C" int repro_flash_tf32x3_fwd(const void* q, const void* k, const void* v, void* o,
+                                      void* lse, int B, int S, int Hq, int Hkv, int hd, int causal,
+                                      int window, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_X3_FWD(HD) \
+  if (hd == HD) return (int)x3::fwd<HD>(q, k, v, o, lse, B, S, Hq, Hkv, causal, window, scale, st);
+  REPRO_WGMMA_HEAD_DIMS(REPRO_X3_FWD)
+#undef REPRO_X3_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int repro_flash_tf32x3_bwd(const void* q, const void* k, const void* v, const void* o,
+                                      const void* lse, const void* dout, void* delta, void* dq,
+                                      void* dk, void* dv, int B, int S, int Hq, int Hkv, int hd,
+                                      int causal, int window, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define REPRO_X3_BWD(HD)                                                                     \
+  if (hd == HD)                                                                              \
+    return (int)x3::bwd<HD>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, S, Hq, Hkv, causal, \
+                            window, scale, st);
+  REPRO_WGMMA_HEAD_DIMS(REPRO_X3_BWD)
+#undef REPRO_X3_BWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// One 16-row tile of the forward's products, for checking the planes,
+// fragment layouts and permutation against a matrix product: q [16, hd], k
+// and v [32, hd] fp32; s = q k^T [16, 32] and o = s v [16, hd], both fp32.
+// hd 96 or 128.
+extern "C" int repro_flash_tf32x3_probe(const void* q, const void* k, const void* v, void* s,
+                                        void* o, int hd, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 96) return (int)x3::probe<96>(q, k, v, s, o, st);
+  if (hd == 128) return (int)x3::probe<128>(q, k, v, s, o, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Dynamic shared memory of a tf32x3 block at head dim hd, for build reports:
+// kernel 0 the forward, 1 the dK/dV pass, 2 the dQ pass; -1 for another hd.
+extern "C" int repro_flash_tf32x3_smem_bytes(int kernel, int hd) {
+#define REPRO_X3_SMEM(HD) \
+  if (hd == HD)           \
+    return kernel == 0 ? x3::fwd_smem<HD>() : kernel == 1 ? x3::dkdv_smem<HD>() : x3::dq_smem<HD>();
+  REPRO_WGMMA_HEAD_DIMS(REPRO_X3_SMEM)
+#undef REPRO_X3_SMEM
   return -1;
 }

@@ -7,12 +7,13 @@ entry: a ``torch.autograd.Function`` whose forward launches the forward
 kernel (output and row log-sum-exp) and whose backward launches the
 backward kernels.  Positions are ``arange(S)``, as on the Pallas path.
 
-Each direction has two designs, and :func:`route` picks one before the
+Each direction has three designs, and :func:`route` picks one before the
 launch from the dtype, the head dim and the pointers: ``"wgmma"`` (tensor
-cores fed by TMA, bf16 at hd 64-128) or ``"simt"`` (fp32 FMAs on the CUDA
-cores).  ``LAUNCHES`` and ``BWD_LAUNCHES`` count the forward and backward
-launches by route (one backward call launches all its passes from one C
-call).
+cores fed by TMA, bf16 at hd 64-128), ``"tf32x3"`` (tensor cores through
+``mma.sync``, fp32 at hd 64-128, each product as three TF32 products that
+hold fp32's accuracy) or ``"simt"`` (fp32 FMAs on the CUDA cores, hd 256).
+``LAUNCHES`` and ``BWD_LAUNCHES`` count the forward and backward launches by
+route (one backward call launches all its passes from one C call).
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ HEAD_DIMS = (64, 80, 96, 128, 256)
 WGMMA_HEAD_DIMS = (64, 80, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-ROUTES = ("wgmma", "simt")
+ROUTES = ("wgmma", "tf32x3", "simt")
 #: launches since the last reset (see ``kernels.ops``), by route
 LAUNCHES = dict.fromkeys(ROUTES, 0)
 BWD_LAUNCHES = dict.fromkeys(ROUTES, 0)
@@ -40,18 +41,22 @@ def build():
         "repro_flash_wgmma_bwd": [P] * 10 + [I] * 7 + [F, P],
         "repro_flash_wgmma_probe": [P] * 5 + [I] * 2 + [P],
         "repro_flash_wgmma_smem_bytes": [I] * 2,
+        "repro_flash_tf32x3_fwd": [P] * 5 + [I] * 7 + [F, P],
+        "repro_flash_tf32x3_bwd": [P] * 10 + [I] * 7 + [F, P],
+        "repro_flash_tf32x3_probe": [P] * 5 + [I, P],
+        "repro_flash_tf32x3_smem_bytes": [I] * 2,
     })
 
 
 def route(dtype: torch.dtype, hd: int, *ptrs: int) -> str:
-    """The kernel a call takes, decided before its launch: ``"wgmma"`` for
-    bf16 with hd 64, 80, 96 or 128 and every pointer 16-byte aligned (TMA's
+    """The kernel a call takes, decided before its launch.  At hd 64, 80, 96
+    or 128 with every pointer 16-byte aligned: ``"wgmma"`` for bf16 (TMA's
     rules: base addresses 16-byte aligned; the row strides ``H * hd * 2``
-    bytes are multiples of 16 at these head dims), ``"simt"`` for
-    everything else (fp32, hd 256)."""
-    if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS \
-            and all(p % 16 == 0 for p in ptrs):
-        return "wgmma"
+    bytes are multiples of 16 at these head dims), ``"tf32x3"`` for fp32
+    (16-byte loads).  ``"simt"`` for everything else (hd 256, misaligned
+    tensors)."""
+    if hd in WGMMA_HEAD_DIMS and all(p % 16 == 0 for p in ptrs):
+        return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     return "simt"
 
 
@@ -90,9 +95,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     way = route(q.dtype, hd, *ptrs)
     args = (B, S, Hq, k.shape[2], hd)
     with torch.cuda.device(q.device):
-        if way == "wgmma":
-            err = lib.repro_flash_wgmma_fwd(*ptrs, *args, int(causal), int(window),
-                                            hd ** -0.5, _build.stream_of(q))
+        if way != "simt":
+            err = getattr(lib, f"repro_flash_{way}_fwd")(*ptrs, *args, int(causal), int(window),
+                                                         hd ** -0.5, _build.stream_of(q))
         else:
             err = lib.repro_flash_attention_fwd(*ptrs, *args, _DTYPES[q.dtype], int(causal),
                                                 int(window), hd ** -0.5, _build.stream_of(q))
@@ -119,11 +124,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     way = route(q.dtype, hd, *ins, *outs)
     args = (B, S, Hq, k.shape[2], hd)
     with torch.cuda.device(q.device):
-        if way == "wgmma":
+        if way != "simt":
             # D = rowsum(dO * O), written by the first of the three launches
             delta = torch.empty_like(lse)
-            err = lib.repro_flash_wgmma_bwd(*ins, delta.data_ptr(), *outs, *args, int(causal),
-                                            int(window), hd ** -0.5, _build.stream_of(q))
+            err = getattr(lib, f"repro_flash_{way}_bwd")(
+                *ins, delta.data_ptr(), *outs, *args, int(causal), int(window), hd ** -0.5,
+                _build.stream_of(q))
         else:
             err = lib.repro_flash_attention_bwd(*ins, *outs, *args, _DTYPES[q.dtype],
                                                 int(causal), int(window), hd ** -0.5,

@@ -7,8 +7,9 @@ some cases, the Pallas kernels in interpret mode (the cases of
 the oracles; the dispatcher, the capability probe, the CUDA wrappers' input checks,
 routes and launch counts, and the build cache.  On a card (marker
 ``cuda``): each hand-written CUDA kernel, forward and backward, against its
-plain version, and the wgmma kernels' one-tile probes against matrix
-products.
+plain version, and the tensor-core kernels' one-tile probes against matrix
+products.  The tf32x3 route's arithmetic (three TF32 products for each fp32
+product) is also emulated on the CPU against the JAX oracle.
 """
 import contextlib
 
@@ -103,17 +104,20 @@ def test_ops_dispatch_cpu_goes_to_plain_version():
 
 def test_launch_counter_reset():
     da.LAUNCHES = 7
-    fa.LAUNCHES, fa.BWD_LAUNCHES = {"wgmma": 4, "simt": 2}, {"wgmma": 3, "simt": 2}
+    fa.LAUNCHES = {"wgmma": 4, "tf32x3": 5, "simt": 2}
+    fa.BWD_LAUNCHES = {"wgmma": 3, "tf32x3": 1, "simt": 2}
     sg.LAUNCHES, sg.BWD_LAUNCHES = {"wgmma": 3, "simt": 1}, {"wgmma": 2, "simt": 1}
-    assert ops.launch_counts() == {"decode_attention": 7, "flash_attention": 6,
-                                   "flash_attention_bwd": 5, "flash_attention_wgmma": 4,
-                                   "flash_attention_simt": 2, "flash_attention_bwd_wgmma": 3,
+    assert ops.launch_counts() == {"decode_attention": 7, "flash_attention": 11,
+                                   "flash_attention_bwd": 6, "flash_attention_wgmma": 4,
+                                   "flash_attention_tf32x3": 5, "flash_attention_simt": 2,
+                                   "flash_attention_bwd_wgmma": 3,
+                                   "flash_attention_bwd_tf32x3": 1,
                                    "flash_attention_bwd_simt": 2, "swiglu": 4, "swiglu_bwd": 3,
                                    "swiglu_wgmma": 3, "swiglu_simt": 1,
                                    "swiglu_bwd_wgmma": 2, "swiglu_bwd_simt": 1}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
-    assert fa.LAUNCHES == fa.BWD_LAUNCHES == {"wgmma": 0, "simt": 0}
+    assert fa.LAUNCHES == fa.BWD_LAUNCHES == {"wgmma": 0, "tf32x3": 0, "simt": 0}
 
 
 @pytest.mark.parametrize("bad", ["cpu", "dtype", "head_dim", "groups", "length"])
@@ -275,6 +279,76 @@ def test_flash_ref_grads_match_jax_vjp(need_jax, B, S, Hq, Hkv, hd, causal, wind
         np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=1e-4, atol=1e-4)
 
 
+def _tf32(a):
+    """fp32 -> TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest on the 13 low
+    bits of the pattern, ties away from zero (the sign lies apart from the
+    magnitude bits, so a carry rounds the magnitude up)."""
+    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, products):
+    """a @ b in fp32 as the tf32x3 kernels take it: each operand split into
+    hi = tf32(x) and lo = tf32(x - hi), and the TF32 products lo hi + hi lo +
+    hi hi summed into one fp32 accumulator (``products`` 3), or hi hi alone
+    (``products`` 1, plain TF32)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if products == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def _flash_tf32(q, k, v, do, products):
+    """Causal attention and its gradients ([H, S, hd] fp32) with every
+    product of the tf32x3 kernels emulated: S = Q K^T and O = P V forward,
+    S, dP = dO V^T, dV = P^T dO, dK = dS^T Q and dQ = dS K backward; the
+    softmax, D = rowsum(dO O) and dS = P (dP - D) in fp32."""
+    S, hd = q.shape[1], q.shape[2]
+    scale = np.float32(hd ** -0.5)
+    allow = np.tril(np.ones((S, S), dtype=bool))
+    s = _tf32_matmul(q, k.transpose(0, 2, 1), products)
+    z = np.where(allow, s * scale, -np.inf)
+    m = z.max(-1, keepdims=True)
+    p = np.exp(z - m)
+    l = p.sum(-1, keepdims=True)
+    o = _tf32_matmul(p, v, products) / l
+    lse = m + np.log(l)
+    d = (do * o).sum(-1, keepdims=True)
+    p = np.where(allow, np.exp(s * scale - lse), np.float32(0))
+    ds = p * (_tf32_matmul(do, v.transpose(0, 2, 1), products) - d)
+    dv = _tf32_matmul(p.transpose(0, 2, 1), do, products)
+    dk = _tf32_matmul(ds.transpose(0, 2, 1), q, products) * scale
+    dq = _tf32_matmul(ds, k, products) * scale
+    return o, (dq, dk, dv)
+
+
+def test_flash_tf32x3_arithmetic_holds_fp32_tolerances(need_jax):
+    """The tf32x3 route's arithmetic, emulated on the CPU at phi3-mini's
+    attention shape (S 1024, hd 96, causal; 4 of its heads), holds the fp32
+    bars against the JAX oracle: 2e-5 on the output, 1e-4 on the gradients
+    against ``jax.vjp``.  One TF32 product misses 2e-5, which is why the
+    kernels take three."""
+    B, S, H, hd = 1, 1024, 4, 96
+    q, k, v = _qkv(B, S, H, H, hd, seed=15)
+    do = np.random.default_rng(16).standard_normal(q.shape, dtype=np.float32)
+    heads = [a[0].transpose(1, 0, 2).copy() for a in (q, k, v, do)]   # [H, S, hd]
+    want, vjp = jax.vjp(lambda a, b, c: jax_ref.flash_attention_ref(a, b, c, causal=True),
+                        *(jnp.asarray(a) for a in (q, k, v)))
+    want_grads = vjp(jnp.asarray(do))
+
+    def bshd(a):
+        return a.transpose(1, 0, 2)[None]
+
+    o, grads = _flash_tf32(*heads, products=3)
+    assert o.dtype == np.float32
+    np.testing.assert_allclose(bshd(o), np.asarray(want), rtol=2e-5, atol=2e-5)
+    for g, w in zip(grads, want_grads):
+        np.testing.assert_allclose(bshd(g), np.asarray(w), rtol=1e-4, atol=1e-4)
+    o1, _ = _flash_tf32(*heads, products=1)
+    assert np.abs(bshd(o1) - np.asarray(want)).max() > 2e-5
+
+
 # -------------------------------------------------------------------- swiglu
 @pytest.mark.parametrize("T,d,f", SWIGLU_SHAPES + [(100, 256, 512)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -402,11 +476,15 @@ def test_swiglu_route_takes_every_config_in_bf16(arch):
 @pytest.mark.parametrize("hd", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_route(dtype, hd, offset):
-    """wgmma only for bf16 at hd 64-128 with 16-byte aligned pointers (TMA's
-    rules); fp32, hd 256 and misaligned tensors take the simt kernels."""
+    """At hd 64-128 with 16-byte aligned pointers, wgmma for bf16 (TMA's
+    rules) and tf32x3 for fp32 (16-byte loads); hd 256 and misaligned
+    tensors take the simt kernels."""
     base = torch.empty(64, dtype=torch.bfloat16).data_ptr()   # 64-byte aligned or more
     ptrs = (base, base + 256, base + 512 + offset, base + 1024)
-    want = "wgmma" if dtype == torch.bfloat16 and hd != 256 and offset % 16 == 0 else "simt"
+    if hd == 256 or offset % 16:
+        want = "simt"
+    else:
+        want = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     assert fa.route(dtype, hd, *ptrs) == want
 
 
@@ -418,6 +496,17 @@ def test_flash_route_takes_every_config_in_bf16(arch):
         kv = torch.empty(1, 3, cfg.n_kv_heads, cfg.head_dim, dtype=torch.bfloat16)
         assert fa.route(torch.bfloat16, cfg.head_dim, q[:, 1:].data_ptr(), kv.data_ptr(),
                         kv[:, 2:].data_ptr()) == "wgmma"
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "qwen2.5-14b"])
+def test_flash_route_takes_every_config_in_fp32(arch):
+    # the reduced configs are fp32 (train_reduced's route), hd 64; the full
+    # widths in fp32 (train_fp32's route) hd 96 and 128
+    for cfg in (get_config(arch), get_config(arch).reduced()):
+        q = torch.empty(1, 3, cfg.n_heads, cfg.head_dim)
+        kv = torch.empty(1, 3, cfg.n_kv_heads, cfg.head_dim)
+        assert fa.route(torch.float32, cfg.head_dim, q[:, 1:].data_ptr(), kv.data_ptr(),
+                        kv[:, 2:].data_ptr()) == "tf32x3"
 
 
 class _CountingLib:
@@ -478,10 +567,12 @@ class _RecordingLib:
         return entry
 
 
-@pytest.mark.parametrize("dtype,hd,way", [(torch.bfloat16, 96, "wgmma"),
-                                          (torch.bfloat16, 256, "simt"),
-                                          (torch.float32, 96, "simt")])
-def test_flash_wrappers_launch_and_count_by_route(monkeypatch, dtype, hd, way):
+@pytest.mark.parametrize("dtype,hd,offset,way", [(torch.bfloat16, 96, 0, "wgmma"),
+                                                 (torch.bfloat16, 256, 0, "simt"),
+                                                 (torch.float32, 96, 0, "tf32x3"),
+                                                 (torch.float32, 96, 1, "simt"),
+                                                 (torch.float32, 256, 0, "simt")])
+def test_flash_wrappers_launch_and_count_by_route(monkeypatch, dtype, hd, offset, way):
     # the CUDA checks and the library are stood in for, so the CPU can run
     # the wrappers' routing, argument lists and counting
     lib = _RecordingLib()
@@ -489,7 +580,8 @@ def test_flash_wrappers_launch_and_count_by_route(monkeypatch, dtype, hd, way):
     monkeypatch.setattr(fa, "_check", lambda *tensors: None)
     monkeypatch.setattr(fa._build, "stream_of", lambda t: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
-    q = torch.zeros(2, 40, 8, hd, dtype=dtype)
+    # q `offset` elements past an aligned allocation: 16-byte aligned or not
+    q = torch.zeros(2 * 40 * 8 * hd + offset, dtype=dtype)[offset:].view(2, 40, 8, hd)
     k = v = torch.zeros(2, 40, 2, hd, dtype=dtype)
     ops.reset_launch_counts()
     for _ in range(2):
@@ -497,23 +589,24 @@ def test_flash_wrappers_launch_and_count_by_route(monkeypatch, dtype, hd, way):
     assert o.shape == q.shape and lse.shape == (2, 8, 40) and lse.dtype == torch.float32
     dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, torch.zeros_like(q))
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
-    names = (["repro_flash_wgmma_fwd"] * 2 + ["repro_flash_wgmma_bwd"] if way == "wgmma"
-             else ["repro_flash_attention_fwd"] * 2 + ["repro_flash_attention_bwd"])
-    assert [name for name, _ in lib.calls] == names
+    prefix = "repro_flash_attention" if way == "simt" else f"repro_flash_{way}"
+    assert [name for name, _ in lib.calls] == [f"{prefix}_fwd"] * 2 + [f"{prefix}_bwd"]
     for name, args in lib.calls:   # every call matches the arity it was bound with
         assert len(args) == len(lib.argtypes[name]), name
-    # (B, S, Hq, Hkv, hd) follow the pointers; the wgmma backward also passes
-    # its D scratch, the simt kernels the dtype code
+    # (B, S, Hq, Hkv, hd) follow the pointers; the tensor-core backwards also
+    # pass their D scratch, the simt kernels the dtype code
     n_ptrs = {"repro_flash_wgmma_fwd": 5, "repro_flash_wgmma_bwd": 10,
+              "repro_flash_tf32x3_fwd": 5, "repro_flash_tf32x3_bwd": 10,
               "repro_flash_attention_fwd": 5, "repro_flash_attention_bwd": 9}
     for name, args in lib.calls:
         assert args[n_ptrs[name]:n_ptrs[name] + 5] == (2, 40, 8, 2, hd), name
     assert lib.calls[0][1][-2] == pytest.approx(hd ** -0.5)
-    other = "simt" if way == "wgmma" else "wgmma"
     counts = ops.launch_counts()
     assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (2, 1)
     assert (counts[f"flash_attention_{way}"], counts[f"flash_attention_bwd_{way}"]) == (2, 1)
-    assert (counts[f"flash_attention_{other}"], counts[f"flash_attention_bwd_{other}"]) == (0, 0)
+    for other in set(fa.ROUTES) - {way}:
+        assert (counts[f"flash_attention_{other}"],
+                counts[f"flash_attention_bwd_{other}"]) == (0, 0), other
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
 
@@ -563,6 +656,30 @@ def test_cuda_flash_wgmma_probe_matches_matmul(cuda_device):
                                        atol=1e-2, msg=f"PV {what}")
 
 
+@pytest.mark.cuda
+def test_cuda_flash_tf32x3_probe_matches_matmul(cuda_device):
+    """The tf32x3 route's planes, fragment layouts and permutation alone, on
+    one 16-row tile: S = Q K^T against an fp32 matrix product with TF32 off,
+    and O = S V against the product of the kernel's own S, both at bars that
+    one TF32 product would miss.  hd 96 and 128, 32 keys (the forward's
+    tile)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lib = fa.build()
+    rng = np.random.default_rng(14)
+    for hd in (96, 128):
+        q, k, v = (torch.from_numpy(rng.standard_normal((rows, hd), dtype=np.float32))
+                   .to(cuda_device) for rows in (16, 32, 32))
+        s = torch.full((16, 32), float("nan"), device=cuda_device)
+        o = torch.full((16, hd), float("nan"), device=cuda_device)
+        err = lib.repro_flash_tf32x3_probe(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                           s.data_ptr(), o.data_ptr(), hd,
+                                           kernel_build.stream_of(q))
+        assert err == 0, f"launch failed: cudaError {err}"
+        torch.cuda.synchronize()
+        torch.testing.assert_close(s, q @ k.T, rtol=1e-5, atol=1e-4, msg=f"S hd={hd}")
+        torch.testing.assert_close(o, s @ v, rtol=1e-5, atol=1e-3, msg=f"SV hd={hd}")
+
+
 # the wgmma route's edges beyond the repo's cases: ragged S (100, 200), a
 # window that is not a tile multiple, and qwen2.5-14b's attention (GQA 40/8,
 # hd 128)
@@ -578,7 +695,7 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, dtype):
         q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in _qkv(B, S, Hq, Hkv, hd))
         do = torch.randn(q.shape, generator=torch.Generator(cuda_device).manual_seed(1),
                          device=cuda_device).to(dtype)
-        way = "wgmma" if dtype == torch.bfloat16 and hd != 256 else "simt"
+        way = "simt" if hd == 256 else "wgmma" if dtype == torch.bfloat16 else "tf32x3"
         what = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} causal={causal} window={window} "
                 f"{dtype} ({way})")
         ops.reset_launch_counts()
