@@ -12,29 +12,39 @@ and a non-zero exit:
    swiglu and flash-attention kernel's registers, shared memory and spills
    (the tf32x3 kernels' apart), and the tensor-core blocks' dynamic shared
    memory.
-3. kernel parity -- first the tf32x3 route's one-tile probe against fp32
-   matrix products; then each CUDA kernel against its plain PyTorch version:
-   decode attention on the sweep of ``tests/test_kernels.py::
-   test_decode_attention`` and phi3-mini-3.8b's decode shape; flash
+3. kernel parity -- first the tf32x3 routes' one-tile probes (flash
+   attention's and swiglu's) against fp32 and float64 matrix products; then
+   each CUDA kernel against its plain PyTorch version: decode attention on
+   the sweep of ``tests/test_kernels.py::test_decode_attention``, phi3-mini-
+   3.8b's decode shape and the split-K pass's chunk edges, two calls held
+   bit-equal; flash
    attention (forward, and the backward's dq/dk/dv) on every case of
    ``tests/test_kernels.py:18-58``, ragged S, qwen2.5-14b's GQA shape (bf16)
    and the training shape [2,1024,32,96], each case's route asserted
    through the launch counters (below hd 256 bf16 on wgmma and fp32 on
    tf32x3, hd 256 on simt) and two backward calls held bit-equal;
    swiglu (forward, dg/du, and dx/dW_gate/dW_up) on the cases of
-   ``:74-84``, the edges of its wgmma route (T 1 and 100, d 200, f 520), an
-   odd bf16 shape that takes the simt route, a 256-row slice of phi3's FFN
-   (bf16) and the training shape T 2048, d 3072, f 8192, each case's route
-   asserted through the launch counters.  Outputs at 2e-5 (fp32) and 2e-2
-   (bf16), gradients at 1e-4 (fp32) and 2e-2 x max|ref| (bf16).  Each
+   ``:74-84``, the edges of its tensor-core routes (T 1 and 100, d 200, f
+   520), odd shapes that take the simt route, a 256-row slice of phi3's FFN
+   and the training shape T 2048, d 3072, f 8192, each case's route asserted
+   through the launch counters (bf16 on wgmma, fp32 on tf32x3) and two
+   backward calls held bit-equal; in fp32 at d 3072 (the slice and the
+   training shape) the kernels are held against a float64 oracle and the
+   plain version is reported beside them, with its own distance from the
+   oracle (its fp32 sums down d are the less exact).  Outputs at 2e-5
+   (fp32) and 2e-2 (bf16), gradients at 1e-4 (fp32) and 2e-2 x max|ref|
+   (bf16).  Each
    kernel's median time at its main-path shape (CUDA events, L2 flushed, a
    sleep kernel covering the host's enqueue) beside its bound, the plain
    version and a PyTorch yardstick (``scaled_dot_product_attention``,
    pinned to one backend, the flash backend in bf16; for swiglu the
    compositions ``silu(x@wg) * (x@wu)`` and its backward's ``dg``/``du``);
    flash attention also in fp32 (tf32x3, with the simt kernels on the same
-   inputs) and on the simt route at gemma3-4b's hd-256 shape; swiglu's simt
-   kernels also in fp32.
+   inputs) and on the simt route at gemma3-4b's hd-256 shape; swiglu also
+   in fp32 (tf32x3, its split pass apart, with the simt kernels on the same
+   inputs); decode attention beside the CUDA-core kernel the split-K one
+   replaced, on the same inputs, with its kernels per call on a line of its
+   own.
 4. full-width serve -- phi3-mini-3.8b, all 32 layers, bf16, random weights
    from seed 0, a hand-built 4-stage serve plan run through
    ``run_serve_plan(..., use_kernels=True)``: kernel launches counted, tokens
@@ -58,15 +68,15 @@ and a non-zero exit:
    False``).  Step wall time, peak memory and one profiled step.
 7. full-width fp32 training -- the same model in fp32, d = 1, SGD, 1 step,
    kernels on and off: losses within 5e-5, every param within 1e-4; flash
-   on the tf32x3 route, swiglu on the simt route.
+   attention and swiglu on the tf32x3 route.  One profiled step.
 8. reduced training -- phi3-mini-3.8b@reduced (4 layers, fp32) on the plan of
    ``tests/test_runtime.py:230-240``, kernels on and off: losses within
-   2e-4, params within 2e-3; flash on tf32x3 (hd 64, S 16: a tile's ragged
-   edge), swiglu on simt.
+   2e-4, params within 2e-3; flash attention on tf32x3 (hd 64, S 16: a
+   tile's ragged edge), swiglu on tf32x3.
 
-The last lines are the kernels' record (nine rows: the bf16 main path's
-kernels on the wgmma route where they have one, then the fp32 rows: flash
-attention on tf32x3, swiglu on simt), the ``nvidia-smi`` name/power line and
+The last lines are the kernels' record (nine rows: decode attention, the
+bf16 main path's training kernels on the wgmma route, then the fp32 rows on
+the tf32x3 route), the ``nvidia-smi`` name/power line and
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -147,14 +157,16 @@ FLASH_TRAIN = (2, 1024, 32, 32, 96, True, 0)
 # the simt route's timing shape: gemma3-4b's attention (Hq 8, Hkv 4, hd 256),
 # bf16, at the training shape's batch and length; no path of this run takes it
 FLASH_HD256 = (2, 1024, 8, 4, 256, True, 0)
-# swiglu: the cases of tests/test_kernels.py:74-84, the wgmma route's edges
-# (T 1 and 100, a ragged last k-tile at d 200, a ragged column tile at f
-# 520) and an odd shape that bf16 sends to the simt route; a slice of phi3's
-# FFN in bf16 only (in fp32 at d 3072, cuBLAS splits K at 256 rows and two
-# correct sums in different orders differ by more than 2e-5)
+# swiglu: the cases of tests/test_kernels.py:74-84, the tensor-core routes'
+# edges (T 1 and 100, a ragged last k-tile at d 200, a ragged column tile at
+# f 520) and odd shapes that take the simt route (37 x 200 x 300 in bf16, 37
+# x 198 x 302 in both); a slice of phi3's FFN (in fp32, as at the training
+# shape, against a float64 oracle: at d 3072 the fp32 plain version's sums
+# are less exact than the kernel's, and the two differ by more than 2e-5)
 SWIGLU_CASES = [(256, 256, 512), (512, 512, 2048), (128, 384, 1536), (100, 256, 512),
-                (1, 256, 512), (128, 200, 512), (128, 256, 520), (37, 200, 300)]
-SWIGLU_BF16_CASES = [(256, 3072, 8192)]
+                (1, 256, 512), (128, 200, 512), (128, 256, 520), (37, 200, 300),
+                (37, 198, 302)]
+SWIGLU_SLICE = (256, 3072, 8192)
 SWIGLU_TRAIN = (2048, 3072, 8192)
 TRAIN = dict(n_layers=4, seq=1024, micro_batch=2, d=2, mu=2, steps=2, cut=2)
 TRAIN_REDUCED = dict(n_layers=4, seq=16, micro_batch=2, d=2, mu=2, steps=2, cut=2)
@@ -165,9 +177,9 @@ def emit(doc: dict) -> None:
 
 
 def _close_at(out, ref, rtol, atol, what):
-    err = float((out.float() - ref.float()).abs().max())
-    if not torch.allclose(out.float(), ref.float(), rtol=rtol, atol=atol):
-        raise AssertionError(f"{what}: kernel disagrees with plain, max |err| {err}")
+    err = float((out.double() - ref.double()).abs().max())
+    if not torch.allclose(out.double(), ref.double(), rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: kernel disagrees with its reference, max |err| {err}")
     return err
 
 
@@ -198,10 +210,10 @@ def _time_ms(fn, flush, reps=25):
     return statistics.median(times)
 
 
-def _device_ms_by_kernel(fn, flush, calls=5) -> dict:
-    """Device ms a call of ``fn`` by kernel (``torch.profiler`` over ``calls``
-    calls, L2 flushed before each): which pass of a kernel pair takes the
-    time."""
+def _device_ms_by_kernel(fn, flush, calls=5, word="flash") -> dict:
+    """Device ms a call of ``fn`` by kernel whose name holds ``word``
+    (``torch.profiler`` over ``calls`` calls, L2 flushed before each): which
+    pass of a kernel pair takes the time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -214,7 +226,7 @@ def _device_ms_by_kernel(fn, flush, calls=5) -> dict:
     out = {}
     for e in prof.key_averages():
         name = re.search(r"(\w+_kernel)", e.key)
-        if name and e.device_type == torch.autograd.DeviceType.CUDA and "flash" in e.key:
+        if name and e.device_type == torch.autograd.DeviceType.CUDA and word in e.key:
             us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
             out[name.group(1)] = out.get(name.group(1), 0.0) + us / 1e3 / calls
     return out
@@ -298,7 +310,9 @@ def phase_build() -> None:
                       "max_registers": max(regs, default=None),
                       "spill_bytes": spills, "max_spill_bytes": max(spills, default=None)}
     libs["swiglu"]["per_kernel"] = _kernel_reports(info["swiglu"]["compiler_log"])
-    libs["swiglu"]["wgmma_dynamic_smem_bytes"] = sg_kernel.build().repro_swiglu_wgmma_smem_bytes()
+    lib = sg_kernel.build()
+    libs["swiglu"]["wgmma_dynamic_smem_bytes"] = lib.repro_swiglu_wgmma_smem_bytes()
+    libs["swiglu"]["tf32x3_dynamic_smem_bytes"] = lib.repro_swiglu_tf32x3_smem_bytes()
     libs["flash_attention"]["per_kernel"] = _kernel_reports(
         info["flash_attention"]["compiler_log"])
     lib = fa_kernel.build()
@@ -337,6 +351,24 @@ def _decode_parity(gen, flush) -> tuple:
                        f"C={C} length={length} Hq={Hq} Hkv={Hkv} hd={hd} {dtype}")
                 n_cases += 1
 
+    # the split pass's chunk edges (lengths around a chunk's end, G 1, 4, 8),
+    # and two calls on the same inputs: the same bits
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        for G in (1, 4, 8):
+            C, hd = 1024, 128
+            q, k, v = rand(2, 2 * G, hd, dtype=dtype), rand(2, 2, C, hd, dtype=dtype), \
+                rand(2, 2, C, hd, dtype=dtype)
+            gt = da_kernel.heads_per_block(G, hd, dtype)
+            chunk = da_kernel.split_chunk(C, 2 * 2 * -(-G // gt), da_kernel._sms(0))
+            for length in (1, chunk - 1, chunk, chunk + 1, C - 1, C):
+                L = torch.tensor([length], dtype=torch.int32, device="cuda")
+                out = ops.decode_attention(q, k, v, L)
+                _close(out, ops.decode_attention(q, k, v, L, impl="ref"), tol,
+                       f"split edge G={G} chunk={chunk} length={length} {dtype}")
+                if not torch.equal(out, ops.decode_attention(q, k, v, L)):
+                    raise AssertionError(f"decode G={G} length={length}: two calls differ")
+                n_cases += 1
+
     B, H, hd, C = (PHI3_DECODE[k] for k in ("B", "H", "hd", "C"))
     phi3_err = {}
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
@@ -361,19 +393,35 @@ def _decode_parity(gen, flush) -> tuple:
     plain_ms = _time_ms(lambda: ops.decode_attention(q, k, v, L, impl="ref"), flush)
     library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
         q.unsqueeze(2), k, v, attn_mask=mask), flush)
+    # the CUDA-core kernel on the same inputs, through its C entry point
+    # (uncounted): the design the split-K kernels replace
+    lib, simt_out = da_kernel.build(), torch.empty_like(q)
+    simt_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), L.data_ptr(), simt_out.data_ptr(),
+                 B, H, 1, C, hd, 1, hd ** -0.5, kernel_build.stream_of(q))
+    simt_ms = _time_ms(lambda: lib.repro_decode_attention_simt(*simt_args), flush)
+    _close(simt_out, da_kernel.decode_attention(q, k, v, L), 2e-2, "decode simt vs split-K")
+    by_kernel = _device_ms_by_kernel(lambda: da_kernel.decode_attention(q, k, v, L), flush,
+                                     calls=20, word="decode_attention")
     esz = q.element_size()
     nbytes = 2 * B * H * length * hd * esz + 2 * q.numel() * esz   # K,V to length; q; out
     flops = 4 * B * H * length * hd                                # QK^T and PV
     bound_ms, bound_by = _bound(nbytes, flops, torch.bfloat16)
     rec = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "library_call": "scaled_dot_product_attention",
-           "bound_ms": bound_ms, "bound_by": bound_by, "kernel_route": "simt",
-           "tflop_per_s": flops / ms / 1e9, "max_abs_err": phi3_err["bfloat16@1024"]}
+           "bound_ms": bound_ms, "bound_by": bound_by, "kernel_route": "splitk",
+           "tflop_per_s": flops / ms / 1e9, "max_abs_err": phi3_err["bfloat16@1024"],
+           "hbm_gb_per_s": nbytes / (ms * 1e-3) / 1e9, "roofline_share": bound_ms / ms,
+           "simt_ms": simt_ms}
+    gt = da_kernel.heads_per_block(1, hd, torch.bfloat16)
+    chunk = da_kernel.split_chunk(C, B * H, da_kernel._sms(0))
+    emit({"decode_attention_kernels_per_call": len(by_kernel),
+          "device_ms_by_kernel": by_kernel, "chunk": chunk, "splits": -(-C // chunk),
+          "heads_per_block": gt, "split_blocks": B * H * -(-C // chunk)})
     detail = {"cases": n_cases, "phi3_max_abs_err": phi3_err,
               "timing_shape": {"B": B, "Hq": H, "Hkv": H, "hd": hd, "C": C,
                                "length": length, "dtype": "bfloat16"},
               "bytes": nbytes, "flops": flops,
-              "hbm_gb_per_s": nbytes / (ms * 1e-3) / 1e9, "roofline_share": bound_ms / ms}
+              "simt_hbm_gb_per_s": nbytes / (simt_ms * 1e-3) / 1e9}
     return rec, detail
 
 
@@ -603,7 +651,34 @@ def _flash_timing(gen, flush, dtype, shape=FLASH_TRAIN) -> dict:
 
 def _swiglu_way(dtype, d: int, f: int) -> str:
     """The route a swiglu call on fresh (aligned) tensors must take."""
-    return "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0 else "simt"
+    if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0:
+        return "wgmma"
+    return "tf32x3" if dtype == torch.float32 and d % 4 == 0 and f % 4 == 0 else "simt"
+
+
+def _swiglu_tf32x3_probe(gen) -> dict:
+    """The swiglu tf32x3 route's mainloop alone (``repro_swiglu_tf32x3_
+    products``, after its split pass), one tile and one k-tile first, run
+    before any full case: g and u against float64 products at 2e-5, a bar
+    one TF32 product misses; max |err| by shape."""
+    lib = sg_kernel.build()
+    out = {}
+    for T, d, f in ((128, 32, 128), (64, 32, 128), (100, 200, 520)):
+        x = torch.randn(T, d, generator=gen, device="cuda")
+        wg, wu = (0.05 * torch.randn(d, f, generator=gen, device="cuda") for _ in range(2))
+        g, u = (torch.full((T, f), float("nan"), device="cuda") for _ in range(2))
+        ws = sg_kernel.workspace(T, d, f, x.device)
+        err = lib.repro_swiglu_tf32x3_products(x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+                                               g.data_ptr(), u.data_ptr(), ws.data_ptr(), T, d,
+                                               f, kernel_build.stream_of(x))
+        if err != 0:
+            raise RuntimeError(f"swiglu tf32x3 probe launch failed: cudaError {err}")
+        torch.cuda.synchronize()
+        out[f"{T}x{d}x{f}"] = {
+            name: _close(got.double(), x.double() @ w.double(), 2e-5,
+                         f"swiglu tf32x3 probe {name} T={T} d={d} f={f}")
+            for got, w, name in ((g, wg, "g"), (u, wu, "u"))}
+    return out
 
 
 def _swiglu_bwd_composition(x, wg, wu, dout):
@@ -630,19 +705,27 @@ def _swiglu_timing(gen, flush, dtype) -> dict:
     if counts[f"swiglu_{way}"] != counts["swiglu"] or \
             counts[f"swiglu_bwd_{way}"] != counts["swiglu_bwd"]:
         raise AssertionError(f"timed swiglu {dtype} off the {way} route: {counts}")
-    simt = {}
-    if way == "wgmma":
-        # the simt kernels on the same bf16 inputs, through their C entry
-        # points (uncounted): the design the wgmma kernels replace
-        lib, stream = sg_kernel.build(), kernel_build.stream_of(x)
+    simt, split_ms = {}, None
+    lib, stream = sg_kernel.build(), kernel_build.stream_of(x)
+    ptrs = [t.data_ptr() for t in (x, wg, wu)]
+    if way != "simt":
+        # the simt kernels on the same inputs, through their C entry points
+        # (uncounted): the design the tensor-core kernels replace
         out, dg, du = (torch.empty(T, f, dtype=dtype, device="cuda") for _ in range(3))
-        ptrs = [t.data_ptr() for t in (x, wg, wu)]
+        code = sg_kernel._DTYPES[dtype]
         simt["fwd_ms"] = _time_ms(lambda: lib.repro_swiglu_fwd(
-            *ptrs, out.data_ptr(), T, d, f, 1, stream), flush, reps=10)
+            *ptrs, out.data_ptr(), T, d, f, code, stream), flush, reps=10)
         simt["bwd_ms"] = _time_ms(lambda: lib.repro_swiglu_bwd(
-            *ptrs, dout.data_ptr(), dg.data_ptr(), du.data_ptr(), T, d, f, 1, stream),
+            *ptrs, dout.data_ptr(), dg.data_ptr(), du.data_ptr(), T, d, f, code, stream),
             flush, reps=10)
-        _close(out, sg_kernel.swiglu_fwd(x, wg, wu), 2e-2, "swiglu simt vs wgmma, bf16")
+        _close(out, sg_kernel.swiglu_fwd(x, wg, wu), 2e-5 if dtype == torch.float32 else 2e-2,
+               f"swiglu simt vs {way}, {dtype}")
+    if way == "tf32x3":
+        # the split pass alone: part of each tf32x3 call's time
+        ws = sg_kernel.workspace(T, d, f, x.device)
+        split_ms = _time_ms(lambda: lib.repro_swiglu_tf32x3_split(
+            *ptrs, ws.data_ptr(), T, d, f, stream), flush, reps=10)
+        del ws
     fwd_plain = _time_ms(lambda: ops.swiglu(x, wg, wu, impl="ref"), flush, reps=10)
     bwd_plain = _time_ms(lambda: kernel_ref.swiglu_bwd_ref(x, wg, wu, dout), flush, reps=10)
     fwd_lib = _time_ms(lambda: F.silu(x @ wg) * (x @ wu), flush, reps=10)
@@ -653,24 +736,94 @@ def _swiglu_timing(gen, flush, dtype) -> dict:
     bwd_b = (T * d + 2 * d * f + 3 * T * f) * esz
     fwd_bound, fwd_by = _bound(fwd_b, flops, dtype)
     bwd_bound, bwd_by = _bound(bwd_b, flops, dtype)
+
+    def split(ms):   # the tf32x3 route: its split pass, and the main kernel's TF32 rate
+        if split_ms is None:
+            return {}
+        return {"split_ms": split_ms,
+                "tf32_tflop_per_s_of_products": 3 * flops / (ms - split_ms) / 1e9}
+
     return {
         "fwd": {"ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": fwd_lib,
                 "library_call": "composition: silu(x@wg) * (x@wu)",
                 "bound_ms": fwd_bound, "bound_by": fwd_by, "kernel_route": way,
-                "tflop_per_s": flops / fwd_ms / 1e9, "bytes": fwd_b, "flops": flops},
+                "tflop_per_s": flops / fwd_ms / 1e9, "bytes": fwd_b, "flops": flops,
+                **split(fwd_ms)},
         "bwd": {"ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": bwd_lib,
                 "library_call": "composition: g=x@wg, u=x@wu, s=sigmoid(g), "
                                 "dg=dout*u*s*(1+g*(1-s)), du=dout*g*s",
                 "bound_ms": bwd_bound, "bound_by": bwd_by, "kernel_route": way,
-                "tflop_per_s": flops / bwd_ms / 1e9, "bytes": bwd_b, "flops": flops},
-        "simt_bf16": simt}
+                "tflop_per_s": flops / bwd_ms / 1e9, "bytes": bwd_b, "flops": flops,
+                **split(bwd_ms)},
+        "simt": simt}
+
+
+def _past_bar(a, b, tol) -> dict:
+    """max |a - b| and the elements past ``|a - b| <= tol + tol |b|``."""
+    err = (a.double() - b.double()).abs()
+    return {"max_abs_err": float(err.max()),
+            "past_bar": int((err > tol + tol * b.double().abs()).sum()), "of": err.numel()}
+
+
+def _swiglu_fp32_vs_float64(gen, shape) -> dict:
+    """One fp32 case at d 3072 on the tf32x3 route: the kernels' outputs
+    (out, dg and du) held against a float64 oracle at 2e-5, and reported
+    against the fp32 plain version with its own distance from the oracle:
+    at d 3072 the plain version's sums (cuBLAS, one fp32 accumulator down k)
+    are further from the exact ones than the kernels', and the two differ by
+    more than 2e-5 on a few elements.  The gradients (the chain rule's fp32
+    products of dg and du) held against float64 at 1e-4 where T is the
+    slice's 256 rows; at T 2048, where dW sums 2048 rows in fp32 and the
+    plain path itself misses that bar on tens of thousands of elements, they
+    are reported against both.  Two backward calls give the same bits."""
+    T, d, f = shape
+    x = torch.randn(T, d, generator=gen, device="cuda")
+    wg, wu = (0.05 * torch.randn(d, f, generator=gen, device="cuda") for _ in range(2))
+    dout = torch.randn(T, f, generator=gen, device="cuda")
+    what = f"swiglu fp32 T={T} d={d} f={f}"
+    ops.reset_launch_counts()
+    out, grads = _fwd_bwd(ops.swiglu, (x, wg, wu), dout)
+    dg, du = sg_kernel.swiglu_bwd(x, wg, wu, dout)
+    if not all(torch.equal(a, b) for a, b in zip((dg, du), sg_kernel.swiglu_bwd(x, wg, wu, dout))):
+        raise AssertionError(f"{what}: two backward calls differ")
+    counts = ops.launch_counts()
+    if (counts["swiglu_tf32x3"], counts["swiglu_bwd_tf32x3"]) != (1, 3):
+        raise AssertionError(f"{what}: expected the tf32x3 route, launches {counts}")
+    x64, wg64, wu64, dout64 = (t.double() for t in (x, wg, wu, dout))
+    ref, ref_grads = _fwd_bwd(lambda a, b, c: F.silu(a @ b) * (a @ c), (x64, wg64, wu64),
+                              dout64)
+    g64, u64 = x64 @ wg64, x64 @ wu64
+    sig = torch.sigmoid(g64)
+    exact = {"out": ref, "dg": dout64 * u64 * sig * (1 + g64 * (1 - sig)), "du": dout64 * g64 * sig}
+    del g64, u64, sig
+    got = {"out": out, "dg": dg, "du": du}
+    rec = {"vs_float64": {name: _close(got[name], exact[name], 2e-5, f"{what} {name} vs float64")
+                          for name in got}}
+    if shape == SWIGLU_SLICE:
+        rec["vs_float64"]["grad"] = max(_close_at(g, r, 1e-4, 1e-4, f"{what} gradient vs float64")
+                                        for g, r in zip(grads, ref_grads))
+    # beside it, the fp32 plain version: reported, with its own distance
+    # from the oracle
+    plain = {"out": ops.swiglu(x, wg, wu, impl="ref")}
+    plain["dg"], plain["du"] = kernel_ref.swiglu_bwd_ref(x, wg, wu, dout)
+    _, plain_grads = _fwd_bwd(lambda a, b, c: ops.swiglu(a, b, c, impl="ref"), (x, wg, wu), dout)
+    names = ("dx", "dw_gate", "dw_up")
+    rec["vs_fp32_plain"] = {name: _past_bar(got[name], plain[name], 2e-5) for name in got} | {
+        name: _past_bar(g, p, 1e-4) for name, g, p in zip(names, grads, plain_grads)}
+    rec["grads_vs_float64"] = {name: _past_bar(g, r, 1e-4)
+                               for name, g, r in zip(names, grads, ref_grads)}
+    rec["fp32_plain_vs_float64"] = {name: _past_bar(plain[name], exact[name], 2e-5)
+                                    for name in got} | {
+        name: _past_bar(p, r, 1e-4) for name, p, r in zip(names, plain_grads, ref_grads)}
+    return rec
 
 
 def _swiglu_parity(gen, flush) -> tuple:
     n_cases, train_err, routes = 0, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        extra = SWIGLU_BF16_CASES if dtype == torch.bfloat16 else []
-        for T, d, f in SWIGLU_CASES + extra + [SWIGLU_TRAIN]:
+        # fp32 at d 3072: _swiglu_fp32_vs_float64 below
+        extra = [SWIGLU_SLICE, SWIGLU_TRAIN] if dtype == torch.bfloat16 else []
+        for T, d, f in SWIGLU_CASES + extra:
             x = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
             wg, wu = ((0.05 * torch.randn(d, f, generator=gen, device="cuda")).to(dtype)
                       for _ in range(2))
@@ -682,37 +835,58 @@ def _swiglu_parity(gen, flush) -> tuple:
             n_cases += 1
             if (T, d, f) == SWIGLU_TRAIN:
                 train_err[str(dtype)[6:]] = err
-            # the backward kernel's dg/du against their plain version
+            # the backward kernel's dg/du against their plain version, and a
+            # second call: the same bits
             dg, du = sg_kernel.swiglu_bwd(x, wg, wu, dout)
             pdg, pdu = kernel_ref.swiglu_bwd_ref(x, wg, wu, dout)
             tol = 2e-5 if dtype == torch.float32 else 2e-2
             _close(dg, pdg, tol, f"swiglu dg T={T} d={d} f={f} {dtype}")
             _close(du, pdu, tol, f"swiglu du T={T} d={d} f={f} {dtype}")
+            if not all(torch.equal(a, b) for a, b in zip((dg, du),
+                                                         sg_kernel.swiglu_bwd(x, wg, wu, dout))):
+                raise AssertionError(f"{what}: two backward calls differ")
             way = _swiglu_way(dtype, d, f)
             counts = ops.launch_counts()
-            if (counts[f"swiglu_{way}"], counts[f"swiglu_bwd_{way}"]) != (1, 2) or \
-                    (counts["swiglu"], counts["swiglu_bwd"]) != (1, 2):
+            if (counts[f"swiglu_{way}"], counts[f"swiglu_bwd_{way}"]) != (1, 3) or \
+                    (counts["swiglu"], counts["swiglu_bwd"]) != (1, 3):
                 raise AssertionError(f"{what}: expected the {way} route, launches {counts}")
             routes[f"{T}x{d}x{f} {str(dtype)[6:]}"] = way
+    fp32_d3072 = {}
+    for shape in (SWIGLU_SLICE, SWIGLU_TRAIN):
+        key = "x".join(map(str, shape))
+        fp32_d3072[key] = _swiglu_fp32_vs_float64(gen, shape)
+        routes[f"{key} float32"] = "tf32x3"
+        n_cases += 1
+    train = fp32_d3072["x".join(map(str, SWIGLU_TRAIN))]
+    train_err["float32"] = {"out": train["vs_fp32_plain"]["out"]["max_abs_err"],
+                            "grad": max(train["vs_fp32_plain"][name]["max_abs_err"]
+                                        for name in ("dx", "dw_gate", "dw_up"))}
     torch.cuda.synchronize()
 
     bf16 = _swiglu_timing(gen, flush, torch.bfloat16)
     fp32 = _swiglu_timing(gen, flush, torch.float32)
     T, d, f = SWIGLU_TRAIN
 
-    def rec(r, err):
-        return {k: v for k, v in r.items() if k not in ("bytes", "flops")} | {"max_abs_err": err}
+    def rec(r, err, **extra):
+        return {k: v for k, v in r.items() if k not in ("bytes", "flops")} | \
+            {"max_abs_err": err, **extra}
 
+    fp32_way = _swiglu_way(torch.float32, d, f)
+    vs64 = train["vs_float64"]
     recs = {"swiglu": rec(bf16["fwd"], train_err["bfloat16"]["out"]),
             "swiglu_bwd": rec(bf16["bwd"], train_err["bfloat16"]["grad"]),
-            "swiglu_simt": rec(fp32["fwd"], train_err["float32"]["out"]),
-            "swiglu_bwd_simt": rec(fp32["bwd"], train_err["float32"]["grad"])}
+            f"swiglu_{fp32_way}": rec(fp32["fwd"], train_err["float32"]["out"],
+                                      max_abs_err_float64=vs64["out"]),
+            f"swiglu_bwd_{fp32_way}": rec(fp32["bwd"], train_err["float32"]["grad"],
+                                          max_abs_err_float64=max(vs64["dg"], vs64["du"]))}
     detail = {"cases": n_cases, "routes": routes, "train_shape_max_abs_err": train_err,
+              "fp32_d3072": fp32_d3072,
               "timing_shape": {"T": T, "d": d, "f": f, "dtype": ["bfloat16", "float32"]},
               "bytes_flops": {f"{k} {dtype}": {"bytes": r[k]["bytes"], "flops": r[k]["flops"]}
                               for dtype, r in (("bfloat16", bf16), ("float32", fp32))
                               for k in ("fwd", "bwd")},
-              "simt_kernels_on_bf16_ms": bf16["simt_bf16"]}
+              "simt_kernels_on_bf16_ms": bf16["simt"],
+              "simt_kernels_on_fp32_ms": fp32["simt"]}
     return recs, detail
 
 
@@ -720,12 +894,14 @@ def phase_kernel_parity(smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
     probe = _flash_tf32x3_probe(gen)
+    swiglu_probe = _swiglu_tf32x3_probe(gen)
     decode, decode_detail = _decode_parity(gen, flush)
     flash, flash_detail = _flash_parity(gen, flush)
     swiglu, swiglu_detail = _swiglu_parity(gen, flush)
     recs = {"decode_attention": decode, **flash, **swiglu}
     emit({"phase": "kernel_parity", "card": smi, "kernels": recs,
           "flash_tf32x3_probe_max_abs_err": probe,
+          "swiglu_tf32x3_probe_max_abs_err": swiglu_probe,
           "decode_attention": decode_detail, "flash_attention": flash_detail,
           "swiglu": swiglu_detail})
     return recs
@@ -1171,7 +1347,7 @@ def phase_train_full(smi: str) -> dict:
     if abs(losses[0] - losses_plain[0]) > 2e-2:
         raise AssertionError(f"first loss {losses[0]} on the kernel path, "
                              f"{losses_plain[0]} on the plain path")
-    profile = profile_train_step(cfg, prof, plat, config, M, params, batches)
+    profile = profile_train_step(cfg, prof, plat, config, M, params, batches, AdamW(lr=1e-4))
     emit({"phase": "train_full", "card": smi, "model": "phi3-mini-3.8b",
           "dtype": cfg.param_dtype, "n_layers": cfg.n_layers, "params": n_params,
           "stages": 2, "d": d, "mu": mu, "micro_batch": spec["micro_batch"],
@@ -1190,7 +1366,7 @@ def phase_train_full(smi: str) -> dict:
     return launches
 
 
-def profile_train_step(cfg, prof, plat, config, M, params, batches) -> dict:
+def profile_train_step(cfg, prof, plat, config, M, params, batches, optimizer) -> dict:
     """Where a training step's time goes: a second run of the same plan,
     with ``torch.profiler`` over its second step only."""
     from torch.profiler import ProfilerActivity, profile
@@ -1206,7 +1382,7 @@ def profile_train_step(cfg, prof, plat, config, M, params, batches) -> dict:
         return batches[k]
 
     run_plan(prof, plat, config, M, steps=2, pipelined_sync=True,
-             execution=Execution(cfg=cfg, optimizer=AdamW(lr=1e-4), init_params=params,
+             execution=Execution(cfg=cfg, optimizer=optimizer, init_params=params,
                                  batch_fn=batch_fn, use_kernels=True, device="cuda"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - window["t0"]
@@ -1248,16 +1424,15 @@ def _expected_launches(n: int, flash_way: str, swiglu_way: str) -> dict:
 
 
 # the routes of the fp32 training runs (train_fp32 at hd 96, train_reduced
-# at hd 64): flash attention on the tensor cores, swiglu on the CUDA cores
-FP32_WAYS = {"flash_attention": "tf32x3", "swiglu": "simt"}
+# at hd 64): flash attention and swiglu on the tensor cores
+FP32_WAYS = {"flash_attention": "tf32x3", "swiglu": "tf32x3"}
 
 
 def train_routes(cfg, spec, optimizer, params, *, d: int, steps: int, routes) -> dict:
     """One run_plan per route on the same params and batches: "kernel"
     (``use_kernels=True``), "kernel_plain" (the same path with the kernels'
     plain versions) and "plain" (``use_kernels=False``); these runs are fp32,
-    so flash attention takes the tf32x3 route and swiglu the simt route
-    (``FP32_WAYS``)."""
+    so flash attention and swiglu take the tf32x3 route (``FP32_WAYS``)."""
     prof, plat, config, M = train_setup(cfg, spec, d=d)
     batches = train_batches(cfg, spec, d, steps)
     per_run = d * spec["mu"] * cfg.n_layers * steps
@@ -1302,13 +1477,18 @@ def phase_train_fp32(smi: str) -> dict:
     rec = _diff(routes, "kernel", "plain")
     if rec["loss_max_abs_diff"] > 5e-5 or rec["param_max_abs_diff"] > 1e-4:
         raise AssertionError(f"fp32 kernel path disagrees with the plain path: {rec}")
-    emit({"phase": "train_fp32", "card": smi, "model": "phi3-mini-3.8b", "dtype": "float32",
-          "n_layers": cfg.n_layers, "d": 1, "mu": spec["mu"], "steps": 1,
-          "optimizer": "SGD(lr=0.05)", "wall_s": time.perf_counter() - t0,
-          "losses_kernel": routes["kernel"][0], "losses_plain": routes["plain"][0],
-          "kernel_launches": routes["kernel"][2], **rec})
+    wall = time.perf_counter() - t0
+    losses = {"losses_kernel": routes["kernel"][0], "losses_plain": routes["plain"][0]}
     launches = routes["kernel"][2]
     del routes
+    # one more run of the same plan, its second step profiled
+    prof, plat, config, M = train_setup(cfg, spec, d=1)
+    profile = profile_train_step(cfg, prof, plat, config, M, params,
+                                 train_batches(cfg, spec, 1, 2), SGD(lr=0.05))
+    emit({"phase": "train_fp32", "card": smi, "model": "phi3-mini-3.8b", "dtype": "float32",
+          "n_layers": cfg.n_layers, "d": 1, "mu": spec["mu"], "steps": 1,
+          "optimizer": "SGD(lr=0.05)", "wall_s": wall, **losses,
+          "kernel_launches": launches, **rec, "train_profile": profile})
     del params
     torch.cuda.empty_cache()
     return launches
@@ -1349,8 +1529,7 @@ def main() -> None:
     train = phase_train_full(smi)
     fp32 = phase_train_fp32(smi)
     # the bf16 main path's training launches all took the wgmma kernels, the
-    # fp32 path's flash attention the tf32x3 kernels and its swiglu the simt
-    # kernels
+    # fp32 path's the tf32x3 kernels
     for name, way in FP32_WAYS.items():
         launches |= {name: train[f"{name}_wgmma"], f"{name}_bwd": train[f"{name}_bwd_wgmma"],
                      f"{name}_{way}": fp32[f"{name}_{way}"],

@@ -106,17 +106,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A row-major bf16 matrix [rows, cols] cut into boxes of [box_rows, 64]
-// columns, 128B-swizzled; out-of-bounds elements read as zeros.
-inline bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+// A row-major matrix [rows, cols] of bf16 (or fp32) cut into boxes of
+// [box_rows, 128 bytes] (64 bf16 or 32 fp32 columns), 128B-swizzled;
+// out-of-bounds elements read as zeros.
+inline bool encode(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
+                   bool fp32 = false) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
+  const cuuint32_t esize = fp32 ? 4 : 2;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * esize};
+  const cuuint32_t box[2] = {128 / esize, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(ptr), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -14,9 +14,10 @@
 //
 // What bounds it on the card: operations.  At the training shape (T 2048,
 // d 3072, f 8192) the kernel does 2 * 2 T d f = 206 GFLOP on 0.1 GB of
-// operands, far above the H100's ~295 flop/byte ridge, so only the bf16
-// tensor cores (989 TFLOP/s; the CUDA cores' fp32 peak of 67 TFLOP/s needs
-// 3.07 ms) come near its 0.208 ms bound.  Two designs, chosen per call by
+// operands, far above the H100's ~295 flop/byte ridge, so only the tensor
+// cores come near its bounds: 0.208 ms in bf16 (989 TFLOP/s), 1.249 ms in
+// fp32 as three TF32 products a flop (495 / 3 TFLOP/s; the CUDA cores' fp32
+// peak of 67 TFLOP/s needs 3.07 ms).  Three designs, chosen per call by
 // swiglu.py's route() before the launch:
 //
 // "wgmma" -- bf16 with d % 8 == 0, f % 8 == 0 and 16-byte aligned pointers
@@ -44,9 +45,38 @@
 //     backward loads its dout pairs in the same layout before the mainloop,
 //     so their latency hides behind it;
 //   * no split-K and no atomics: the same inputs give the same bits.
-// "simt" -- fp32 (the 2e-5 bar rules out TF32 and bf16 tensor cores) and
-// bf16 shapes TMA cannot take: a register-tiled product of fp32 FMAs on the
-// CUDA cores:
+// "tf32x3" -- fp32 with d % 4 == 0, f % 4 == 0 and 16-byte aligned pointers:
+//   * why three products: fp32 has to hold 2e-5, and one TF32 product (10-bit
+//     mantissas) misses it.  Each operand x is split into hi = tf32(x)
+//     (cvt.rna) and lo = tf32(x - hi), and each product is a_lo b_hi +
+//     a_hi b_lo + a_hi b_hi, in that fixed order (a_lo b_lo, ~2^-22 of the
+//     product, is dropped);
+//   * wgmma takes TF32 operands K-major only, and the weights are [d, f]
+//     (MN-major as B).  So a split pass (two launches: x's planes, and the
+//     weights' planes transposed through 32 x 32 shared-memory tiles) writes
+//     x_hi, x_lo [T, d] and w_hi, w_lo [f, d] for both weights into a
+//     workspace of 2 T d + 4 f d floats (453 MB at the training shape) that
+//     the wrapper allocates per call;
+//   * the main kernel has the wgmma route's shape: a block of 3 warpgroups
+//     owns 128 (T) x 128 (f) of g and u and steps over d in 32-wide k-tiles
+//     (128 bytes of fp32, one 128B swizzle row); one producer thread loads
+//     the six 16 KB plane tiles of a stage by TMA into a ring of 2 stages of
+//     96 KB (197,664 bytes with the barriers: 3 stages do not fit 227 KB);
+//     two consumer warpgroups of 64 rows issue wgmma.m64n128k8.f32.tf32.tf32
+//     three times a k8 step;
+//   * the tensor cores' fp32 accumulation truncates toward zero: over d 3072
+//     one accumulator takes 1,152 truncating adds, and a CPU emulation puts
+//     it 60x further from the exact product than fresh accumulators
+//     (tests/test_torch_kernels.py::test_swiglu_tf32x3_arithmetic_holds_
+//     fp32_tolerances).  So each k-tile's 12 products go into a fresh
+//     accumulator (scale-d 0 on the first), which is added to the running g
+//     or u with IEEE adds: 64 + 64 running and 64 fresh registers a thread,
+//     one fresh accumulator taken in turn for g and for u (setmaxnreg 232);
+//     the other consumer warpgroup's wgmmas run while one adds;
+//   * the epilogue is the wgmma route's on fp32 pairs; TMA's zero fill
+//     covers ragged T, d and f; no split-K and no atomics.
+// "simt" -- shapes and pointers the tensor-core routes cannot take: a
+// register-tiled product of fp32 FMAs on the CUDA cores:
 //   * TPU: the d axis is the sequential innermost grid axis with two fp32
 //     VMEM accumulators.  Here one thread block owns a 64 x 128 tile of
 //     (T, f) and loops over d in slices of 16 itself;
@@ -60,8 +90,8 @@
 // Build: nvcc -gencode=arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libswiglu.so swiglu.cu
 // The C entry points take raw pointers and PyTorch's current stream; they
-// launch, do not synchronise and return the CUDA error.  The wgmma entry
-// points encode their TMA descriptors on the host (cuTensorMapEncodeTiled,
+// launch, do not synchronise and return the CUDA error.  The tensor-core
+// entry points encode their TMA descriptors on the host (cuTensorMapEncodeTiled,
 // reached through cudaGetDriverEntryPoint, so no -lcuda is needed).  The
 // Hopper primitives (mbarriers, TMA loads, the wgmma descriptor, the
 // tensor-map encoder) live in hopper.cuh, shared with flash_attention.cu.
@@ -190,6 +220,20 @@ cudaError_t launch(const void* x, const void* wg, const void* wu, const void* do
 }
 
 
+// The 64 fp32 accumulator registers of an m64n128 wgmma, as asm operands.
+#define SWIGLU_ACC64                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+#define SWIGLU_ACC8(d, i)                                                         \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define SWIGLU_ACC64_OPERANDS(d)                                                        \
+  SWIGLU_ACC8(d, 0), SWIGLU_ACC8(d, 8), SWIGLU_ACC8(d, 16), SWIGLU_ACC8(d, 24),         \
+      SWIGLU_ACC8(d, 32), SWIGLU_ACC8(d, 40), SWIGLU_ACC8(d, 48), SWIGLU_ACC8(d, 56)
+
 // ------------------------------------------------------------ wgmma route
 namespace tc {
 
@@ -213,27 +257,9 @@ enum Epi { kFwd = 0, kBwd = 1, kProducts = 2 };
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
-        "+f"(d[62]), "+f"(d[63])
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SWIGLU_ACC64
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : SWIGLU_ACC64_OPERANDS(d)
       : "l"(a), "l"(b), "r"(1));
 }
 
@@ -392,6 +418,271 @@ cudaError_t launch(const void* x, const void* wg, const void* wu, const void* do
 
 }  // namespace tc
 
+// ----------------------------------------------------------- tf32x3 route
+namespace x3 {
+
+using namespace hopper;
+
+constexpr int BM = 128;        // rows of x (T) per block: two consumer warpgroups
+constexpr int BN = 128;        // columns of the weights (f) per block
+constexpr int BK = 32;         // k-tile of d: 128 bytes of fp32, one swizzle row
+constexpr int kStages = 2;
+constexpr int kConsumers = 2;  // warpgroups of 64 rows; warpgroup 2 loads
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kPlaneBytes = 128 * BK * 4;     // one 128-row tile of a plane, 16 KB
+constexpr int kStageBytes = 6 * kPlaneBytes;  // x, w_gate, w_up, hi and lo: 96 KB
+constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;  // + barriers, align
+constexpr int kSplitThreads = 256;
+
+enum Epi { kFwd = 0, kBwd = 1, kProducts = 2 };
+// the planes of a stage, in shared memory and in the workspace
+enum Plane { kXHi = 0, kXLo, kGHi, kGLo, kUHi, kULo };
+
+// x = hi + lo + O(2^-22 |x|): hi = tf32(x), lo = tf32(x - hi), each an fp32
+// pattern whose 13 low bits are clear (cvt.rna: to nearest, ties away).
+__device__ __forceinline__ void split(float x, float& hi, float& lo) {
+  uint32_t h, l;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(h) : "f"(x));
+  hi = __uint_as_float(h);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(l) : "f"(x - hi));
+  lo = __uint_as_float(l);
+}
+
+// x [n4 float4s] -> its hi and lo planes, in the same layout.
+__global__ void __launch_bounds__(kSplitThreads)
+swiglu_split_rows_kernel(const float4* __restrict__ x, float4* __restrict__ hi,
+                         float4* __restrict__ lo, size_t n4) {
+  for (size_t i = blockIdx.x * (size_t)kSplitThreads + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * kSplitThreads) {
+    const float4 v = __ldg(x + i);
+    float4 h, l;
+    split(v.x, h.x, l.x);
+    split(v.y, h.y, l.y);
+    split(v.z, h.z, l.z);
+    split(v.w, h.w, l.w);
+    hi[i] = h;
+    lo[i] = l;
+  }
+}
+
+// w_gate (blockIdx.z 0) or w_up (1), [d, f] -> hi and lo planes transposed,
+// [f, d]: 32 x 32 tiles through shared memory, both sides coalesced.
+__global__ void __launch_bounds__(kSplitThreads)
+swiglu_split_transpose_kernel(const float* __restrict__ wg, const float* __restrict__ wu,
+                              float* __restrict__ planes, int d, int f) {
+  __shared__ float tile[32][33];
+  const float* w = blockIdx.z ? wu : wg;
+  float* hi = planes + (size_t)(2 * blockIdx.z) * f * d;
+  float* lo = hi + (size_t)f * d;
+  const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+#pragma unroll
+  for (int j = 0; j < 32; j += kSplitThreads / 32) {
+    const int k = k0 + ty + j, n = n0 + tx;
+    tile[ty + j][tx] = k < d && n < f ? __ldg(w + (size_t)k * f + n) : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 32; j += kSplitThreads / 32) {
+    const int n = n0 + ty + j, k = k0 + tx;
+    if (n < f && k < d) {
+      float h, l;
+      split(tile[tx][ty + j], h, l);
+      hi[(size_t)n * d + k] = h;
+      lo[(size_t)n * d + k] = l;
+    }
+  }
+}
+
+// d[64x128] (+)= A[64x8] * B[8x128], TF32 from shared memory, both K-major,
+// fp32 accumulators; scale_d 0 starts a fresh accumulator.
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " SWIGLU_ACC64
+      ", %64, %65, p, 1, 1;\n}\n"
+      : SWIGLU_ACC64_OPERANDS(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// acc = A B over one k-tile, 64 rows of A (x) by 128 rows of B (a weight,
+// transposed), in a fresh accumulator: per k8 step three TF32 products in a
+// fixed order, lo hi, hi lo, hi hi (lo lo, ~2^-22 of the product, is
+// dropped): 12 accumulating products, then the wait.  Each plane tile is
+// rows of 128 bytes, 8-row groups 1 KB apart; a k8 step is 32 bytes.
+__device__ __forceinline__ void tile_product(float (&acc)[64], uint32_t a_hi, uint32_t a_lo,
+                                             uint32_t b_hi, uint32_t b_lo) {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int k = 0; k < BK / 8; ++k) {
+    const uint64_t ah = desc(a_hi + k * 32, 16, 1024), al = desc(a_lo + k * 32, 16, 1024);
+    const uint64_t bh = desc(b_hi + k * 32, 16, 1024), bl = desc(b_lo + k * 32, 16, 1024);
+    wgmma_m64n128k8(acc, al, bh, k > 0);
+    wgmma_m64n128k8(acc, ah, bl, 1);
+    wgmma_m64n128k8(acc, ah, bh, 1);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  fence_acc(acc);
+}
+
+// kFwd: out0 = silu(g) * u.  kBwd: out0 = dg, out1 = du from dout.
+// kProducts: out0 = g, out1 = u (the probe of the mainloop alone).
+template <int kEpi>
+__global__ void __launch_bounds__(kThreads, 1)
+swiglu_tf32x3_kernel(const __grid_constant__ CUtensorMap map_xh,
+                     const __grid_constant__ CUtensorMap map_xl,
+                     const __grid_constant__ CUtensorMap map_gh,
+                     const __grid_constant__ CUtensorMap map_gl,
+                     const __grid_constant__ CUtensorMap map_uh,
+                     const __grid_constant__ CUtensorMap map_ul, const float* __restrict__ dout,
+                     float* __restrict__ out0, float* __restrict__ out1, int Tn, int d, int f) {
+  extern __shared__ uint8_t smem_raw[];
+  // the 128B swizzle repeats every 1024 bytes: tiles start on that boundary
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + kStages * kStageBytes;  // full[s], then empty[s]
+  auto tile = [&](int s, int plane) { return base + s * kStageBytes + plane * kPlaneBytes; };
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int nk = (d + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == kConsumers * 128) {
+      const CUtensorMap* maps[6] = {&map_xh, &map_xl, &map_gh, &map_gl, &map_uh, &map_ul};
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(empty(s), ((kt / kStages) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(full(s), kStageBytes);
+#pragma unroll
+        for (int p = 0; p < 6; ++p)
+          tma_load(tile(s, p), maps[p], full(s), kt * BK, p < kGHi ? m0 : n0);
+      }
+    }
+  } else {
+    // ---- consumers: rows wg*64 .. wg*64+63 of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    float accg[64], accu[64], acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) accg[i] = accu[i] = 0.f;
+
+    const uint32_t rows = wg * 64 * 128;  // this warpgroup's 64 rows of the x planes
+    for (int kt = 0; kt < nk; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(full(s), (kt / kStages) & 1);
+      // each k-tile's 12 truncating accumulations in a fresh accumulator,
+      // added to the running sums with IEEE round-to-nearest adds
+      tile_product(acc, tile(s, kXHi) + rows, tile(s, kXLo) + rows, tile(s, kGHi),
+                   tile(s, kGLo));
+#pragma unroll
+      for (int i = 0; i < 64; ++i) accg[i] += acc[i];
+      tile_product(acc, tile(s, kXHi) + rows, tile(s, kXLo) + rows, tile(s, kUHi),
+                   tile(s, kULo));
+#pragma unroll
+      for (int i = 0; i < 64; ++i) accu[i] += acc[i];
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty(s));  // the stage goes back
+    }
+
+    // accumulator i of a thread: row 16 * warp + lane / 4 + 8 * ((i / 2) % 2),
+    // column 8 * (i / 4) + 2 * (lane % 4) + i % 2
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int row0 = m0 + wg * 64 + warp * 16 + lane / 4;
+    const int col0 = n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = col0 + 8 * j;
+      if (col >= f) continue;  // f is even, so col + 1 < f as well
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= Tn) continue;
+        const size_t at = static_cast<size_t>(row) * f + col;
+        const float g0 = accg[4 * j + 2 * h], g1 = accg[4 * j + 2 * h + 1];
+        const float u0 = accu[4 * j + 2 * h], u1 = accu[4 * j + 2 * h + 1];
+        if (kEpi == kProducts) {
+          *reinterpret_cast<float2*>(out0 + at) = make_float2(g0, g1);
+          *reinterpret_cast<float2*>(out1 + at) = make_float2(u0, u1);
+          continue;
+        }
+        const float s0 = 1.f / (1.f + expf(-g0)), s1 = 1.f / (1.f + expf(-g1));
+        if (kEpi == kBwd) {
+          const float2 y = __ldg(reinterpret_cast<const float2*>(dout + at));
+          *reinterpret_cast<float2*>(out0 + at) =
+              make_float2(y.x * u0 * (s0 * (1.f + g0 * (1.f - s0))),
+                          y.y * u1 * (s1 * (1.f + g1 * (1.f - s1))));
+          *reinterpret_cast<float2*>(out1 + at) = make_float2(y.x * (g0 * s0), y.y * (g1 * s1));
+        } else {
+          *reinterpret_cast<float2*>(out0 + at) = make_float2(g0 * s0 * u0, g1 * s1 * u1);
+        }
+      }
+    }
+  }
+}
+
+// The planes in the workspace: x's hi and lo [T, d], then w_gate's and
+// w_up's hi and lo, each [f, d] (transposed).
+inline float* plane(void* ws, int which, int Tn, int d, int f) {
+  float* p = static_cast<float*>(ws);
+  const size_t x_floats = static_cast<size_t>(Tn) * d, w_floats = static_cast<size_t>(f) * d;
+  return which < kGHi ? p + which * x_floats : p + 2 * x_floats + (which - kGHi) * w_floats;
+}
+
+// The split pass: two launches, x's planes and the weights' transposed ones.
+cudaError_t split_all(const void* x, const void* wg, const void* wu, void* ws, int Tn, int d,
+                      int f, cudaStream_t stream) {
+  const size_t n4 = static_cast<size_t>(Tn) * d / 4;
+  const size_t want = (n4 + kSplitThreads - 1) / kSplitThreads;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  swiglu_split_rows_kernel<<<blocks, kSplitThreads, 0, stream>>>(
+      static_cast<const float4*>(x), reinterpret_cast<float4*>(plane(ws, kXHi, Tn, d, f)),
+      reinterpret_cast<float4*>(plane(ws, kXLo, Tn, d, f)), n4);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid((f + 31) / 32, (d + 31) / 32, 2);
+  swiglu_split_transpose_kernel<<<grid, kSplitThreads, 0, stream>>>(
+      static_cast<const float*>(wg), static_cast<const float*>(wu),
+      plane(ws, kGHi, Tn, d, f), d, f);
+  return cudaGetLastError();
+}
+
+template <int kEpi>
+cudaError_t launch(const void* x, const void* wg, const void* wu, const void* dout, void* out0,
+                   void* out1, void* ws, int Tn, int d, int f, cudaStream_t stream) {
+  cudaError_t err = split_all(x, wg, wu, ws, Tn, d, f, stream);
+  if (err != cudaSuccess) return err;
+  CUtensorMap maps[6];
+  for (int p = 0; p < 6; ++p) {
+    const bool is_x = p < kGHi;
+    if (!encode(&maps[p], plane(ws, p, Tn, d, f), is_x ? Tn : f, d, is_x ? BM : BN, true))
+      return cudaErrorInvalidValue;
+  }
+  err = cudaFuncSetAttribute(swiglu_tf32x3_kernel<kEpi>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return err;
+  // T tiles vary fastest, as on the wgmma route
+  dim3 grid((Tn + BM - 1) / BM, (f + BN - 1) / BN);
+  swiglu_tf32x3_kernel<kEpi><<<grid, kThreads, kSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], static_cast<const float*>(dout),
+      static_cast<float*>(out0), static_cast<float*>(out1), Tn, d, f);
+  return cudaGetLastError();
+}
+
+}  // namespace x3
+
 }  // namespace
 
 // The simt route.  x [T, d], w_gate/w_up [d, f], out [T, f], all contiguous;
@@ -441,3 +732,37 @@ extern "C" int repro_swiglu_wgmma_products(const void* x, const void* wg, const 
 
 // Dynamic shared memory of a wgmma block, for build reports.
 extern "C" int repro_swiglu_wgmma_smem_bytes() { return tc::kSmemBytes; }
+
+// The tf32x3 route: fp32, d and f multiples of 4, every pointer 16-byte
+// aligned (swiglu.py's route() decides).  `ws` is the split pass's
+// workspace, 2 T d + 4 f d floats (swiglu.py allocates it per call).
+extern "C" int repro_swiglu_tf32x3_fwd(const void* x, const void* wg, const void* wu, void* out,
+                                       void* ws, int T, int d, int f, void* stream) {
+  return (int)x3::launch<x3::kFwd>(x, wg, wu, nullptr, out, nullptr, ws, T, d, f,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int repro_swiglu_tf32x3_bwd(const void* x, const void* wg, const void* wu,
+                                       const void* dout, void* dg, void* du, void* ws, int T,
+                                       int d, int f, void* stream) {
+  return (int)x3::launch<x3::kBwd>(x, wg, wu, dout, dg, du, ws, T, d, f,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// The mainloop alone: g = x @ w_gate and u = x @ w_up in fp32, for checking
+// the tensor-core products against a matrix product.
+extern "C" int repro_swiglu_tf32x3_products(const void* x, const void* wg, const void* wu,
+                                            void* g, void* u, void* ws, int T, int d, int f,
+                                            void* stream) {
+  return (int)x3::launch<x3::kProducts>(x, wg, wu, nullptr, g, u, ws, T, d, f,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+// The split pass alone (its time apart from the route's).
+extern "C" int repro_swiglu_tf32x3_split(const void* x, const void* wg, const void* wu, void* ws,
+                                         int T, int d, int f, void* stream) {
+  return (int)x3::split_all(x, wg, wu, ws, T, d, f, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory of a tf32x3 block, for build reports.
+extern "C" int repro_swiglu_tf32x3_smem_bytes() { return x3::kSmemBytes; }

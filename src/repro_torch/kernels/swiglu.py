@@ -8,11 +8,13 @@ kernel and whose backward launches the backward kernel (g and u recomputed
 tile by tile, epilogue ``dg``/``du``), then leaves the three plain matrix
 products of the chain rule to ``torch.matmul``.
 
-Each direction has two kernels, and :func:`route` picks one before the
-launch from the dtype, the shape and the pointers: ``"wgmma"`` (tensor
-cores fed by TMA, bf16 only) or ``"simt"`` (fp32 FMAs on the CUDA cores).
-``LAUNCHES`` and ``BWD_LAUNCHES`` count the forward and backward launches
-by route.
+Each direction has three kernels, and :func:`route` picks one before the
+launch from the dtype, the shape and the pointers: ``"wgmma"`` (bf16 on the
+tensor cores, fed by TMA), ``"tf32x3"`` (fp32 on the tensor cores, three
+TF32 products for each fp32 product, after a split pass into hi and lo
+planes) or ``"simt"`` (FMAs on the CUDA cores, for shapes and pointers the
+other two cannot take).  ``LAUNCHES`` and ``BWD_LAUNCHES`` count the forward
+and backward launches by route, one per call.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from repro_torch.kernels import build as _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-ROUTES = ("wgmma", "simt")
+ROUTES = ("wgmma", "tf32x3", "simt")
 #: launches since the last reset (see ``kernels.ops``), by route
 LAUNCHES = dict.fromkeys(ROUTES, 0)
 BWD_LAUNCHES = dict.fromkeys(ROUTES, 0)
@@ -38,18 +40,32 @@ def build():
         "repro_swiglu_wgmma_bwd": [P] * 6 + [I] * 3 + [P],
         "repro_swiglu_wgmma_products": [P] * 5 + [I] * 3 + [P],
         "repro_swiglu_wgmma_smem_bytes": [],
+        "repro_swiglu_tf32x3_fwd": [P] * 5 + [I] * 3 + [P],
+        "repro_swiglu_tf32x3_bwd": [P] * 7 + [I] * 3 + [P],
+        "repro_swiglu_tf32x3_products": [P] * 6 + [I] * 3 + [P],
+        "repro_swiglu_tf32x3_split": [P] * 4 + [I] * 3 + [P],
+        "repro_swiglu_tf32x3_smem_bytes": [],
     })
 
 
 def route(dtype: torch.dtype, d: int, f: int, *ptrs: int) -> str:
-    """The kernel a call takes, decided before its launch: ``"wgmma"`` for
-    bf16 with d and f multiples of 8 and every pointer 16-byte aligned
-    (TMA's rules: global strides multiples of 16 bytes, base addresses
-    16-byte aligned), ``"simt"`` for everything else."""
-    if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0 \
-            and all(p % 16 == 0 for p in ptrs):
-        return "wgmma"
+    """The kernel a call takes, decided before its launch: with every
+    pointer 16-byte aligned and rows of a multiple of 16 bytes (TMA's rules:
+    global strides multiples of 16 bytes, base addresses 16-byte aligned),
+    ``"wgmma"`` for bf16 with d and f multiples of 8 and ``"tf32x3"`` for
+    fp32 with d and f multiples of 4; ``"simt"`` for everything else."""
+    if all(p % 16 == 0 for p in ptrs):
+        if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0:
+            return "wgmma"
+        if dtype == torch.float32 and d % 4 == 0 and f % 4 == 0:
+            return "tf32x3"
     return "simt"
+
+
+def workspace(T: int, d: int, f: int, device) -> torch.Tensor:
+    """The tf32x3 route's split planes for one call: x's hi and lo [T, d],
+    then w_gate's and w_up's hi and lo transposed, [f, d] each."""
+    return torch.empty(2 * T * d + 4 * f * d, dtype=torch.float32, device=device)
 
 
 def _check(x, w_gate, w_up, *rest) -> None:
@@ -81,6 +97,9 @@ def swiglu_fwd(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor) -> tor
     with torch.cuda.device(x.device):
         if way == "wgmma":
             err = lib.repro_swiglu_wgmma_fwd(*ptrs, T, d, f, _build.stream_of(x))
+        elif way == "tf32x3":
+            ws = workspace(T, d, f, x.device)
+            err = lib.repro_swiglu_tf32x3_fwd(*ptrs, ws.data_ptr(), T, d, f, _build.stream_of(x))
         else:
             err = lib.repro_swiglu_fwd(*ptrs, T, d, f, _DTYPES[x.dtype], _build.stream_of(x))
     if err != 0:
@@ -104,6 +123,9 @@ def swiglu_bwd(x, w_gate, w_up, dout):
     with torch.cuda.device(x.device):
         if way == "wgmma":
             err = lib.repro_swiglu_wgmma_bwd(*ptrs, T, d, f, _build.stream_of(x))
+        elif way == "tf32x3":
+            ws = workspace(T, d, f, x.device)
+            err = lib.repro_swiglu_tf32x3_bwd(*ptrs, ws.data_ptr(), T, d, f, _build.stream_of(x))
         else:
             err = lib.repro_swiglu_bwd(*ptrs, T, d, f, _DTYPES[x.dtype], _build.stream_of(x))
     if err != 0:

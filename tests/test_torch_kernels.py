@@ -89,6 +89,74 @@ def test_decode_ref_length_forms_match_jax(need_jax, length):
     np.testing.assert_allclose(got, np.asarray(expect), rtol=2e-5, atol=2e-5)
 
 
+def _decode_split_emulation(q, k, v, length, chunk):
+    """The split-K decode kernels' algorithm in plain torch (fp32): each
+    chunk of ``chunk`` cache slots gives a partial softmax (m in the log2
+    domain, l, acc) over its slots below ``length``, an empty chunk (-1e30,
+    0, 0); the partials merge in chunk order, l floored at 1e-30."""
+    B, Hq, hd = q.shape
+    Hkv, C = k.shape[1], k.shape[2]
+    n = min(int(length), C)
+    qs = (q.float() * (hd ** -0.5 * np.log2(np.e))).reshape(B, Hkv, Hq // Hkv, hd)
+    parts = []
+    for c0 in range(0, C, chunk):
+        c1 = min(c0 + chunk, n)
+        if c1 <= c0:
+            parts.append((torch.full(qs.shape[:3], -1e30), torch.zeros(qs.shape[:3]),
+                          torch.zeros(qs.shape)))
+            continue
+        s = torch.einsum("bhgd,bhcd->bhgc", qs, k[:, :, c0:c1].float())
+        m = s.amax(-1)
+        p = torch.exp2(s - m[..., None])
+        parts.append((m, p.sum(-1), torch.einsum("bhgc,bhcd->bhgd", p, v[:, :, c0:c1].float())))
+    big = torch.stack([m for m, _, _ in parts]).amax(0)
+    den, num = torch.zeros_like(big), torch.zeros(qs.shape)
+    for m, l, acc in parts:
+        w = torch.exp2(m - big)
+        den, num = den + l * w, num + acc * w[..., None]
+    return (num / den.clamp_min(1e-30)[..., None]).reshape(B, Hq, hd).to(q.dtype)
+
+
+def test_decode_split_chunk_depends_on_capacity_and_grid_only():
+    # phi3's serve shape (B 4, 32 kv heads, G 1, hd 96, C 1024) on 132 SMs:
+    # 192-slot chunks, 6 of them, 768 blocks >= 4 an SM
+    blocks = 4 * 32 * -(-1 // da.heads_per_block(1, 96, torch.bfloat16))
+    chunk = da.split_chunk(1024, blocks, 132)
+    assert (chunk, -(-1024 // chunk)) == (192, 6)
+    assert blocks * -(-1024 // chunk) >= da.BLOCKS_PER_SM * 132
+    for C in (64, 512, 1000, 2048, 32768):
+        for blocks in (1, 4, 128, 1024):
+            chunk = da.split_chunk(C, blocks, 132)
+            assert chunk % 32 == 0 and chunk >= 32
+            assert chunk == 32 or blocks * -(-C // chunk) >= da.BLOCKS_PER_SM * 132
+    # query heads a block: the group rounded up to a power of two while a
+    # lane's 64 accumulators hold them
+    assert [da.heads_per_block(G, 96, torch.bfloat16) for G in (1, 2, 4, 5, 8)] == \
+        [1, 2, 2, 2, 2]
+    assert [da.heads_per_block(G, 64, torch.float32) for G in (1, 3, 5, 8)] == [1, 4, 8, 8]
+
+
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("edge", ["first", "below", "at", "above", "full"])
+def test_decode_split_merge_matches_jax_oracle_and_pallas(need_jax, G, edge):
+    """The split-K kernels' algorithm (chunked partials merged in a fixed
+    order), emulated at the chunk the kernel would take, over lengths 1, a
+    chunk edge and one either side of it, and C, with GQA G 1, 4 and 8."""
+    B, Hkv, C, hd = 2, 2, 256, 64
+    q, k, v = _inputs(B, Hkv * G, Hkv, C, hd, seed=19)
+    gt = da.heads_per_block(G, hd, torch.float32)
+    chunk = da.split_chunk(C, B * Hkv * -(-G // gt), 132)
+    assert C // chunk >= 2
+    length = {"first": 1, "below": chunk - 1, "at": chunk, "above": chunk + 1, "full": C}[edge]
+    got = _decode_split_emulation(*(torch.from_numpy(a) for a in (q, k, v)), length, chunk)
+    oracle = jax_ref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                          jnp.int32(length))
+    pallas = pallas_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(length),
+                           interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=2e-5, atol=2e-5)
+
+
 def test_ops_dispatch_cpu_goes_to_plain_version():
     q, k, v = (torch.from_numpy(a) for a in _inputs(2, 8, 2, 64, 64))
     before = ops.launch_counts()["decode_attention"]
@@ -106,18 +174,21 @@ def test_launch_counter_reset():
     da.LAUNCHES = 7
     fa.LAUNCHES = {"wgmma": 4, "tf32x3": 5, "simt": 2}
     fa.BWD_LAUNCHES = {"wgmma": 3, "tf32x3": 1, "simt": 2}
-    sg.LAUNCHES, sg.BWD_LAUNCHES = {"wgmma": 3, "simt": 1}, {"wgmma": 2, "simt": 1}
+    sg.LAUNCHES = {"wgmma": 3, "tf32x3": 6, "simt": 1}
+    sg.BWD_LAUNCHES = {"wgmma": 2, "tf32x3": 4, "simt": 1}
     assert ops.launch_counts() == {"decode_attention": 7, "flash_attention": 11,
                                    "flash_attention_bwd": 6, "flash_attention_wgmma": 4,
                                    "flash_attention_tf32x3": 5, "flash_attention_simt": 2,
                                    "flash_attention_bwd_wgmma": 3,
                                    "flash_attention_bwd_tf32x3": 1,
-                                   "flash_attention_bwd_simt": 2, "swiglu": 4, "swiglu_bwd": 3,
-                                   "swiglu_wgmma": 3, "swiglu_simt": 1,
-                                   "swiglu_bwd_wgmma": 2, "swiglu_bwd_simt": 1}
+                                   "flash_attention_bwd_simt": 2, "swiglu": 10, "swiglu_bwd": 7,
+                                   "swiglu_wgmma": 3, "swiglu_tf32x3": 6, "swiglu_simt": 1,
+                                   "swiglu_bwd_wgmma": 2, "swiglu_bwd_tf32x3": 4,
+                                   "swiglu_bwd_simt": 1}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
     assert fa.LAUNCHES == fa.BWD_LAUNCHES == {"wgmma": 0, "tf32x3": 0, "simt": 0}
+    assert sg.LAUNCHES == sg.BWD_LAUNCHES == {"wgmma": 0, "tf32x3": 0, "simt": 0}
 
 
 @pytest.mark.parametrize("bad", ["cpu", "dtype", "head_dim", "groups", "length"])
@@ -135,6 +206,14 @@ def test_cuda_wrapper_rejects_before_building(bad):
         length = length.long()
     with pytest.raises(ValueError):
         da.decode_attention(q, k, v, length)
+
+
+def test_decode_wrapper_rejects_misaligned_tensors():
+    # the split pass loads 16 bytes at a time: q 4 bytes past a boundary
+    q, k, v = (torch.from_numpy(a) for a in _inputs(2, 8, 2, 64, 64))
+    q = torch.zeros(q.numel() + 1)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        da.decode_attention(q, k, v, torch.tensor([3], dtype=torch.int32))
 
 
 def test_build_cache_hit_keeps_compiler_report(tmp_path, monkeypatch):
@@ -201,6 +280,29 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, tol):
         torch.testing.assert_close(out.float(), expect.float(), rtol=tol, atol=tol)
     torch.cuda.synchronize()
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_cuda_decode_split_edges_match_plain_and_repeat_bits(cuda_device, dtype, tol):
+    """The split pass's edges: lengths at a chunk's edges and past C, G 1, 4
+    and 8; two calls give the same bits, and ``length`` is read on the card
+    (the same launch arguments with another length on the device)."""
+    B, Hkv, C, hd = 2, 2, 1024, 128
+    for G in (1, 4, 8):
+        q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+                   for a in _inputs(B, Hkv * G, Hkv, C, hd))
+        gt = da.heads_per_block(G, hd, dtype)
+        chunk = da.split_chunk(C, B * Hkv * -(-G // gt), da._sms(cuda_device.index or 0))
+        L = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+        for length in (1, chunk - 1, chunk, chunk + 1, 2 * chunk, C - 1, C, C + 5):
+            L.fill_(length)
+            out = ops.decode_attention(q, k, v, L)
+            torch.testing.assert_close(out.float(), ops.decode_attention(
+                q, k, v, L, impl="ref").float(), rtol=tol, atol=tol,
+                msg=f"G={G} length={length} chunk={chunk} {dtype}")
+            assert torch.equal(out, ops.decode_attention(q, k, v, L)), f"G={G} length={length}"
+    torch.cuda.synchronize()
 
 
 # ------------------------------------------------------------ flash attention
@@ -349,6 +451,76 @@ def test_flash_tf32x3_arithmetic_holds_fp32_tolerances(need_jax):
     assert np.abs(bshd(o1) - np.asarray(want)).max() > 2e-5
 
 
+def _trunc32(v):
+    """float64 -> fp32 rounded toward zero, as the tensor cores' fp32
+    accumulation adds."""
+    r = v.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(v)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+#: k of a fresh accumulator in the swiglu tf32x3 kernel: one 32-wide k-tile
+SWIGLU_K_REFRESH = 32
+
+
+def _tf32x3_truncating(a, b, k_refresh):
+    """a [M, K] @ b [K, N] as the swiglu tf32x3 kernel sums it: per k8 step
+    three TF32 products (lo hi, hi lo, hi hi), each added to an fp32
+    accumulator that truncates toward zero (the sum over the k8 step
+    exact); every ``k_refresh`` of k the accumulator starts afresh and is
+    added to the running sum with round-to-nearest fp32 adds (``k_refresh``
+    >= K: one accumulator throughout)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    pairs = [(x.astype(np.float64), y.astype(np.float64))
+             for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))]
+    K = a.shape[1]
+    running = np.zeros((a.shape[0], b.shape[1]), dtype=np.float32)
+    for r0 in range(0, K, k_refresh):
+        acc = np.zeros_like(running)
+        for k0 in range(r0, min(r0 + k_refresh, K), 8):
+            for x, y in pairs:
+                acc = _trunc32(acc + x[:, k0:k0 + 8] @ y[k0:k0 + 8])
+        running = running + acc
+    return running
+
+
+def _swiglu_tf32x3(x, wg, wu, dout, k_refresh):
+    """The tf32x3 route's forward and backward kernels emulated (g and u by
+    :func:`_tf32x3_truncating`, the epilogues in fp32), then the chain
+    rule's three products in fp32: (out, (dx, dw_gate, dw_up))."""
+    g, u = (_tf32x3_truncating(x, w, k_refresh) for w in (wg, wu))
+    sig = np.float32(1) / (np.float32(1) + np.exp(-g))
+    out = g * sig * u
+    dg = dout * u * (sig * (np.float32(1) + g * (np.float32(1) - sig)))
+    du = dout * (g * sig)
+    return out, (dg @ wg.T + du @ wu.T, x.T @ dg, x.T @ du)
+
+
+def test_swiglu_tf32x3_arithmetic_holds_fp32_tolerances(need_jax):
+    """The swiglu tf32x3 route's arithmetic, emulated on the CPU at phi3's
+    width (T 64 rows, d 3072, f 256 of its 8192 columns), with truncating
+    accumulators refreshed every k-tile: the output within 2e-5 of the JAX
+    oracle and the gradients within 1e-4 of ``jax.vjp``.  One accumulator
+    over all of d (1,152 truncating adds) is measurably worse, which is why
+    the kernel refreshes it."""
+    T, d, f = 64, 3072, 256
+    x, wg, wu = _swiglu_inputs(T, d, f, seed=17)
+    dout = np.random.default_rng(18).standard_normal((T, f), dtype=np.float32)
+    want, vjp = jax.vjp(jax_ref.swiglu_ref, *(jnp.asarray(a) for a in (x, wg, wu)))
+    want_grads = vjp(jnp.asarray(dout))
+    out, grads = _swiglu_tf32x3(x, wg, wu, dout, SWIGLU_K_REFRESH)
+    assert out.dtype == np.float32
+    np.testing.assert_allclose(out, np.asarray(want), rtol=2e-5, atol=2e-5)
+    for g, w in zip(grads, want_grads):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-4, atol=1e-4)
+    exact = (x.astype(np.float64) @ wg.astype(np.float64))
+    refreshed = np.abs(_tf32x3_truncating(x, wg, SWIGLU_K_REFRESH) - exact).max()
+    once = np.abs(_tf32x3_truncating(x, wg, d) - exact).max()
+    assert once > 4 * refreshed, (once, refreshed)
+
+
 # -------------------------------------------------------------------- swiglu
 @pytest.mark.parametrize("T,d,f", SWIGLU_SHAPES + [(100, 256, 512)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -451,15 +623,21 @@ def test_swiglu_wrapper_rejects_before_building(bad, match):
 
 
 @pytest.mark.parametrize("offset", [0, 2, 16])
-@pytest.mark.parametrize("d,f", [(3072, 8192), (200, 520), (196, 512), (256, 300)])
+@pytest.mark.parametrize("d,f", [(3072, 8192), (200, 520), (196, 512), (256, 300), (198, 512),
+                                 (256, 302)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_swiglu_route(dtype, d, f, offset):
-    """wgmma only for bf16 with d and f multiples of 8 and 16-byte aligned
-    pointers (TMA's rules); everything else takes the simt kernel."""
+    """With 16-byte aligned pointers (TMA's rules), wgmma for bf16 with d and
+    f multiples of 8 and tf32x3 for fp32 with d and f multiples of 4;
+    everything else takes the simt kernel."""
     base = torch.empty(64, dtype=torch.bfloat16).data_ptr()   # 64-byte aligned or more
     ptrs = (base, base + 256, base + 512 + offset)
-    aligned = d % 8 == 0 and f % 8 == 0 and offset % 16 == 0
-    want = "wgmma" if dtype == torch.bfloat16 and aligned else "simt"
+    want = "simt"
+    if offset % 16 == 0:
+        if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0:
+            want = "wgmma"
+        elif dtype == torch.float32 and d % 4 == 0 and f % 4 == 0:
+            want = "tf32x3"
     assert sg.route(dtype, d, f, *ptrs) == want
 
 
@@ -470,6 +648,17 @@ def test_swiglu_route_takes_every_config_in_bf16(arch):
         w = torch.empty(cfg.d_model, cfg.d_ff, dtype=torch.bfloat16)
         assert sg.route(torch.bfloat16, cfg.d_model, cfg.d_ff, x[1:].data_ptr(),
                         w.data_ptr(), w.data_ptr()) == "wgmma"
+
+
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "qwen2.5-14b"])
+def test_swiglu_route_takes_every_config_in_fp32(arch):
+    # the reduced configs are fp32 (train_reduced's route); the full widths
+    # in fp32 are train_fp32's
+    for cfg in (get_config(arch), get_config(arch).reduced()):
+        x = torch.empty(3, cfg.d_model)
+        w = torch.empty(cfg.d_model, cfg.d_ff)
+        assert sg.route(torch.float32, cfg.d_model, cfg.d_ff, x[1:].data_ptr(),
+                        w.data_ptr(), w.data_ptr()) == "tf32x3"
 
 
 @pytest.mark.parametrize("offset", [0, 2, 16])
@@ -509,46 +698,6 @@ def test_flash_route_takes_every_config_in_fp32(arch):
                         kv[:, 2:].data_ptr()) == "tf32x3"
 
 
-class _CountingLib:
-    """Stands in for the kernel library: records which entry point ran."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        def entry(*args):
-            self.calls.append(name)
-            return 0
-        return entry
-
-
-@pytest.mark.parametrize("dtype,d,f,way", [(torch.bfloat16, 64, 128, "wgmma"),
-                                           (torch.bfloat16, 60, 128, "simt"),
-                                           (torch.float32, 64, 128, "simt")])
-def test_swiglu_wrappers_launch_and_count_by_route(monkeypatch, dtype, d, f, way):
-    # the CUDA checks and the library are stood in for, so the CPU can run
-    # the wrappers' routing and counting
-    lib = _CountingLib()
-    monkeypatch.setattr(sg, "build", lambda: lib)
-    monkeypatch.setattr(sg, "_check", lambda *tensors: None)
-    monkeypatch.setattr(sg._build, "stream_of", lambda t: 0)
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
-    x, wg, wu = (torch.zeros(s, dtype=dtype) for s in ((40, d), (d, f), (d, f)))
-    ops.reset_launch_counts()
-    for _ in range(2):
-        sg.swiglu_fwd(x, wg, wu)
-    sg.swiglu_bwd(x, wg, wu, torch.zeros(40, f, dtype=dtype))
-    name = "repro_swiglu_wgmma" if way == "wgmma" else "repro_swiglu"
-    assert lib.calls == [f"{name}_fwd"] * 2 + [f"{name}_bwd"]
-    other = "simt" if way == "wgmma" else "wgmma"
-    counts = ops.launch_counts()
-    assert (counts["swiglu"], counts["swiglu_bwd"]) == (2, 1)
-    assert (counts[f"swiglu_{way}"], counts[f"swiglu_bwd_{way}"]) == (2, 1)
-    assert (counts[f"swiglu_{other}"], counts[f"swiglu_bwd_{other}"]) == (0, 0)
-    ops.reset_launch_counts()
-    assert set(ops.launch_counts().values()) == {0}
-
-
 class _RecordingLib:
     """Stands in for ``kernels.build.load``'s library: records each entry
     point's name and arguments, and the argument types it was bound with."""
@@ -565,6 +714,45 @@ class _RecordingLib:
             self.calls.append((name, args))
             return 0
         return entry
+
+
+@pytest.mark.parametrize("dtype,d,f,offset,way", [(torch.bfloat16, 64, 128, 0, "wgmma"),
+                                                  (torch.bfloat16, 60, 128, 0, "simt"),
+                                                  (torch.float32, 64, 128, 0, "tf32x3"),
+                                                  (torch.float32, 62, 128, 0, "simt"),
+                                                  (torch.float32, 64, 128, 1, "simt")])
+def test_swiglu_wrappers_launch_and_count_by_route(monkeypatch, dtype, d, f, offset, way):
+    # the CUDA checks and the library are stood in for, so the CPU can run
+    # the wrappers' routing, argument lists and counting
+    lib = _RecordingLib()
+    monkeypatch.setattr(sg._build, "load", lib.load)
+    monkeypatch.setattr(sg, "_check", lambda *tensors: None)
+    monkeypatch.setattr(sg._build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    # x `offset` elements past an aligned allocation: 16-byte aligned or not
+    x = torch.zeros(40 * d + offset, dtype=dtype)[offset:].view(40, d)
+    wg, wu = (torch.zeros(d, f, dtype=dtype) for _ in range(2))
+    ops.reset_launch_counts()
+    for _ in range(2):
+        assert sg.swiglu_fwd(x, wg, wu).shape == (40, f)
+    dg, du = sg.swiglu_bwd(x, wg, wu, torch.zeros(40, f, dtype=dtype))
+    assert dg.shape == du.shape == (40, f)
+    name = "repro_swiglu" if way == "simt" else f"repro_swiglu_{way}"
+    assert [n for n, _ in lib.calls] == [f"{name}_fwd"] * 2 + [f"{name}_bwd"]
+    for n, args in lib.calls:   # every call matches the arity it was bound with
+        assert len(args) == len(lib.argtypes[n]), n
+        dims = args[-5:-2] if way == "simt" else args[-4:-1]   # simt passes its dtype too
+        assert dims == (40, d, f), n
+    if way == "tf32x3":   # the split planes' workspace follows the tensors
+        ws = lib.calls[0][1][4]
+        assert isinstance(ws, int) and ws % 16 == 0
+    counts = ops.launch_counts()
+    assert (counts["swiglu"], counts["swiglu_bwd"]) == (2, 1)
+    assert (counts[f"swiglu_{way}"], counts[f"swiglu_bwd_{way}"]) == (2, 1)
+    for other in set(sg.ROUTES) - {way}:
+        assert (counts[f"swiglu_{other}"], counts[f"swiglu_bwd_{other}"]) == (0, 0), other
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts().values()) == {0}
 
 
 @pytest.mark.parametrize("dtype,hd,offset,way", [(torch.bfloat16, 96, 0, "wgmma"),
@@ -718,12 +906,23 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, dtype):
     torch.cuda.synchronize()
 
 
-# the wgmma route's edges: T = 1 and 100 (ragged row tiles), d = 200 (a
-# ragged last k-tile), f = 520 (a ragged column tile)
+# the tensor-core routes' edges: T = 1 and 100 (ragged row tiles), d = 200
+# (a ragged last k-tile), f = 520 (a ragged column tile)
 SWIGLU_EDGES = [(1, 256, 512), (100, 256, 512), (128, 200, 512), (128, 256, 520)]
-# a slice of phi3's FFN, in bf16 only: in fp32 at d = 3072 two correct sums
-# in different orders differ by more than 2e-5, and cuBLAS splits K at T = 256
+# a slice of phi3's FFN; against its fp32 plain version in bf16 only: in
+# fp32 at d = 3072 two correct sums in different orders differ by more than
+# 2e-5, and cuBLAS splits K at T = 256, so in fp32 it is held against a
+# float64 oracle (test_cuda_swiglu_tf32x3_slice_matches_float64)
 SWIGLU_SLICE = (256, 3072, 8192)
+# shapes only the simt kernels take: 37 rows, d and f not multiples of 4
+SWIGLU_ODD = [(37, 200, 300), (37, 198, 302)]
+
+
+def _swiglu_way(dtype, d, f):
+    """The route of a call on fresh (aligned) tensors."""
+    if dtype == torch.bfloat16 and (d % 8, f % 8) == (0, 0):
+        return "wgmma"
+    return "tf32x3" if dtype == torch.float32 and (d % 4, f % 4) == (0, 0) else "simt"
 
 
 @pytest.mark.cuda
@@ -749,10 +948,61 @@ def test_cuda_swiglu_wgmma_products_match_matmul(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_swiglu_tf32x3_products_match_matmul(cuda_device):
+    """The tf32x3 mainloop alone (after its split pass), one tile and one
+    k-tile first: g and u (fp32) against float64 products of the same inputs
+    at 2e-5, a bar one TF32 product misses; then the edges and phi3's FFN
+    slice."""
+    lib = sg.build()
+    for T, d, f in [(128, 32, 128), (64, 32, 128), (128, 64, 256)] + SWIGLU_EDGES + [
+            SWIGLU_SLICE]:
+        x, wg, wu = (torch.from_numpy(a).to(cuda_device) for a in _swiglu_inputs(T, d, f))
+        g, u = (torch.full((T, f), float("nan"), device=cuda_device) for _ in range(2))
+        ws = sg.workspace(T, d, f, cuda_device)
+        err = lib.repro_swiglu_tf32x3_products(x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+                                               g.data_ptr(), u.data_ptr(), ws.data_ptr(), T, d,
+                                               f, kernel_build.stream_of(x))
+        assert err == 0, f"launch failed: cudaError {err}"
+        for got, w, name in ((g, wg, "g"), (u, wu, "u")):
+            torch.testing.assert_close(got.double(), x.double() @ w.double(), rtol=2e-5,
+                                       atol=2e-5, msg=f"{name} T={T} d={d} f={f}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_swiglu_tf32x3_slice_matches_float64(cuda_device):
+    """phi3's FFN slice (T 256, d 3072, f 8192) in fp32 on the tf32x3 route:
+    out, dg and du against a float64 oracle at 2e-5, the gradients at 1e-4
+    against float64 autograd; two backward calls give the same bits."""
+    T, d, f = SWIGLU_SLICE
+    x, wg, wu = (torch.from_numpy(a).to(cuda_device) for a in _swiglu_inputs(T, d, f))
+    dout = torch.randn((T, f), generator=torch.Generator(cuda_device).manual_seed(2),
+                       device=cuda_device)
+    ops.reset_launch_counts()
+    out, grads = _grads(ops.swiglu, (x, wg, wu), dout)
+    counts = ops.launch_counts()
+    assert (counts["swiglu_tf32x3"], counts["swiglu_bwd_tf32x3"]) == (1, 1), counts
+    x64, wg64, wu64, dout64 = (t.double() for t in (x, wg, wu, dout))
+    ref, ref_grads = _grads(lambda a, b, c: torch.nn.functional.silu(a @ b) * (a @ c),
+                            (x64, wg64, wu64), dout64)
+    torch.testing.assert_close(out.double(), ref, rtol=2e-5, atol=2e-5, msg="out")
+    for g, r, name in zip(grads, ref_grads, ("dx", "dw_gate", "dw_up")):
+        torch.testing.assert_close(g.double(), r, rtol=1e-4, atol=1e-4, msg=name)
+    g64, u64 = x64 @ wg64, x64 @ wu64
+    sig = torch.sigmoid(g64)
+    first = sg.swiglu_bwd(x, wg, wu, dout)
+    for got, want, name in zip(first, (dout64 * u64 * sig * (1 + g64 * (1 - sig)),
+                                       dout64 * g64 * sig), ("dg", "du")):
+        torch.testing.assert_close(got.double(), want, rtol=2e-5, atol=2e-5, msg=name)
+    second = sg.swiglu_bwd(x, wg, wu, dout)
+    assert all(torch.equal(a, b) for a, b in zip(first, second)), "two backward calls differ"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_swiglu_kernel_matches_plain(cuda_device, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
-    cases = SWIGLU_SHAPES + SWIGLU_EDGES + [(37, 200, 300)]
+    cases = SWIGLU_SHAPES + SWIGLU_EDGES + SWIGLU_ODD
     if dtype == torch.bfloat16:
         cases.append(SWIGLU_SLICE)
     for T, d, f in cases:
@@ -762,7 +1012,7 @@ def test_cuda_swiglu_kernel_matches_plain(cuda_device, dtype):
                            device=cuda_device).to(dtype)
         ops.reset_launch_counts()
         out, grads = _grads(ops.swiglu, (x, wg, wu), dout)
-        way = "wgmma" if dtype == torch.bfloat16 and (d % 8, f % 8) == (0, 0) else "simt"
+        way = _swiglu_way(dtype, d, f)
         counts = ops.launch_counts()
         assert (counts[f"swiglu_{way}"], counts[f"swiglu_bwd_{way}"]) == (1, 1), counts
         assert (counts["swiglu"], counts["swiglu_bwd"]) == (1, 1), counts
@@ -777,3 +1027,19 @@ def test_cuda_swiglu_kernel_matches_plain(cuda_device, dtype):
         torch.testing.assert_close(dg.float(), pdg.float(), rtol=tol, atol=tol, msg=f"dg {what}")
         torch.testing.assert_close(du.float(), pdu.float(), rtol=tol, atol=tol, msg=f"du {what}")
     torch.cuda.synchronize()
+
+
+if __name__ == "__main__":
+    # the refresh interval of the swiglu tf32x3 kernel's accumulators: max
+    # |error| of the emulated g = x w_gate against a float64 product, at the
+    # arithmetic test's inputs, by k of a fresh accumulator
+    #     PYTHONPATH=src python tests/test_torch_kernels.py
+    x, wg, _ = _swiglu_inputs(64, 3072, 256, seed=17)
+    exact = x.astype(np.float64) @ wg.astype(np.float64)
+    print("fp32 product", float(np.abs(x @ wg - exact).max()))
+    print("3xTF32, round-to-nearest accumulation",
+          float(np.abs(_tf32_matmul(x, wg, 3) - exact).max()))
+    for k_refresh in (32, 64, 128, 256, 512, 3072):
+        err = np.abs(_tf32x3_truncating(x, wg, k_refresh) - exact)
+        print(f"3xTF32, truncating, fresh every {k_refresh}", float(err.max()),
+              float(err.mean()))
