@@ -17,7 +17,7 @@ and a non-zero exit:
    each CUDA kernel against its plain PyTorch version: decode attention on
    the sweep of ``tests/test_kernels.py::test_decode_attention``, phi3-mini-
    3.8b's decode shape and the split-K pass's chunk edges, two calls held
-   bit-equal; flash
+   bit-equal and each sequence alone held bit-equal to its batch; flash
    attention (forward, and the backward's dq/dk/dv) on every case of
    ``tests/test_kernels.py:18-58``, ragged S, qwen2.5-14b's GQA shape (bf16)
    and the training shape [2,1024,32,96], each case's route asserted
@@ -29,11 +29,13 @@ and a non-zero exit:
    and the training shape T 2048, d 3072, f 8192, each case's route asserted
    through the launch counters (bf16 on wgmma, fp32 on tf32x3) and two
    backward calls held bit-equal; in fp32 at d 3072 (the slice and the
-   training shape) the kernels are held against a float64 oracle and the
-   plain version is reported beside them, with its own distance from the
-   oracle (its fp32 sums down d are the less exact).  Outputs at 2e-5
-   (fp32) and 2e-2 (bf16), gradients at 1e-4 (fp32) and 2e-2 x max|ref|
-   (bf16).  Each
+   training shape) the kernels are held against a float64 oracle, the plain
+   version's bar is reported beside it with the plain version's own
+   distance from the oracle (its fp32 sums down d are the less exact), and
+   at T 2048 each output and gradient must be no further from float64 than
+   the plain path's, by max |err| and by elements past the bar.  Outputs at
+   2e-5 (fp32) and 2e-2 (bf16), gradients at 1e-4 (fp32) and 2e-2 x
+   max|ref| (bf16).  Each
    kernel's median time at its main-path shape (CUDA events, L2 flushed, a
    sleep kernel covering the host's enqueue) beside its bound, the plain
    version and a PyTorch yardstick (``scaled_dot_product_attention``,
@@ -161,8 +163,9 @@ FLASH_HD256 = (2, 1024, 8, 4, 256, True, 0)
 # edges (T 1 and 100, a ragged last k-tile at d 200, a ragged column tile at
 # f 520) and odd shapes that take the simt route (37 x 200 x 300 in bf16, 37
 # x 198 x 302 in both); a slice of phi3's FFN (in fp32, as at the training
-# shape, against a float64 oracle: at d 3072 the fp32 plain version's sums
-# are less exact than the kernel's, and the two differ by more than 2e-5)
+# shape, against a float64 oracle and beside the plain version: at d 3072
+# the fp32 plain version's sums are less exact than the kernel's, and the two
+# differ by more than 2e-5; see _swiglu_fp32_vs_float64)
 SWIGLU_CASES = [(256, 256, 512), (512, 512, 2048), (128, 384, 1536), (100, 256, 512),
                 (1, 256, 512), (128, 200, 512), (128, 256, 520), (37, 200, 300),
                 (37, 198, 302)]
@@ -310,6 +313,8 @@ def phase_build() -> None:
                       "max_registers": max(regs, default=None),
                       "spill_bytes": spills, "max_spill_bytes": max(spills, default=None)}
     libs["swiglu"]["per_kernel"] = _kernel_reports(info["swiglu"]["compiler_log"])
+    libs["decode_attention"]["per_kernel"] = _kernel_reports(
+        info["decode_attention"]["compiler_log"])
     lib = sg_kernel.build()
     libs["swiglu"]["wgmma_dynamic_smem_bytes"] = lib.repro_swiglu_wgmma_smem_bytes()
     libs["swiglu"]["tf32x3_dynamic_smem_bytes"] = lib.repro_swiglu_tf32x3_smem_bytes()
@@ -358,8 +363,7 @@ def _decode_parity(gen, flush) -> tuple:
             C, hd = 1024, 128
             q, k, v = rand(2, 2 * G, hd, dtype=dtype), rand(2, 2, C, hd, dtype=dtype), \
                 rand(2, 2, C, hd, dtype=dtype)
-            gt = da_kernel.heads_per_block(G, hd, dtype)
-            chunk = da_kernel.split_chunk(C, 2 * 2 * -(-G // gt), da_kernel._sms(0))
+            chunk = da_kernel.split_chunk(C)
             for length in (1, chunk - 1, chunk, chunk + 1, C - 1, C):
                 L = torch.tensor([length], dtype=torch.int32, device="cuda")
                 out = ops.decode_attention(q, k, v, L)
@@ -368,6 +372,11 @@ def _decode_parity(gen, flush) -> tuple:
                 if not torch.equal(out, ops.decode_attention(q, k, v, L)):
                     raise AssertionError(f"decode G={G} length={length}: two calls differ")
                 n_cases += 1
+            # each sequence alone gives the bits it gets in the batch
+            for b in range(2):
+                alone = ops.decode_attention(*(t[b:b + 1].contiguous() for t in (q, k, v)), L)
+                if not torch.equal(alone[0], out[b]):
+                    raise AssertionError(f"decode G={G} {dtype}: sequence {b} alone differs")
 
     B, H, hd, C = (PHI3_DECODE[k] for k in ("B", "H", "hd", "C"))
     phi3_err = {}
@@ -412,8 +421,8 @@ def _decode_parity(gen, flush) -> tuple:
            "tflop_per_s": flops / ms / 1e9, "max_abs_err": phi3_err["bfloat16@1024"],
            "hbm_gb_per_s": nbytes / (ms * 1e-3) / 1e9, "roofline_share": bound_ms / ms,
            "simt_ms": simt_ms}
-    gt = da_kernel.heads_per_block(1, hd, torch.bfloat16)
-    chunk = da_kernel.split_chunk(C, B * H, da_kernel._sms(0))
+    gt = lib.repro_decode_attention_heads(hd, 1, 1)
+    chunk = da_kernel.split_chunk(C)
     emit({"decode_attention_kernels_per_call": len(by_kernel),
           "device_ms_by_kernel": by_kernel, "chunk": chunk, "splits": -(-C // chunk),
           "heads_per_block": gt, "split_blocks": B * H * -(-C // chunk)})
@@ -766,16 +775,18 @@ def _past_bar(a, b, tol) -> dict:
 
 
 def _swiglu_fp32_vs_float64(gen, shape) -> dict:
-    """One fp32 case at d 3072 on the tf32x3 route: the kernels' outputs
-    (out, dg and du) held against a float64 oracle at 2e-5, and reported
-    against the fp32 plain version with its own distance from the oracle:
-    at d 3072 the plain version's sums (cuBLAS, one fp32 accumulator down k)
-    are further from the exact ones than the kernels', and the two differ by
-    more than 2e-5 on a few elements.  The gradients (the chain rule's fp32
-    products of dg and du) held against float64 at 1e-4 where T is the
-    slice's 256 rows; at T 2048, where dW sums 2048 rows in fp32 and the
-    plain path itself misses that bar on tens of thousands of elements, they
-    are reported against both.  Two backward calls give the same bits."""
+    """One fp32 case at d 3072 on the tf32x3 route.  The kernels' outputs
+    (out, dg and du) are held against a float64 oracle at 2e-5; at T 256
+    the gradients (the chain rule's fp32 products of dg and du) are too, at
+    1e-4.  The 2e-5 / 1e-4 bars against the fp32 plain version are kept and
+    reported with the elements past them: at d 3072 the plain version's
+    sums (cuBLAS, one fp32 accumulator down k) are further from the exact
+    ones than the kernels' (a fresh accumulator every 32 of k), and the two
+    differ by more than the bar on a few elements.  At T 2048, where dW sums
+    2048 rows in fp32 and the plain path misses 1e-4 against float64 itself,
+    every one of out, dg, du, dx, dW_gate and dW_up must be no further from
+    float64 than the plain path's, by max |err| and by the elements past
+    the bar.  Two backward calls give the same bits."""
     T, d, f = shape
     x = torch.randn(T, d, generator=gen, device="cuda")
     wg, wu = (0.05 * torch.randn(d, f, generator=gen, device="cuda") for _ in range(2))
@@ -815,6 +826,15 @@ def _swiglu_fp32_vs_float64(gen, shape) -> dict:
     rec["fp32_plain_vs_float64"] = {name: _past_bar(plain[name], exact[name], 2e-5)
                                     for name in got} | {
         name: _past_bar(p, r, 1e-4) for name, p, r in zip(names, plain_grads, ref_grads)}
+    rec["plain_bar_held"] = not any(r["past_bar"] for r in rec["vs_fp32_plain"].values())
+    if shape != SWIGLU_SLICE:
+        kernel = {name: _past_bar(got[name], exact[name], 2e-5) for name in got} | \
+            rec["grads_vs_float64"]
+        for name, k in kernel.items():
+            p = rec["fp32_plain_vs_float64"][name]
+            if k["max_abs_err"] > p["max_abs_err"] or k["past_bar"] > p["past_bar"]:
+                raise AssertionError(f"{what} {name}: further from float64 than the fp32 plain "
+                                     f"path, {k} against {p}")
     return rec
 
 

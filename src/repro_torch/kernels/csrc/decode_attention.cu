@@ -14,11 +14,13 @@
 // So the design is split-K (flash-decoding), two launches a call:
 //   * split pass: one block of 4 warps per (chunk of the cache, chunk of up
 //     to GT query heads of the group, batch x kv head).  The chunk length is
-//     chosen on the host from C and the grid (decode_attention.py's
-//     split_chunk, never from `length`), so that the serving shape launches
-//     at least 4 blocks an SM.  A block writes its chunk's partial softmax
-//     (m, l, acc[hd]) in fp32 to a workspace; a chunk at or past `length`
-//     writes the empty partial (m = -1e30, l = 0, acc = 0);
+//     chosen on the host from C alone (decode_attention.py's split_chunk,
+//     never from `length`, the batch or the card), so a sequence's partials
+//     and their order, and so its output bits, do not depend on the rest of
+//     the batch; at the serving shape it gives 8 blocks an SM.  A block
+//     writes its chunk's partial softmax (m, l, acc[hd]) in fp32 to a
+//     workspace; a chunk at or past `length` writes the empty partial
+//     (m = -1e30, l = 0, acc = 0);
 //   * loads: a group of LPK lanes (8, or 4 for bf16 at hd 96) owns a key,
 //     each lane loading 16-byte vectors of its K and V rows (the group's
 //     lanes read contiguous 16-byte pieces), so a dot product reduces over
@@ -27,7 +29,7 @@
 //     width allows), and the next step's rows are loaded into registers
 //     while this step's are used.  The loads skip L1 and ask L2 for
 //     256-byte blocks (ld.global.nc.L1::no_allocate.L2::256B: 18% off the
-//     split pass in a same-call A/B, tools/decode_ab.py);
+//     split pass in a same-call A/B, tools/kernel_ab.py);
 //   * the softmax runs in the log2 domain: q is scaled by hd^-0.5 * log2(e)
 //     as it is loaded, and every exponent is one ex2.approx.ftz;
 //   * a block's key groups are combined by a fixed shfl_xor butterfly, its
@@ -268,6 +270,16 @@ struct Rows {
   static __device__ __forceinline__ int col(int sub, int e) {
     return (sub + LPK * (e / VEC)) * VEC + e % VEC;
   }
+  // a lane's accumulators (GT x EPL floats): 64, but 32 for fp32 at hd 256,
+  // where 2 query heads a block spilled 132 bytes
+  static constexpr int kAccs = sizeof(T) == 4 && HD == 256 ? 32 : 64;
+  // query heads a block takes: the group rounded up to a power of two, as
+  // far as kAccs allows
+  static int heads(int G) {
+    int gt = 1;
+    while (gt < G && gt < 8 && 2 * gt * EPL <= kAccs) gt *= 2;
+    return gt;
+  }
 };
 
 // 16 bytes of the cache, read once: no L1 line, and L2 asked to fetch the
@@ -309,7 +321,7 @@ decode_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   using R = Rows<T, HD>;
   constexpr int VEC = R::VEC, LPK = R::LPK, NV = R::NV, EPL = R::EPL, U = R::U;
   constexpr int NG = kThreads / LPK;  // key groups a block
-  static_assert(GT * EPL <= 64, "a lane's accumulators");
+  static_assert(GT * EPL <= R::kAccs, "a lane's accumulators");
 
   const int split = blockIdx.x, splits = gridDim.x, g0 = blockIdx.y * GT, bh = blockIdx.z;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -487,7 +499,7 @@ __global__ void decode_attention_merge_kernel(const float* __restrict__ part_ml,
 template <typename T, int HD, int GT>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* length, void* out,
                    float* ws, int BH, int G, int C, int chunk, float scale, cudaStream_t stream) {
-  if constexpr (GT * Rows<T, HD>::EPL > 64) {
+  if constexpr (GT * Rows<T, HD>::EPL > Rows<T, HD>::kAccs) {
     return cudaErrorInvalidValue;
   } else {
     const int splits = (C + chunk - 1) / chunk;
@@ -506,10 +518,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* lengt
 }
 
 template <typename T, int HD>
-cudaError_t launch_hd(int gt, const void* q, const void* k, const void* v, const int* length,
+cudaError_t launch_hd(const void* q, const void* k, const void* v, const int* length,
                       void* out, float* ws, int BH, int G, int C, int chunk, float scale,
                       cudaStream_t stream) {
-  switch (gt) {
+  switch (Rows<T, HD>::heads(G)) {
     case 1: return launch<T, HD, 1>(q, k, v, length, out, ws, BH, G, C, chunk, scale, stream);
     case 2: return launch<T, HD, 2>(q, k, v, length, out, ws, BH, G, C, chunk, scale, stream);
     case 4: return launch<T, HD, 4>(q, k, v, length, out, ws, BH, G, C, chunk, scale, stream);
@@ -519,17 +531,28 @@ cudaError_t launch_hd(int gt, const void* q, const void* k, const void* v, const
 }
 
 template <typename T>
-cudaError_t launch_t(int hd, int gt, const void* q, const void* k, const void* v,
-                     const int* length, void* out, float* ws, int BH, int G, int C, int chunk,
-                     float scale, cudaStream_t stream) {
+cudaError_t launch_t(int hd, const void* q, const void* k, const void* v, const int* length,
+                     void* out, float* ws, int BH, int G, int C, int chunk, float scale,
+                     cudaStream_t stream) {
   switch (hd) {
-    case 64: return launch_hd<T, 64>(gt, q, k, v, length, out, ws, BH, G, C, chunk, scale, stream);
-    case 96: return launch_hd<T, 96>(gt, q, k, v, length, out, ws, BH, G, C, chunk, scale, stream);
+    case 64: return launch_hd<T, 64>(q, k, v, length, out, ws, BH, G, C, chunk, scale, stream);
+    case 96: return launch_hd<T, 96>(q, k, v, length, out, ws, BH, G, C, chunk, scale, stream);
     case 128:
-      return launch_hd<T, 128>(gt, q, k, v, length, out, ws, BH, G, C, chunk, scale, stream);
+      return launch_hd<T, 128>(q, k, v, length, out, ws, BH, G, C, chunk, scale, stream);
     case 256:
-      return launch_hd<T, 256>(gt, q, k, v, length, out, ws, BH, G, C, chunk, scale, stream);
+      return launch_hd<T, 256>(q, k, v, length, out, ws, BH, G, C, chunk, scale, stream);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int heads_t(int hd, int G) {
+  switch (hd) {
+    case 64: return Rows<T, 64>::heads(G);
+    case 96: return Rows<T, 96>::heads(G);
+    case 128: return Rows<T, 128>::heads(G);
+    case 256: return Rows<T, 256>::heads(G);
+    default: return -1;
   }
 }
 
@@ -538,28 +561,38 @@ cudaError_t launch_t(int hd, int gt, const void* q, const void* k, const void* v
 }  // namespace
 
 // q [B, Hkv*G, hd], k/v [B, Hkv, C, hd] contiguous, 16-byte aligned; length:
-// one int32 on the device; dtype 0 = float32, 1 = bfloat16; gt query heads a
-// block and chunk cache slots a block (decode_attention.py chooses both);
-// ws: B*Hkv*G * ceil(C/chunk) * (2 + hd) floats of workspace.  Two launches.
-// Returns the cudaError_t of the launches.
+// one int32 on the device; dtype 0 = float32, 1 = bfloat16; chunk cache
+// slots a split-pass block (decode_attention.py chooses it from C); ws:
+// B*Hkv*G * ceil(C/chunk) * (2 + hd) floats of workspace.  The query heads a
+// block takes are repro_decode_attention_heads'.  Two launches.  Returns the
+// cudaError_t of the launches.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
                                       const void* length, void* out, void* ws, int B, int Hkv,
-                                      int G, int C, int hd, int dtype, int gt, int chunk,
-                                      float scale, void* stream) {
+                                      int G, int C, int hd, int dtype, int chunk, float scale,
+                                      void* stream) {
   const int* len = static_cast<const int*>(length);
   float* w = static_cast<float*>(ws);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (chunk <= 0 || G <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (dtype == 0) {
-    err = split::launch_t<float>(hd, gt, q, k, v, len, out, w, B * Hkv, G, C, chunk, scale, st);
+    err = split::launch_t<float>(hd, q, k, v, len, out, w, B * Hkv, G, C, chunk, scale, st);
   } else if (dtype == 1) {
-    err = split::launch_t<__nv_bfloat16>(hd, gt, q, k, v, len, out, w, B * Hkv, G, C, chunk,
-                                         scale, st);
+    err = split::launch_t<__nv_bfloat16>(hd, q, k, v, len, out, w, B * Hkv, G, C, chunk, scale,
+                                         st);
   } else {
     err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// Query heads of a group that one split-pass block takes at (hd, dtype, G);
+// -1 for a shape repro_decode_attention refuses.
+extern "C" int repro_decode_attention_heads(int hd, int dtype, int G) {
+  if (G <= 0) return -1;
+  if (dtype == 0) return split::heads_t<float>(hd, G);
+  if (dtype == 1) return split::heads_t<__nv_bfloat16>(hd, G);
+  return -1;
 }
 
 // The CUDA-core kernel the split-K design replaced, on the same arguments

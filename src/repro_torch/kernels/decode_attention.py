@@ -5,24 +5,25 @@ The kernels (``csrc/decode_attention.cu``) replace the Pallas TPU kernel
 compiles them for ``sm_90a`` on first use and binds them with ``ctypes``.
 A call is two launches: a split pass, whose blocks each take a chunk of the
 cache and write a partial softmax to a workspace, and a merge pass.  The
-chunk is chosen here from the cache's capacity and the grid
-(:func:`split_chunk`), never from ``length``, which stays on the device.
+chunk is chosen here from the cache's capacity alone (:func:`split_chunk`):
+never from ``length``, which stays on the device, nor from the batch or the
+card, so a sequence's output bits do not depend on what shares its batch.
+The query heads a block takes are the CUDA source's rule
+(``repro_decode_attention_heads``).
 
 ``LAUNCHES`` counts calls that launched the kernels (one per call, and
 nothing else), so a run can show that its decode path went through them.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.kernels import build as _build
 
 HEAD_DIMS = (64, 96, 128, 256)
-#: blocks an SM the split pass aims for, so that loads in flight hide HBM
-#: latency
-BLOCKS_PER_SM = 4
+#: cache slots a split-pass block takes: at the serving shape (B 4, 32 kv
+#: heads, C 1024) 8 chunks, 1024 blocks, ~8 an SM of an H100
+SPLIT_SLOTS = 128
 
 #: number of calls since the last reset (see ``kernels.ops``)
 LAUNCHES = 0
@@ -32,37 +33,17 @@ def build():
     """Compile (if needed) and load the kernel library; idempotent."""
     P, I, F = _build.P, _build.I, _build.F
     return _build.load("decode_attention", {
-        "repro_decode_attention": [P] * 6 + [I] * 8 + [F, P],
+        "repro_decode_attention": [P] * 6 + [I] * 7 + [F, P],
+        "repro_decode_attention_heads": [I] * 3,
         "repro_decode_attention_simt": [P] * 5 + [I] * 6 + [F, P]})
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def heads_per_block(G: int, hd: int, dtype: torch.dtype) -> int:
-    """Query heads of a group that one split-pass block takes: the group
-    rounded up to a power of two, as far as a lane's 64 accumulators allow
-    (a key's lanes hold hd / 8 elements each, hd / 4 for bf16 at hd 96)."""
-    vectors = hd * dtype.itemsize // 16
-    per_lane = hd // (4 if vectors % 8 else 8)
-    gt = 1
-    while gt < min(G, 8) and 2 * gt * per_lane <= 64:
-        gt *= 2
-    return gt
-
-
-def split_chunk(C: int, blocks: int, sms: int) -> int:
-    """Cache slots a split-pass block takes, from the capacity C and the
-    other grid axes' ``blocks`` alone: the largest multiple of 32 that still
-    gives ``BLOCKS_PER_SM`` blocks on each of ``sms`` SMs (32 where C is too
-    short for that)."""
-    want = -(-BLOCKS_PER_SM * sms // blocks)
-    return max(32, -(-C // want) // 32 * 32)
-
-
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def split_chunk(C: int) -> int:
+    """Cache slots a split-pass block takes, from the capacity C alone."""
+    return min(SPLIT_SLOTS, C)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -100,17 +81,15 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             and v_cache.is_contiguous() and length.is_contiguous()):
         raise ValueError("q, k_cache, v_cache and length must be contiguous")
     lib = build()
-    G = Hq // Hkv
-    gt = heads_per_block(G, hd, q.dtype)
-    chunk = split_chunk(C, B * Hkv * -(-G // gt), _sms(dev.index or 0))
+    chunk = split_chunk(C)
     splits = -(-C // chunk)
     out = torch.empty_like(q)
     ws = torch.empty(B * Hq * splits * (2 + hd), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.repro_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            length.data_ptr(), out.data_ptr(), ws.data_ptr(), B, Hkv, G, C, hd,
-            _DTYPES[q.dtype], gt, chunk, hd ** -0.5, _build.stream_of(q))
+            length.data_ptr(), out.data_ptr(), ws.data_ptr(), B, Hkv, Hq // Hkv, C, hd,
+            _DTYPES[q.dtype], chunk, hd ** -0.5, _build.stream_of(q))
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
     LAUNCHES += 1

@@ -118,22 +118,18 @@ def _decode_split_emulation(q, k, v, length, chunk):
 
 
 def test_decode_split_chunk_depends_on_capacity_and_grid_only():
-    # phi3's serve shape (B 4, 32 kv heads, G 1, hd 96, C 1024) on 132 SMs:
-    # 192-slot chunks, 6 of them, 768 blocks >= 4 an SM
-    blocks = 4 * 32 * -(-1 // da.heads_per_block(1, 96, torch.bfloat16))
-    chunk = da.split_chunk(1024, blocks, 132)
-    assert (chunk, -(-1024 // chunk)) == (192, 6)
-    assert blocks * -(-1024 // chunk) >= da.BLOCKS_PER_SM * 132
-    for C in (64, 512, 1000, 2048, 32768):
-        for blocks in (1, 4, 128, 1024):
-            chunk = da.split_chunk(C, blocks, 132)
-            assert chunk % 32 == 0 and chunk >= 32
-            assert chunk == 32 or blocks * -(-C // chunk) >= da.BLOCKS_PER_SM * 132
-    # query heads a block: the group rounded up to a power of two while a
-    # lane's 64 accumulators hold them
-    assert [da.heads_per_block(G, 96, torch.bfloat16) for G in (1, 2, 4, 5, 8)] == \
-        [1, 2, 2, 2, 2]
-    assert [da.heads_per_block(G, 64, torch.float32) for G in (1, 3, 5, 8)] == [1, 4, 8, 8]
+    # the chunk is a function of the capacity C alone: not of the batch, the
+    # heads or the card, so a sequence's partials (and bits) do not depend on
+    # the rest of its batch.  phi3's serve shape (B 4, 32 kv heads, G 1, C
+    # 1024): 128-slot chunks, 8 of them, 1024 blocks, >= 4 on each of 132 SMs
+    chunk = da.split_chunk(1024)
+    assert (chunk, -(-1024 // chunk)) == (128, 8)
+    assert 4 * 32 * -(-1024 // chunk) >= 4 * 132
+    for C in (16, 64, 512, 1000, 2048, 32768):
+        chunk = da.split_chunk(C)
+        assert 0 < chunk <= C and (chunk == C or chunk % 32 == 0)
+    # a cache of one chunk or less is one split
+    assert [-(-C // da.split_chunk(C)) for C in (1, 16, 128)] == [1, 1, 1]
 
 
 @pytest.mark.parametrize("G", [1, 4, 8])
@@ -144,8 +140,7 @@ def test_decode_split_merge_matches_jax_oracle_and_pallas(need_jax, G, edge):
     chunk edge and one either side of it, and C, with GQA G 1, 4 and 8."""
     B, Hkv, C, hd = 2, 2, 256, 64
     q, k, v = _inputs(B, Hkv * G, Hkv, C, hd, seed=19)
-    gt = da.heads_per_block(G, hd, torch.float32)
-    chunk = da.split_chunk(C, B * Hkv * -(-G // gt), 132)
+    chunk = da.split_chunk(C)
     assert C // chunk >= 2
     length = {"first": 1, "below": chunk - 1, "at": chunk, "above": chunk + 1, "full": C}[edge]
     got = _decode_split_emulation(*(torch.from_numpy(a) for a in (q, k, v)), length, chunk)
@@ -292,8 +287,7 @@ def test_cuda_decode_split_edges_match_plain_and_repeat_bits(cuda_device, dtype,
     for G in (1, 4, 8):
         q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
                    for a in _inputs(B, Hkv * G, Hkv, C, hd))
-        gt = da.heads_per_block(G, hd, dtype)
-        chunk = da.split_chunk(C, B * Hkv * -(-G // gt), da._sms(cuda_device.index or 0))
+        chunk = da.split_chunk(C)
         L = torch.zeros(1, dtype=torch.int32, device=cuda_device)
         for length in (1, chunk - 1, chunk, chunk + 1, 2 * chunk, C - 1, C, C + 5):
             L.fill_(length)
@@ -303,6 +297,35 @@ def test_cuda_decode_split_edges_match_plain_and_repeat_bits(cuda_device, dtype,
                 msg=f"G={G} length={length} chunk={chunk} {dtype}")
             assert torch.equal(out, ops.decode_attention(q, k, v, L)), f"G={G} length={length}"
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_split_is_batch_invariant(cuda_device, dtype):
+    """A sequence decoded alone and in a batch of 4 gives the same bits: the
+    chunk and the heads a block depend on neither the batch nor the card."""
+    B, Hkv, G, C, hd = 4, 2, 4, 1024, 128
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
+               for a in _inputs(B, Hkv * G, Hkv, C, hd))
+    L = torch.tensor([700], dtype=torch.int32, device=cuda_device)
+    batch = ops.decode_attention(q, k, v, L)
+    for b in range(B):
+        alone = ops.decode_attention(q[b:b + 1].contiguous(), k[b:b + 1].contiguous(),
+                                     v[b:b + 1].contiguous(), L)
+        assert torch.equal(alone[0], batch[b]), f"sequence {b} {dtype}"
+
+
+@pytest.mark.cuda
+def test_cuda_decode_heads_per_block_rule(cuda_device):
+    """The query heads a split-pass block takes (the CUDA source's rule): the
+    group rounded up to a power of two while a lane's accumulators hold them,
+    and one head a block for fp32 at hd 256."""
+    heads = da.build().repro_decode_attention_heads
+    assert [heads(96, 1, G) for G in (1, 2, 4, 5, 8)] == [1, 2, 2, 2, 2]
+    assert [heads(64, 0, G) for G in (1, 3, 5, 8)] == [1, 4, 8, 8]
+    assert [heads(256, 0, G) for G in (1, 2, 8)] == [1, 1, 1]
+    assert [heads(256, 1, G) for G in (1, 2, 8)] == [1, 2, 2]
+    assert heads(80, 0, 1) == -1
 
 
 # ------------------------------------------------------------ flash attention
