@@ -10,19 +10,22 @@ and a non-zero exit:
 2. build -- compile the three kernel sources from ``src/`` with nvcc, one
    process each, all at once; every kernel's registers and spills, each
    swiglu and flash-attention kernel's registers, shared memory and spills
-   (the tf32x3 kernels' apart), and the tensor-core blocks' dynamic shared
-   memory.
-3. kernel parity -- first the tf32x3 routes' one-tile probes (flash
-   attention's and swiglu's) against fp32 and float64 matrix products; then
+   (the tf32x3 kernels' apart, and the wgmma route's hd-256 kernels', which
+   must not spill), and the tensor-core blocks' dynamic shared memory.
+3. kernel parity -- first the tensor-core routes' one-tile probes (flash
+   attention's wgmma probe at hd 128 and at hd 256 with 32 and 64 keys, its
+   tf32x3 probe and swiglu's) against fp32 and float64 matrix products; then
    each CUDA kernel against its plain PyTorch version: decode attention on
    the sweep of ``tests/test_kernels.py::test_decode_attention``, phi3-mini-
    3.8b's decode shape and the split-K pass's chunk edges, two calls held
    bit-equal and each sequence alone held bit-equal to its batch; flash
    attention (forward, and the backward's dq/dk/dv) on every case of
-   ``tests/test_kernels.py:18-58``, ragged S, qwen2.5-14b's GQA shape (bf16)
-   and the training shape [2,1024,32,96], each case's route asserted
-   through the launch counters (below hd 256 bf16 on wgmma and fp32 on
-   tf32x3, hd 256 on simt) and two backward calls held bit-equal;
+   ``tests/test_kernels.py:18-58``, ragged S, qwen2.5-14b's GQA shape (bf16),
+   the training shape [2,1024,32,96] and, in bf16, gemma3-4b's hd-256
+   shapes (train_gemma's global and window-1024 layers at S 2048, [2,1024],
+   ragged S 200, MQA, window 48 over S 200, no mask), each case's route
+   asserted through the launch counters (bf16 on wgmma; fp32 on tf32x3, at
+   hd 256 on simt) and two backward calls held bit-equal;
    swiglu (forward, dg/du, and dx/dW_gate/dW_up) on the cases of
    ``:74-84``, the edges of its tensor-core routes (T 1 and 100, d 200, f
    520), odd shapes that take the simt route, a 256-row slice of phi3's FFN
@@ -42,11 +45,11 @@ and a non-zero exit:
    pinned to one backend, the flash backend in bf16; for swiglu the
    compositions ``silu(x@wg) * (x@wu)`` and its backward's ``dg``/``du``);
    flash attention also in fp32 (tf32x3, with the simt kernels on the same
-   inputs) and on the simt route at gemma3-4b's hd-256 shape; swiglu also
-   in fp32 (tf32x3, its split pass apart, with the simt kernels on the same
-   inputs); decode attention beside the CUDA-core kernel the split-K one
-   replaced, on the same inputs, with its kernels per call on a line of its
-   own.
+   inputs) and at hd 256: bf16 on wgmma at train_gemma's two shapes and at
+   [2,1024,8,4,256], the simt kernels on the same inputs, and fp32 on simt
+   beside SDPA's memory-efficient backend; swiglu also in fp32 (tf32x3, its
+   split pass apart, with the simt kernels on the same inputs); decode
+   attention with its kernels per call on a line of its own.
 4. full-width serve -- phi3-mini-3.8b, all 32 layers, bf16, random weights
    from seed 0, a hand-built 4-stage serve plan run through
    ``run_serve_plan(..., use_kernels=True)``: kernel launches counted, tokens
@@ -75,11 +78,20 @@ and a non-zero exit:
    ``tests/test_runtime.py:230-240``, kernels on and off: losses within
    2e-4, params within 2e-3; flash attention on tf32x3 (hd 64, S 16: a
    tile's ragged edge), swiglu on tf32x3.
+9. gemma3-4b training (``train_gemma``) -- full width cut to 12 layers (two
+   periods of five window-1024 layers and one global layer, heads of 256,
+   q/k norms), bf16, seed 0: 2 stages of one period, d 1, 2 micro-batches
+   of 1 x 2048 tokens, AdamW, 2 steps through ``run_plan(...,
+   use_kernels=True)``.  24 + 24 flash attention launches a step, all on
+   the wgmma route at hd 256, swiglu's on wgmma; in step 1 every flash
+   attention and swiglu call held against ``impl="ref"``; finite losses,
+   the first within 2e-2 of the plain path's; peak memory; one profiled
+   step.
 
-The last lines are the kernels' record (nine rows: decode attention, the
-bf16 main path's training kernels on the wgmma route, then the fp32 rows on
-the tf32x3 route), the ``nvidia-smi`` name/power line and
-``{"ok": true, "device": {...}}``.
+The last lines are the kernels' record (eleven rows: decode attention, the
+bf16 main paths' training kernels on the wgmma route, hd 256's from
+train_gemma, then the fp32 rows on the tf32x3 route), the ``nvidia-smi``
+name/power line and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -95,6 +107,9 @@ import time
 from pathlib import Path
 
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+# train_gemma holds ~60 GB; segments that grow keep the allocator's free
+# blocks usable across the phases' differing sizes
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
@@ -156,9 +171,17 @@ FLASH_CASES += [(2, 128, 4, 4, 80, False, 0), (2, 100, 4, 2, 96, True, 0),
                 (1, 200, 4, 4, 64, True, 48)]
 FLASH_BF16_CASES = [(1, 1024, 40, 8, 128, True, 0)]
 FLASH_TRAIN = (2, 1024, 32, 32, 96, True, 0)
-# the simt route's timing shape: gemma3-4b's attention (Hq 8, Hkv 4, hd 256),
-# bf16, at the training shape's batch and length; no path of this run takes it
+# gemma3-4b's attention (Hq 8, Hkv 4, hd 256) at train_gemma's shapes: its
+# global and its window-1024 layers at S 2048
+FLASH_GEMMA = [(1, 2048, 8, 4, 256, True, 0), (1, 2048, 8, 4, 256, True, 1024)]
+# the same heads at train_full's batch and length: the hd-256 timing shape of
+# earlier runs (simt in bf16 until the wgmma route took hd 256)
 FLASH_HD256 = (2, 1024, 8, 4, 256, True, 0)
+# bf16 at hd 256 on the wgmma route: the shapes above, a ragged S, MQA, a
+# window that is no tile's multiple over a ragged S, and no mask
+FLASH_HD256_CASES = FLASH_GEMMA + [FLASH_HD256, (2, 200, 8, 4, 256, True, 0),
+                                   (2, 256, 4, 1, 256, True, 0), (1, 200, 4, 4, 256, True, 48),
+                                   (2, 128, 4, 4, 256, False, 0)]
 # swiglu: the cases of tests/test_kernels.py:74-84, the tensor-core routes'
 # edges (T 1 and 100, a ragged last k-tile at d 200, a ragged column tile at
 # f 520) and odd shapes that take the simt route (37 x 200 x 300 in bf16, 37
@@ -173,6 +196,8 @@ SWIGLU_SLICE = (256, 3072, 8192)
 SWIGLU_TRAIN = (2048, 3072, 8192)
 TRAIN = dict(n_layers=4, seq=1024, micro_batch=2, d=2, mu=2, steps=2, cut=2)
 TRAIN_REDUCED = dict(n_layers=4, seq=16, micro_batch=2, d=2, mu=2, steps=2, cut=2)
+# gemma3-4b: two periods of six layers, a stage each (cuts are period-aligned)
+TRAIN_GEMMA = dict(n_layers=12, seq=2048, micro_batch=1, d=1, mu=2, steps=2, cut=6)
 
 
 def emit(doc: dict) -> None:
@@ -321,16 +346,22 @@ def phase_build() -> None:
     libs["flash_attention"]["per_kernel"] = _kernel_reports(
         info["flash_attention"]["compiler_log"])
     lib = fa_kernel.build()
-    for way in ("wgmma", "tf32x3"):
+    for way, dims in (("wgmma", fa_kernel.HEAD_DIMS), ("tf32x3", fa_kernel.TF32X3_HEAD_DIMS)):
         smem = getattr(lib, f"repro_flash_{way}_smem_bytes")
         libs["flash_attention"][f"{way}_dynamic_smem_bytes"] = {
             f"hd{hd}": dict(zip(("fwd", "dkdv", "dq"), (smem(kernel, hd) for kernel in range(3))))
-            for hd in fa_kernel.WGMMA_HEAD_DIMS}
+            for hd in dims}
     # the tf32x3 kernels' ptxas report on a line of its own
     libs["flash_attention"]["tf32x3_kernels"] = [
         r for r in libs["flash_attention"]["per_kernel"]
         if "tf32x3" in r["entry"] or r["entry"].startswith("flash_delta_kernel")]
+    # and the wgmma route's hd-256 kernels', which must not spill
+    hd256 = [r for r in libs["flash_attention"]["per_kernel"]
+             if re.match(r"flash_(wgmma\w*<256|delta_kernel<__nv_bfloat16,256)", r["entry"])]
+    libs["flash_attention"]["wgmma_hd256_kernels"] = hd256
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "sources": libs})
+    if len(hd256) < 6 or any(r["spill_bytes"] != 0 for r in hd256):
+        raise AssertionError(f"hd-256 wgmma kernels missing or spilling: {hd256}")
 
 
 def _bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -402,13 +433,6 @@ def _decode_parity(gen, flush) -> tuple:
     plain_ms = _time_ms(lambda: ops.decode_attention(q, k, v, L, impl="ref"), flush)
     library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
         q.unsqueeze(2), k, v, attn_mask=mask), flush)
-    # the CUDA-core kernel on the same inputs, through its C entry point
-    # (uncounted): the design the split-K kernels replace
-    lib, simt_out = da_kernel.build(), torch.empty_like(q)
-    simt_args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), L.data_ptr(), simt_out.data_ptr(),
-                 B, H, 1, C, hd, 1, hd ** -0.5, kernel_build.stream_of(q))
-    simt_ms = _time_ms(lambda: lib.repro_decode_attention_simt(*simt_args), flush)
-    _close(simt_out, da_kernel.decode_attention(q, k, v, L), 2e-2, "decode simt vs split-K")
     by_kernel = _device_ms_by_kernel(lambda: da_kernel.decode_attention(q, k, v, L), flush,
                                      calls=20, word="decode_attention")
     esz = q.element_size()
@@ -419,9 +443,8 @@ def _decode_parity(gen, flush) -> tuple:
            "library_call": "scaled_dot_product_attention",
            "bound_ms": bound_ms, "bound_by": bound_by, "kernel_route": "splitk",
            "tflop_per_s": flops / ms / 1e9, "max_abs_err": phi3_err["bfloat16@1024"],
-           "hbm_gb_per_s": nbytes / (ms * 1e-3) / 1e9, "roofline_share": bound_ms / ms,
-           "simt_ms": simt_ms}
-    gt = lib.repro_decode_attention_heads(hd, 1, 1)
+           "hbm_gb_per_s": nbytes / (ms * 1e-3) / 1e9, "roofline_share": bound_ms / ms}
+    gt = da_kernel.build().repro_decode_attention_heads(hd, 1, 1)
     chunk = da_kernel.split_chunk(C)
     emit({"decode_attention_kernels_per_call": len(by_kernel),
           "device_ms_by_kernel": by_kernel, "chunk": chunk, "splits": -(-C // chunk),
@@ -429,8 +452,7 @@ def _decode_parity(gen, flush) -> tuple:
     detail = {"cases": n_cases, "phi3_max_abs_err": phi3_err,
               "timing_shape": {"B": B, "Hq": H, "Hkv": H, "hd": hd, "C": C,
                                "length": length, "dtype": "bfloat16"},
-              "bytes": nbytes, "flops": flops,
-              "simt_hbm_gb_per_s": nbytes / (simt_ms * 1e-3) / 1e9}
+              "bytes": nbytes, "flops": flops}
     return rec, detail
 
 
@@ -466,9 +488,35 @@ def _check_kernel(kernel, plain, inputs, dout, what) -> dict:
 
 def _flash_way(dtype, hd: int) -> str:
     """The route a flash call on fresh (aligned) tensors must take."""
-    if hd == 256:
-        return "simt"
-    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    return "simt" if hd == 256 else "tf32x3"
+
+
+def _flash_wgmma_probe(gen) -> dict:
+    """The wgmma route's one-tile probe (``repro_flash_wgmma_probe``), run
+    before any full case: S = Q K^T against an fp32 product of the same bf16
+    inputs and O = bf16(S) V against the product of the kernel's own S, at
+    hd 128 and at hd 256 with 32 keys (the dQ pass's tiles) and 64 (the
+    forward's and the dK/dV pass's); max |err| by shape."""
+    lib = fa_kernel.build()
+    out = {}
+    for hd, bk in ((128, 128), (256, 32), (256, 64)):
+        q, k, v = (torch.randn(rows, hd, generator=gen, device="cuda").bfloat16()
+                   for rows in (64, bk, bk))
+        s = torch.full((64, bk), float("nan"), device="cuda")
+        o = torch.full((64, hd), float("nan"), device="cuda")
+        err = lib.repro_flash_wgmma_probe(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                          s.data_ptr(), o.data_ptr(), hd, bk,
+                                          kernel_build.stream_of(q))
+        if err != 0:
+            raise RuntimeError(f"wgmma probe launch failed at hd {hd}, bk {bk}: cudaError {err}")
+        torch.cuda.synchronize()
+        what = f"wgmma probe hd={hd} bk={bk}"
+        out[f"hd{hd}_bk{bk}"] = {
+            "S": _close_at(s, q.float() @ k.float().T, 1e-3, 1e-3, f"{what} S"),
+            "PV": _close_at(o, s.bfloat16().float() @ v.float(), 1e-3, 1e-2, f"{what} PV")}
+    return out
 
 
 def _flash_tf32x3_probe(gen) -> dict:
@@ -493,15 +541,21 @@ def _flash_tf32x3_probe(gen) -> dict:
     return out
 
 
-def _flash_parity(gen, flush) -> tuple:
-    n_cases, train_err, routes = 0, {}, {}
+def _flash_parity(gen, gen256, flush) -> tuple:
+    """Flash attention against its plain version on every case, then its
+    timings.  The hd-256 cases and timings added with the wgmma route at hd
+    256 draw from ``gen256``, the rest from ``gen`` in the order they always
+    did, so the later sweeps' inputs do not depend on hd 256's case list."""
+    n_cases, train_err, hd256_err, routes = 0, {}, {}, {}
     for dtype in (torch.float32, torch.bfloat16):
-        extra = FLASH_BF16_CASES if dtype == torch.bfloat16 else []
-        for B, S, Hq, Hkv, hd, causal, window in FLASH_CASES + extra + [FLASH_TRAIN]:
-            q = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
-            k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+        extra = FLASH_BF16_CASES + FLASH_HD256_CASES if dtype == torch.bfloat16 else []
+        for case in FLASH_CASES + extra + [FLASH_TRAIN]:
+            B, S, Hq, Hkv, hd, causal, window = case
+            g = gen256 if dtype == torch.bfloat16 and case in FLASH_HD256_CASES else gen
+            q = torch.randn(B, S, Hq, hd, generator=g, device="cuda").to(dtype)
+            k, v = (torch.randn(B, S, Hkv, hd, generator=g, device="cuda").to(dtype)
                     for _ in range(2))
-            do = torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+            do = torch.randn(B, S, Hq, hd, generator=g, device="cuda").to(dtype)
             what = (f"flash B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} causal={causal} "
                     f"window={window} {dtype}")
             ops.reset_launch_counts()
@@ -526,11 +580,22 @@ def _flash_parity(gen, flush) -> tuple:
             n_cases += 1
             if (B, S, Hq, Hkv, hd, causal, window) == FLASH_TRAIN:
                 train_err[str(dtype)[6:]] = err
+            elif dtype == torch.bfloat16 and hd == 256:
+                hd256_err[(B, S, Hq, Hkv, hd, causal, window)] = err
     torch.cuda.synchronize()
 
     bf16 = _flash_timing(gen, flush, torch.bfloat16)
     fp32 = _flash_timing(gen, flush, torch.float32)
-    hd256 = _flash_timing(gen, flush, torch.bfloat16, FLASH_HD256)
+    # hd 256: gemma3-4b's training shapes in bf16 (the global layers' is the
+    # row of the kernels' record), and the earlier timing shape in bf16 and
+    # in fp32 (simt)
+    hd256 = {(FLASH_HD256, torch.bfloat16): _flash_timing(gen, flush, torch.bfloat16,
+                                                          FLASH_HD256)}
+    hd256 |= {(shape, dtype): _flash_timing(gen256, flush, dtype, shape)
+              for shape, dtype in [(shape, torch.bfloat16) for shape in FLASH_GEMMA]
+              + [(FLASH_HD256, torch.float32)]}
+    g_global = FLASH_GEMMA[0]
+    gemma = hd256[g_global, torch.bfloat16]
     B, S, H, _, hd, _, _ = FLASH_TRAIN
 
     def rec(r, err):
@@ -540,6 +605,8 @@ def _flash_parity(gen, flush) -> tuple:
     fp32_way = _flash_way(torch.float32, hd)
     recs = {"flash_attention": rec(bf16["fwd"], train_err["bfloat16"]["out"]),
             "flash_attention_bwd": rec(bf16["bwd"], train_err["bfloat16"]["grad"]),
+            "flash_attention_hd256": rec(gemma["fwd"], hd256_err[g_global]["out"]),
+            "flash_attention_bwd_hd256": rec(gemma["bwd"], hd256_err[g_global]["grad"]),
             f"flash_attention_{fp32_way}": rec(fp32["fwd"], train_err["float32"]["out"]),
             f"flash_attention_bwd_{fp32_way}": rec(fp32["bwd"], train_err["float32"]["grad"])}
     detail = {"cases": n_cases, "routes": routes, "train_shape_max_abs_err": train_err,
@@ -554,11 +621,12 @@ def _flash_parity(gen, flush) -> tuple:
               "simt_kernels_on_fp32_ms": fp32["simt"],
               "bwd_passes_ms": {"bfloat16": bf16["bwd_passes_ms"],
                                 "float32": fp32["bwd_passes_ms"]},
-              # gemma3-4b's attention on the simt route (0 launches on this
-              # run's paths): its time, bound and SDPA's flash backend
-              "simt_hd256": {"shape": dict(zip(("B", "S", "Hq", "Hkv", "hd"), FLASH_HD256)),
-                             "dtype": "bfloat16",
-                             "fwd": hd256["fwd"], "bwd": hd256["bwd"], "sdpa": hd256["sdpa"]}}
+              # gemma3-4b's attention: bf16 on the wgmma route at the
+              # training shapes and at the earlier [2,1024] shape, with the
+              # simt kernels on the same inputs; fp32 on the simt route
+              "hd256_max_abs_err": {str(k): v for k, v in hd256_err.items()},
+              "hd256": {f"{'x'.join(map(str, shape[:5]))} window={shape[6]} "
+                        f"{str(dtype)[6:]}": r for (shape, dtype), r in hd256.items()}}
     return recs, detail
 
 
@@ -588,35 +656,49 @@ def _sdpa_times(q, k, v, do, flush, backend) -> dict:
             "bwd_ms": bwd, "fwd_bwd_ms": both}
 
 
+def _causal_pairs(S: int, window: int) -> int:
+    """(q, k) pairs of one head that a causal mask allows, with a sliding
+    window of ``window`` keys if it is > 0."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
 def _flash_timing(gen, flush, dtype, shape=FLASH_TRAIN) -> dict:
-    """The forward and backward kernels at ``shape`` (causal; the training
-    shape by default) in ``dtype``, beside their plain versions, SDPA pinned
-    to one backend (flash attention in bf16, memory-efficient attention in
-    fp32, which the flash backend does not take) and the bound; SDPA's
-    default dispatch beside it; on a tensor-core route, the simt kernels on
-    the same inputs too."""
+    """The forward and backward kernels at ``shape`` (causal, with its
+    window; the training shape by default) in ``dtype``, beside their plain
+    versions, SDPA pinned to one backend (flash attention in bf16,
+    memory-efficient attention in fp32, which the flash backend does not
+    take; none with a window, which no SDPA backend computes) and the bound;
+    SDPA's default dispatch beside it; on a tensor-core route, the simt
+    kernels on the same inputs too."""
     from torch.nn.attention import SDPBackend
 
-    B, S, H, Hkv, hd, _, _ = shape
+    B, S, H, Hkv, hd, _, window = shape
     q, do = (torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
     k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
     way = _flash_way(dtype, hd)
     ops.reset_launch_counts()
-    o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=True)
-    fwd_ms = _time_ms(lambda: fa_kernel.flash_attention_fwd(q, k, v, causal=True), flush)
-    bwd_ms = _time_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=True),
+    o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=True, window=window)
+    fwd_ms = _time_ms(lambda: fa_kernel.flash_attention_fwd(q, k, v, causal=True, window=window),
                       flush)
+    bwd_ms = _time_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                                            window=window), flush)
     passes = _device_ms_by_kernel(
-        lambda: fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=True), flush)
+        lambda: fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=window),
+        flush)
     counts = ops.launch_counts()
     if counts[f"flash_attention_{way}"] != counts["flash_attention"] or \
             counts[f"flash_attention_bwd_{way}"] != counts["flash_attention_bwd"]:
         raise AssertionError(f"timed flash {dtype} off the {way} route: {counts}")
     backend = SDPBackend.FLASH_ATTENTION if dtype == torch.bfloat16 \
         else SDPBackend.EFFICIENT_ATTENTION
-    sdpa = _sdpa_times(q, k, v, do, flush, backend)
-    sdpa["deterministic_algorithms"] = torch.are_deterministic_algorithms_enabled()
-    sdpa["default_dispatch"] = _sdpa_times(q, k, v, do, flush, None)
+    if window:
+        sdpa = {"backend": None, "fwd_ms": None, "bwd_ms": None, "fwd_bwd_ms": None}
+    else:
+        sdpa = _sdpa_times(q, k, v, do, flush, backend)
+        sdpa["deterministic_algorithms"] = torch.are_deterministic_algorithms_enabled()
+        sdpa["default_dispatch"] = _sdpa_times(q, k, v, do, flush, None)
     simt = {}
     if way != "simt":
         # the simt kernels on the same inputs, through their C entry points
@@ -625,34 +707,35 @@ def _flash_timing(gen, flush, dtype, shape=FLASH_TRAIN) -> dict:
         so, slse = torch.empty_like(q), torch.empty_like(lse)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         ptrs = [t.data_ptr() for t in (q, k, v)]
-        args = (B, S, H, Hkv, hd, fa_kernel._DTYPES[dtype], 1, 0, hd ** -0.5, stream)
+        args = (B, S, H, Hkv, hd, fa_kernel._DTYPES[dtype], 1, window, hd ** -0.5, stream)
         simt["fwd_ms"] = _time_ms(lambda: lib.repro_flash_attention_fwd(
             *ptrs, so.data_ptr(), slse.data_ptr(), *args), flush, reps=10)
         simt["bwd_ms"] = _time_ms(lambda: lib.repro_flash_attention_bwd(
             *ptrs, o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), *args), flush, reps=10)
         _close(so, o, 2e-5 if dtype == torch.float32 else 2e-2, f"flash simt vs {way}, {dtype}")
-    fwd_plain = _time_ms(lambda: ops.flash_attention(q, k, v, impl="ref"), flush)
+    fwd_plain = _time_ms(lambda: ops.flash_attention(q, k, v, window=window, impl="ref"), flush)
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    ref_out = ops.flash_attention(qg, kg, vg, impl="ref")
+    ref_out = ops.flash_attention(qg, kg, vg, window=window, impl="ref")
     bwd_plain = _time_ms(lambda: torch.autograd.grad(ref_out, (qg, kg, vg), do,
                                                      retain_graph=True), flush)
     slab = B * S * H * hd * q.element_size()     # one of q, o, do, dq
     kv_slab = B * S * Hkv * hd * q.element_size()  # one of k, v, dk, dv
-    pairs = B * H * S * (S + 1) // 2             # causal (q, k) pairs
+    pairs = B * H * _causal_pairs(S, window)
     lse_b = B * H * S * 4
     fwd_b, fwd_f = 2 * slab + 2 * kv_slab + lse_b, 4 * hd * pairs    # QK^T, PV
     bwd_b, bwd_f = 4 * slab + 4 * kv_slab + lse_b, 10 * hd * pairs   # S, dP, dV, dK, dQ
     fwd_bound, fwd_by = _bound(fwd_b, fwd_f, dtype)
     bwd_bound, bwd_by = _bound(bwd_b, bwd_f, dtype)
-    call = f"scaled_dot_product_attention(is_causal=True), {sdpa['backend']} backend"
+    call = f"scaled_dot_product_attention(is_causal=True), {sdpa['backend']} backend" \
+        if sdpa["backend"] else None
     return {
         "fwd": {"ms": fwd_ms, "plain_ms": fwd_plain, "library_ms": sdpa["fwd_ms"],
                 "library_call": call, "bound_ms": fwd_bound, "bound_by": fwd_by,
                 "kernel_route": way, "tflop_per_s": fwd_f / fwd_ms / 1e9,
                 "bytes": fwd_b, "flops": fwd_f},
         "bwd": {"ms": bwd_ms, "plain_ms": bwd_plain, "library_ms": sdpa["bwd_ms"],
-                "library_call": f"autograd of {call}", "bound_ms": bwd_bound,
+                "library_call": call and f"autograd of {call}", "bound_ms": bwd_bound,
                 "bound_by": bwd_by, "kernel_route": way, "tflop_per_s": bwd_f / bwd_ms / 1e9,
                 "bytes": bwd_b, "flops": bwd_f},
         "sdpa": sdpa, "simt": simt, "bwd_passes_ms": passes}
@@ -912,14 +995,17 @@ def _swiglu_parity(gen, flush) -> tuple:
 
 def phase_kernel_parity(smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
+    gen256 = torch.Generator(device="cuda").manual_seed(17)   # hd 256's (_flash_parity)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    wgmma_probe = _flash_wgmma_probe(gen256)
     probe = _flash_tf32x3_probe(gen)
     swiglu_probe = _swiglu_tf32x3_probe(gen)
     decode, decode_detail = _decode_parity(gen, flush)
-    flash, flash_detail = _flash_parity(gen, flush)
+    flash, flash_detail = _flash_parity(gen, gen256, flush)
     swiglu, swiglu_detail = _swiglu_parity(gen, flush)
     recs = {"decode_attention": decode, **flash, **swiglu}
     emit({"phase": "kernel_parity", "card": smi, "kernels": recs,
+          "flash_wgmma_probe_max_abs_err": wgmma_probe,
           "flash_tf32x3_probe_max_abs_err": probe,
           "swiglu_tf32x3_probe_max_abs_err": swiglu_probe,
           "decode_attention": decode_detail, "flash_attention": flash_detail,
@@ -1540,6 +1626,95 @@ def phase_train_reduced(smi: str) -> None:
           "kernel_vs_kernel_plain": vs_own, "kernel_vs_plain": vs_plain})
 
 
+def phase_train_gemma(smi: str) -> dict:
+    """gemma3-4b at full width cut to 12 layers (two periods: ten window-1024
+    layers and two global ones, heads of 256, q/k norms), bf16, seed 0: 2
+    stages of one period, d 1, 2 micro-batches of 1 x 2048 tokens, AdamW, 2
+    steps through ``run_plan(..., use_kernels=True)``.  24 + 24 flash
+    attention launches a step, all on the wgmma route (hd 256), and swiglu's
+    on wgmma; in step 1 every flash attention and swiglu call held against
+    ``impl="ref"`` on its real inputs, outputs and gradients; finite losses,
+    the first within 2e-2 of the plain path's; peak memory; one profiled
+    step."""
+    spec = TRAIN_GEMMA
+    torch.use_deterministic_algorithms(True)
+    cfg = dataclasses.replace(get_config("gemma3-4b"), n_layers=spec["n_layers"])
+    torch.cuda.empty_cache()
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    prof, plat, config, M = train_setup(cfg, spec)
+    d, mu, steps = spec["d"], spec["mu"], spec["steps"]
+    batches = train_batches(cfg, spec, d, steps)
+    per_step = d * mu * cfg.n_layers
+    checker = CallChecker()
+    marks, counts = [], []
+
+    def batch_fn(k):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(ops.launch_counts())
+        if k > 0:
+            checker.remove()
+        else:
+            checker.install()
+        return batches[k]
+
+    execution = Execution(cfg=cfg, optimizer=AdamW(lr=1e-4), init_params=params,
+                          batch_fn=batch_fn, use_kernels=True, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        res = run_plan(prof, plat, config, M, steps=steps, pipelined_sync=True,
+                       execution=execution)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(ops.launch_counts())
+    finally:
+        checker.remove()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts[-1]
+    step_counts = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
+    expect = _expected_launches(per_step, "wgmma", "wgmma")
+    if any(c != expect for c in step_counts):
+        raise AssertionError(f"launches per step {step_counts}, expected {expect}")
+    if checker.failures:
+        raise AssertionError(f"kernel calls disagree with impl='ref': {checker.failures[:5]}")
+    want_calls = {"flash_attention": per_step, "swiglu": per_step}
+    want_grads = {"flash_attention": 3 * per_step, "swiglu": 3 * per_step}
+    if checker.calls != want_calls or checker.grads != want_grads:
+        raise AssertionError(f"checked {checker.calls} calls and {checker.grads} gradients, "
+                             f"expected {want_calls} and {want_grads}")
+    if not all(np.isfinite(res.losses)):
+        raise AssertionError(f"non-finite losses {res.losses}")
+    losses, t_iter = res.losses, res.t_iter
+    del res
+    plain = run_plan(prof, plat, config, M, steps=steps, pipelined_sync=True,
+                     execution=dataclasses.replace(execution, batch_fn=lambda k: batches[k],
+                                                   use_kernels=False))
+    losses_plain = plain.losses
+    del plain
+    if abs(losses[0] - losses_plain[0]) > 2e-2:
+        raise AssertionError(f"first loss {losses[0]} on the kernel path, "
+                             f"{losses_plain[0]} on the plain path")
+    profile = profile_train_step(cfg, prof, plat, config, M, params, batches, AdamW(lr=1e-4))
+    emit({"phase": "train_gemma", "card": smi, "model": "gemma3-4b", "dtype": cfg.param_dtype,
+          "n_layers": cfg.n_layers, "windows": [s.window for s in cfg.period],
+          "params": n_params, "stages": 2, "d": d, "mu": mu,
+          "micro_batch": spec["micro_batch"], "seq": spec["seq"], "steps": steps,
+          "optimizer": "AdamW(lr=1e-4)", "losses": losses, "losses_plain_path": losses_plain,
+          "t_iter_virtual_s": t_iter, "launches_per_step": step_counts,
+          "kernel_launches": launches, "checked_calls": checker.calls,
+          "checked_gradients": checker.grads, "call_max_abs_err": checker.out_err,
+          "grad_max_abs_err": checker.grad_err,
+          "step_wall_s": [b - a for a, b in zip(marks, marks[1:])],
+          "max_memory_allocated_bytes": peak, "train_profile": profile})
+    del params, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -1555,13 +1730,17 @@ def main() -> None:
                      f"{name}_{way}": fp32[f"{name}_{way}"],
                      f"{name}_bwd_{way}": fp32[f"{name}_bwd_{way}"]}
     phase_train_reduced(smi)
+    # gemma3-4b's path: every flash launch at hd 256 on the wgmma route
+    gemma = phase_train_gemma(smi)
+    launches |= {"flash_attention_hd256": gemma["flash_attention_wgmma"],
+                 "flash_attention_bwd_hd256": gemma["flash_attention_bwd_wgmma"]}
     source = "src/repro_torch/kernels/csrc/{}.cu"
     tpu = {"decode_attention": "src/repro/kernels/decode_attention.py:68",
            "flash_attention": "src/repro/kernels/flash_attention.py:83",
            "swiglu": "src/repro/kernels/swiglu.py:57"}
     kernels = []
     for name, rec in recs.items():
-        base = name.removesuffix("_simt").removesuffix("_tf32x3").removesuffix("_bwd")
+        base = next(b for b in tpu if name.startswith(b))
         kernels.append({"name": name, "route": "cuda", "source": source.format(base),
                         "replaces": tpu[base], "launches": launches[name], **rec})
     emit({"kernels": kernels})

@@ -10,6 +10,7 @@ from repro_torch.configs.base import ArchConfig, LayerSpec, validate  # noqa: F4
 _ARCH_MODULES = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "qwen2.5-14b": "qwen2_5_14b",
+    "gemma3-4b": "gemma3_4b",
 }
 
 ARCH_IDS = list(_ARCH_MODULES)

@@ -62,6 +62,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     # dtype of params/activations on the target hardware
     param_dtype: str = "bfloat16"
+    qk_norm: bool = False             # RMS norm of q and k over the head dim (gemma3)
 
     @property
     def hd(self) -> int:

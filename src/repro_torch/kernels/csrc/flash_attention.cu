@@ -18,8 +18,8 @@
 // Three designs, chosen per call by flash_attention.py's route() before the
 // launch:
 //
-// "wgmma" -- bf16 at hd 64, 80, 96 or 128 with 16-byte aligned pointers
-// (TMA's rules):
+// "wgmma" -- bf16 at hd 64, 80, 96, 128 or 256 with 16-byte aligned
+// pointers (TMA's rules):
 //   * TMA reads 4-D tensor maps (hd, H, S, B) laid straight on the
 //     [B,S,H,hd] tensors, in boxes of 64 columns x 1 head x R rows,
 //     128B-swizzled; no transposed copies.  TMA fills rows past S and
@@ -58,7 +58,20 @@
 //     of one pass with an atomic dQ, paid for gradients that are the same
 //     bits on every run (train_full compares replicas bit for bit);
 //   * stores are bf16 pairs straight from the accumulators to global
-//     memory, masked at the edges.
+//     memory, masked at the edges;
+//   * hd 256 (gemma3-4b): a row is four boxes, and an accumulator over the
+//     head dim (O, dQ, dK, dV) is 128 fp32 registers a thread, held as two
+//     128-column chunks, one wgmma of N = 128 each.  Tiles shrink so that
+//     two stages fit 227 KB (fwd_bk, kv_bk, dq_bk): the forward streams
+//     64-key K and V tiles (192 KB), the dQ pass 32-key tiles (192 KB), and
+//     consumers take setmaxnreg 240 (the producer 24).  dK and dV of 64 keys
+//     (256 registers a thread) do not fit one warpgroup, so the dK/dV pass
+//     gives both warpgroups the block's 64 keys: warpgroup 0 computes S^T,
+//     P^T and dV, warpgroup 1 dP^T, dS^T and dK, P^T passing between them
+//     through shared memory (flash_wgmma_dkdv_split_kernel): the same four
+//     products a pair, no atomics.  At gemma3-4b's shapes the grid is one
+//     wave (128 blocks), so a causal mask leaves the longest block twice the
+//     mean block's work.
 // "tf32x3" -- fp32 at hd 64, 80, 96 or 128 with 16-byte aligned pointers
 // (replaces the simt kernels below for these shapes; the Pallas kernel's
 // fp32 path is the same function):
@@ -109,10 +122,10 @@
 //     cp.async) and add their two partial sums once at the end.  At hd 128
 //     dK and dV together do not fit the registers: the dK/dV pass runs as
 //     two launches, dV and then dK.
-// "simt" -- hd 256 (its 128-column accumulators fit neither tensor-core
-// design's registers) and tensors the other routes cannot load (misaligned
-// pointers): fp32 FMAs on the CUDA cores, the operands in shared memory
-// and the output tile in registers:
+// "simt" -- fp32 at hd 256 (its 128-column accumulators fit neither the
+// tf32x3 design's registers nor its planes' shared memory) and tensors the
+// other routes cannot load (misaligned pointers): fp32 FMAs on the CUDA
+// cores, the operands in shared memory and the output tile in registers:
 //   * TPU: the k-block grid axis is sequential with (m, l, acc) in VMEM.
 //     Here one thread block owns a (batch, q head, q tile) and loops over
 //     the k tiles itself, from the window's first tile to the causal
@@ -663,13 +676,51 @@ constexpr int kConsumers = 2;  // warpgroups of 64 rows each; warpgroup 2 loads
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kStages = 2;     // ring depth of the streamed tiles
 constexpr int kFwdBQ = 128;    // forward: q rows per block
-constexpr int kFwdBK = 128;    // forward: keys per k tile
-constexpr int kKvBK = 128;     // dK/dV pass: keys per block
 constexpr int kKvBQ = 64;      // dK/dV pass: q rows per streamed tile
 constexpr int kDqBQ = 128;     // dQ pass: q rows per block
-constexpr int kDqBK = 64;      // dQ pass: keys per streamed tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// Tiles that depend on the head dim.  At hd 256 a row is 512 bytes, so a
+// 128-row tile is 64 KB: the forward streams 64-key K and V tiles (Q 64 KB
+// + 2 stages x 64 KB), the dQ pass 32-key tiles (Q and dO 128 KB + 2 stages
+// x 32 KB), and the dK/dV pass holds 64 keys (K and V 64 KB + 2 stages of
+// 64-row Q and dO tiles, 128 KB, + P^T 16 KB), all within 227 KB.
+__host__ __device__ constexpr int fwd_bk(int hd) { return hd > 128 ? 64 : 128; }
+__host__ __device__ constexpr int kv_bk(int hd) { return hd > 128 ? 64 : 128; }
+__host__ __device__ constexpr int dq_bk(int hd) { return hd > 128 ? 32 : 64; }
+// Registers a thread (setmaxnreg) of the consumer warpgroups and of the
+// producer's: hd 256's accumulators, 128 fp32 registers a thread, take 240,
+// which leaves the producer 24 of the block's 64K.
+__host__ __device__ constexpr int consumer_regs(int hd) { return hd > 128 ? 240 : 232; }
+__host__ __device__ constexpr int producer_regs(int hd) { return hd > 128 ? 24 : 40; }
+// An accumulator over the head dim (O, dQ, and dK or dV at hd 256) as
+// chunks of at most 128 columns, one wgmma of N <= 128 each.
+__host__ __device__ constexpr int acc_chunks(int hd) { return hd > 128 ? 2 : 1; }
+
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// d[64x32] (+)= A[64x16] * B[16x32], both K-major in shared memory (the dQ
+// pass's S and dP at hd 256); d is overwritten when scale_d is 0.
+__device__ __forceinline__ void mma_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
 // d[64x64] (+)= A[64x16] * B[16x64], both K-major in shared memory;
 // d is overwritten when scale_d is 0.
@@ -810,7 +861,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // memory as HDP / 64 TMA boxes of R rows x 64 columns (128 bytes a row,
 // 128B-swizzled), box after box; HDP is hd rounded up to 64 or 128, and the
 // columns past hd are TMA's zeros.
-__host__ __device__ constexpr int n_boxes(int hd) { return hd > 64 ? 2 : 1; }
+__host__ __device__ constexpr int n_boxes(int hd) { return hd > 128 ? 4 : hd > 64 ? 2 : 1; }
 
 template <int HD, int R>
 __host__ __device__ constexpr uint32_t tile_bytes() {
@@ -842,6 +893,59 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
   return desc(tile + kk * 2048, R * 128, 1024);
 }
 
+// acc += A B for k16 step kk of a product reduced over an R-row tile: A from
+// registers (a[4 kk] .. a[4 kk + 3]), B the tile, MN-major, its columns (the
+// head dim) split over the accumulator's NC chunks of 2 AW columns, chunk c
+// reading the boxes from c * 2 AW / 64 on.
+template <int R, int NC, int AW, int NA>
+__device__ __forceinline__ void mma_rs_chunks(float (&acc)[NC][AW], const uint32_t (&a)[NA],
+                                              uint32_t tile, int kk) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    mma_rs(acc[c], a[4 * kk], a[4 * kk + 1], a[4 * kk + 2], a[4 * kk + 3],
+           mnmajor<R>(tile + c * AW * R * 4, kk));
+}
+
+template <int NC, int AW>
+__device__ __forceinline__ void fence_chunks(float (&acc)[NC][AW]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) fence_acc(acc[c]);
+}
+
+// Store a [64 x HD] accumulator (NC chunks, accumulator layout) as bf16
+// pairs into rows row0 and row0 + 8 of a [., row_stride] tensor at `out`,
+// row row0 + 8 hh times mul[hh]; rows from S on and columns from HD on
+// skipped.
+template <int HD, int NC, int AW>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* out, size_t row_stride, int row0,
+                                          int col0, int S, const float (&acc)[NC][AW],
+                                          const float (&mul)[2]) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= S) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int j = 0; j < AW / 4; ++j) {
+        const int col = c * 2 * AW + 8 * j + col0;
+        if (col < HD)
+          *reinterpret_cast<__nv_bfloat162*>(out + row * row_stride + col) =
+              __floats2bfloat162_rn(acc[c][4 * j + 2 * hh] * mul[hh],
+                                    acc[c][4 * j + 2 * hh + 1] * mul[hh]);
+      }
+    }
+  }
+}
+
+// Named barriers between the two consumer warpgroups (0 is __syncthreads).
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumers * 128) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumers * 128) : "memory");
+}
+
 // Whether a tile pair [q0, q0 + bq) x [k0, k0 + bk) holds a disallowed
 // (q, k) pair or a position past S: only such tiles apply masks.
 __device__ __forceinline__ bool needs_mask(int q0, int bq, int k0, int bk, int S, int causal,
@@ -863,7 +967,8 @@ flash_wgmma_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_v,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int S, int Hq,
                        int Hkv, int causal, int window, float scale_log2) {
-  constexpr int BQ = kFwdBQ, BK = kFwdBK, HDP = 64 * n_boxes(HD);
+  constexpr int BQ = kFwdBQ, BK = fwd_bk(HD), HDP = 64 * n_boxes(HD);
+  constexpr int NC = acc_chunks(HD), AW = HDP / NC / 2;
   constexpr uint32_t kQ = tile_bytes<HD, BQ>(), kKV = tile_bytes<HD, BK>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -903,7 +1008,7 @@ flash_wgmma_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (wg == kConsumers) {
     // ---- producer: one thread loads Q once, then K and V tiles into the ring
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    regs_dec<producer_regs(HD)>();
     if (threadIdx.x == kConsumers * 128) {
       mbar_expect_tx(q_full, kQ);
       load_tile<HD, BQ>(q_tile, &map_q, q_full, h, q0, b);
@@ -921,15 +1026,18 @@ flash_wgmma_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ---- consumers: q rows q0 + 64 wg .. q0 + 64 wg + 63
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    regs_inc<consumer_regs(HD)>();
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // rows row0 and row0 + 8
     const int col0 = 2 * (lane % 4);
     float m[2] = {-1e30f, -1e30f};  // finite: a fully masked row leaves m, l and acc as they are
     float l[2] = {0.f, 0.f};
-    float acc[HDP / 2];
+    float acc[NC][AW];
 #pragma unroll
-    for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int i = 0; i < AW; ++i) acc[c][i] = 0.f;
+    }
 
     mbar_wait(q_full, 0);
     for (int it = 0; it < n; ++it) {
@@ -973,7 +1081,10 @@ flash_wgmma_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         l[hh] *= corr[hh];
       }
 #pragma unroll
-      for (int i = 0; i < HDP / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+      for (int c = 0; c < NC; ++c) {
+#pragma unroll
+        for (int i = 0; i < AW; ++i) acc[c][i] *= corr[(i / 2) % 2];
+      }
       uint32_t p[BK / 4];  // P in bf16: the A fragment of P V
 #pragma unroll
       for (int j = 0; j < BK / 4; ++j) {
@@ -987,36 +1098,28 @@ flash_wgmma_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_wait(v_full(s), ph);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        mma_rs(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-               mnmajor<BK>(v_tile(s), kk));
+      for (int kk = 0; kk < BK / 16; ++kk) mma_rs_chunks<BK>(acc, p, v_tile(s), kk);
       wgmma_commit_wait();
-      fence_acc(acc);
+      fence_chunks(acc);
       fence_regs(p);
       if (threadIdx.x % 128 == 0) mbar_arrive(v_empty(s));
     }
 
     // epilogue: o = acc / l in bf16 pairs, lse = m + log(l) in fp32
     const size_t row_stride = static_cast<size_t>(Hq) * HD;
-    __nv_bfloat16* ob = o + static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * HD;
+    float inv[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
       l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
       l[hh] = fmaxf(l[hh], 1e-30f);
+      inv[hh] = 1.f / l[hh];
       const int row = row0 + 8 * hh;
-      if (row >= S) continue;
-      const float inv = 1.f / l[hh];
-#pragma unroll
-      for (int j = 0; j < HDP / 8; ++j) {
-        const int col = 8 * j + col0;
-        if (col < HD)
-          *reinterpret_cast<__nv_bfloat162*>(ob + row * row_stride + col) =
-              __floats2bfloat162_rn(acc[4 * j + 2 * hh] * inv, acc[4 * j + 2 * hh + 1] * inv);
-      }
-      if (lane % 4 == 0)
+      if (row < S && lane % 4 == 0)
         lse[(static_cast<size_t>(b) * Hq + h) * S + row] = (m[hh] + log2f(l[hh])) * kLn2;
     }
+    store_acc<HD>(o + static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * HD,
+                  row_stride, row0, col0, S, acc, inv);
   }
 }
 
@@ -1033,7 +1136,8 @@ flash_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int S,
                         int Hq, int Hkv, int causal, int window, float scale, float scale_log2) {
-  constexpr int BK = kKvBK, BQ = kKvBQ, HDP = 64 * n_boxes(HD);
+  static_assert(HD <= 128, "hd 256 takes flash_wgmma_dkdv_split_kernel");
+  constexpr int BK = kv_bk(HD), BQ = kKvBQ, HDP = 64 * n_boxes(HD);
   constexpr uint32_t kK = tile_bytes<HD, BK>(), kQ = tile_bytes<HD, BQ>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -1078,7 +1182,7 @@ flash_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (wg == kConsumers) {
     // ---- producer: warp 0 of the warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    regs_dec<producer_regs(HD)>();
     if (threadIdx.x / 32 == kConsumers * 4) {
       const int lane = threadIdx.x % 32;
       if (lane == 0) {
@@ -1108,7 +1212,7 @@ flash_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
     }
   } else {
     // ---- consumers: keys k0 + 64 wg .. k0 + 64 wg + 63
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    regs_inc<consumer_regs(HD)>();
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int key0 = k0 + wg * 64 + warp * 16 + lane / 4;  // keys key0 and key0 + 8
     const int col0 = 2 * (lane % 4);
@@ -1196,6 +1300,195 @@ flash_wgmma_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// ------------------------------------------------ backward: dK, dV at hd 256
+// dK and dV of 64 keys are 2 x 128 fp32 registers a thread: one warpgroup
+// cannot hold both.  One block per (batch, kv head, 64 keys), and both
+// consumer warpgroups take the same keys: warpgroup 0 computes S^T = K Q^T,
+// P^T = exp(S^T scale - lse) and dV += P^T dO, warpgroup 1 dP^T = V dO^T,
+// dS^T = P^T (dP^T - D) and dK += dS^T Q.  P^T passes from warpgroup 0 to
+// warpgroup 1 through shared memory in fp32, each thread's fragment where
+// the same thread of the other warpgroup reads it (no bank conflicts),
+// behind two named barriers (full, empty).  Four products a (q, key) pair,
+// as in the fused pass; no atomics.  Q and dO tiles of 64 rows, with lse and
+// D, stream as in the fused pass.
+constexpr int kPFull = 1, kPEmpty = 2;  // named barrier ids
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_dkdv_split_kernel(const __grid_constant__ CUtensorMap map_q,
+                              const __grid_constant__ CUtensorMap map_k,
+                              const __grid_constant__ CUtensorMap map_v,
+                              const __grid_constant__ CUtensorMap map_do,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                              int S, int Hq, int Hkv, int causal, int window, float scale,
+                              float scale_log2) {
+  constexpr int BK = kv_bk(HD), BQ = kKvBQ, HDP = 64 * n_boxes(HD);
+  constexpr int NC = acc_chunks(HD), AW = HDP / NC / 2;
+  static_assert(BK == 64, "both warpgroups take the block's 64 keys");
+  constexpr uint32_t kK = tile_bytes<HD, BK>(), kQ = tile_bytes<HD, BQ>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - smem_addr(smem_raw));  // generic address of base
+  const uint32_t k_tile = base, v_tile = base + kK;
+  auto q_tile = [&](int s) { return base + 2 * kK + s * 2 * kQ; };
+  auto do_tile = [&](int s) { return base + 2 * kK + s * 2 * kQ + kQ; };
+  const uint32_t stats = 2 * kK + kStages * 2 * kQ;  // offset of lse * log2(e), then D, per stage
+  auto lse_s = [&](int s) { return reinterpret_cast<float*>(gbase + stats + s * 2 * BQ * 4); };
+  auto d_s = [&](int s) { return lse_s(s) + BQ; };
+  const uint32_t p_off = stats + kStages * 2 * BQ * 4;  // P^T, [BQ / 2][128] fp32
+  float* const p_buf = reinterpret_cast<float*>(gbase + p_off);
+  const uint32_t bars = base + p_off + BK * BQ * 4;
+  const uint32_t kv_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+
+  const int k0 = blockIdx.x * BK;
+  const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv;
+  const int G = Hq / Hkv;
+  // the q rows that see keys [k0, k0 + BK)
+  int q_lo = 0, q_hi = S;
+  if (causal) {
+    q_lo = k0;
+    if (window > 0) q_hi = min(S, k0 + BK - 1 + window);
+  }
+  const int qt_lo = q_lo / BQ, nq = (q_hi + BQ - 1) / BQ - qt_lo;
+  const int n = G * nq;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    prefetch_map(&map_q);
+    prefetch_map(&map_k);
+    prefetch_map(&map_v);
+    prefetch_map(&map_do);
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 32);  // the producer warp's lanes: lse and D by hand, lane 0 the TMA
+      mbar_init(empty(s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer: warp 0 of the warpgroup
+    regs_dec<producer_regs(HD)>();
+    if (threadIdx.x / 32 == kConsumers * 4) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * kK);
+        load_tile<HD, BK>(k_tile, &map_k, kv_full, hk, k0, b);
+        load_tile<HD, BK>(v_tile, &map_v, kv_full, hk, k0, b);
+      }
+      for (int it = 0; it < n; ++it) {
+        const int h = hk * G + it / nq, q0 = (qt_lo + it % nq) * BQ;
+        const int s = it % kStages;
+        mbar_wait(empty(s), ((it / kStages) & 1) ^ 1);
+        const size_t row = (static_cast<size_t>(b) * Hq + h) * S;
+        for (int r = lane; r < BQ; r += 32) {
+          const int q = q0 + r;
+          lse_s(s)[r] = q < S ? lse[row + q] * kLog2e : 0.f;
+          d_s(s)[r] = q < S ? delta[row + q] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(full(s), 2 * kQ);
+          load_tile<HD, BQ>(q_tile(s), &map_q, full(s), h, q0, b);
+          load_tile<HD, BQ>(do_tile(s), &map_do, full(s), h, q0, b);
+        } else {
+          mbar_arrive(full(s));
+        }
+      }
+    }
+  } else {
+    // ---- consumers: keys k0 .. k0 + 63, warpgroup 0 for dV, 1 for dK
+    regs_inc<consumer_regs(HD)>();
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int key0 = k0 + warp * 16 + lane / 4;  // keys key0 and key0 + 8
+    const int col0 = 2 * (lane % 4);
+    // warpgroup 0: S^T = K Q^T, then dV += P^T dO; warpgroup 1: dP^T = V dO^T,
+    // then dK += dS^T Q
+    const uint32_t a_tile = wg == 0 ? k_tile : v_tile;
+    float acc[NC][AW];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int i = 0; i < AW; ++i) acc[c][i] = 0.f;
+    }
+
+    mbar_wait(kv_full, 0);
+    for (int it = 0; it < n; ++it) {
+      const int q0 = (qt_lo + it % nq) * BQ;
+      const int s = it % kStages;
+      mbar_wait(full(s), (it / kStages) & 1);
+      const uint32_t qs = q_tile(s), dos = do_tile(s);
+
+      float st[BQ / 2];  // S^T (warpgroup 0) or dP^T (warpgroup 1)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        mma_ss(st, kmajor<BK>(a_tile, 0, kk), kmajor<BQ>(wg == 0 ? qs : dos, 0, kk), kk);
+      wgmma_commit_wait();
+      fence_acc(st);
+
+      // accumulators 2j, 2j + 1: key key0 + 8 (j % 2), q columns c, c + 1
+      uint32_t a[BQ / 4];
+      if (wg == 0) {
+        // P^T, masked only on tiles that hold a disallowed pair or rows past S
+        const float* ls = lse_s(s);
+        const bool mask = needs_mask(q0, BQ, k0, BK, S, causal, window);
+        float pt[BQ / 2];
+#pragma unroll
+        for (int j = 0; j < BQ / 4; ++j) {
+          const int c = 8 * (j / 2) + col0;
+          const float2 lc = *reinterpret_cast<const float2*>(ls + c);
+          pt[2 * j] = ex2(fmaf(st[2 * j], scale_log2, -lc.x));
+          pt[2 * j + 1] = ex2(fmaf(st[2 * j + 1], scale_log2, -lc.y));
+          if (mask) {
+            const int key = key0 + 8 * (j % 2);
+            if (!(q0 + c < S && allowed(q0 + c, key, S, causal, window))) pt[2 * j] = 0.f;
+            if (!(q0 + c + 1 < S && allowed(q0 + c + 1, key, S, causal, window)))
+              pt[2 * j + 1] = 0.f;
+          }
+          a[j] = pack_bf16(pt[2 * j], pt[2 * j + 1]);
+        }
+        if (it > 0) named_sync(kPEmpty);  // warpgroup 1 has read the last P^T
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) p_buf[i * 128 + t] = pt[i];
+        __threadfence_block();
+        named_arrive(kPFull);
+      } else {
+        const float* ds = d_s(s);
+        named_sync(kPFull);
+#pragma unroll
+        for (int j = 0; j < BQ / 4; ++j) {
+          const int c = 8 * (j / 2) + col0;
+          const float2 dc = *reinterpret_cast<const float2*>(ds + c);
+          a[j] = pack_bf16(p_buf[(2 * j) * 128 + t] * (st[2 * j] - dc.x),
+                           p_buf[(2 * j + 1) * 128 + t] * (st[2 * j + 1] - dc.y));
+        }
+        if (it + 1 < n) named_arrive(kPEmpty);
+      }
+
+      // dV += P^T dO (warpgroup 0), dK += dS^T Q (warpgroup 1): A from
+      // registers, B MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) mma_rs_chunks<BQ>(acc, a, wg == 0 ? dos : qs, kk);
+      wgmma_commit_wait();
+      fence_chunks(acc);
+      fence_regs(a);
+      if (t == 0) mbar_arrive(empty(s));
+    }
+
+    const size_t row_stride = static_cast<size_t>(Hkv) * HD;
+    const size_t head = static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(hk) * HD;
+    if (wg == 0)
+      store_acc<HD>(dv + head, row_stride, key0, col0, S, acc, {1.f, 1.f});
+    else
+      store_acc<HD>(dk + head, row_stride, key0, col0, S, acc, {scale, scale});
+  }
+}
+
 // ------------------------------------------------------------ backward: dQ
 // One block per (batch, q head, 128 q rows); Q and dO stay in shared
 // memory, K and V tiles of 64 keys stream through the ring.
@@ -1207,7 +1500,8 @@ flash_wgmma_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
                       const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int S,
                       int Hq, int Hkv, int causal, int window, float scale, float scale_log2) {
-  constexpr int BQ = kDqBQ, BK = kDqBK, HDP = 64 * n_boxes(HD);
+  constexpr int BQ = kDqBQ, BK = dq_bk(HD), HDP = 64 * n_boxes(HD);
+  constexpr int NC = acc_chunks(HD), AW = HDP / NC / 2;
   constexpr uint32_t kQ = tile_bytes<HD, BQ>(), kK = tile_bytes<HD, BK>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -1242,7 +1536,7 @@ flash_wgmma_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
 
   if (wg == kConsumers) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    regs_dec<producer_regs(HD)>();
     if (threadIdx.x == kConsumers * 128) {
       mbar_expect_tx(q_full, 2 * kQ);
       load_tile<HD, BQ>(q_tile, &map_q, q_full, h, q0, b);
@@ -1257,7 +1551,7 @@ flash_wgmma_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     }
   } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    regs_inc<consumer_regs(HD)>();
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // rows row0 and row0 + 8
     const int col0 = 2 * (lane % 4);
@@ -1269,9 +1563,12 @@ flash_wgmma_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       lse2[hh] = row < S ? lse[stat + row] * kLog2e : 0.f;
       dd[hh] = row < S ? delta[stat + row] : 0.f;
     }
-    float acc[HDP / 2];
+    float acc[NC][AW];
 #pragma unroll
-    for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int i = 0; i < AW; ++i) acc[c][i] = 0.f;
+    }
 
     mbar_wait(q_full, 0);
     for (int it = 0; it < n; ++it) {
@@ -1312,29 +1609,16 @@ flash_wgmma_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       // dQ += dS K: A from registers, B = K, MN-major
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        mma_rs(acc, dsr[4 * kk], dsr[4 * kk + 1], dsr[4 * kk + 2], dsr[4 * kk + 3],
-               mnmajor<BK>(k_tile(s), kk));
+      for (int kk = 0; kk < BK / 16; ++kk) mma_rs_chunks<BK>(acc, dsr, k_tile(s), kk);
       wgmma_commit_wait();
-      fence_acc(acc);
+      fence_chunks(acc);
       fence_regs(dsr);
       if (threadIdx.x % 128 == 0) mbar_arrive(empty(s));
     }
 
     const size_t row_stride = static_cast<size_t>(Hq) * HD;
-    __nv_bfloat16* dqb = dq + static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * HD;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = row0 + 8 * hh;
-      if (row >= S) continue;
-#pragma unroll
-      for (int j = 0; j < HDP / 8; ++j) {
-        const int col = 8 * j + col0;
-        if (col < HD)
-          *reinterpret_cast<__nv_bfloat162*>(dqb + row * row_stride + col) = __floats2bfloat162_rn(
-              acc[4 * j + 2 * hh] * scale, acc[4 * j + 2 * hh + 1] * scale);
-      }
-    }
+    store_acc<HD>(dq + static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * HD,
+                  row_stride, row0, col0, S, acc, {scale, scale});
   }
 }
 
@@ -1348,6 +1632,7 @@ flash_wgmma_probe_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_v, float* __restrict__ s_out,
                          float* __restrict__ o_out) {
   constexpr int HDP = 64 * n_boxes(HD);
+  constexpr int NC = acc_chunks(HD), AW = HDP / NC / 2;
   constexpr uint32_t kQ = tile_bytes<HD, 64>(), kK = tile_bytes<HD, BK>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -1382,20 +1667,25 @@ flash_wgmma_probe_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
   for (int j = 0; j < BK / 4; ++j) p[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
 
-  float acc[HDP / 2];
+  float acc[NC][AW];
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) acc[i] = 0.f;
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int i = 0; i < AW; ++i) acc[c][i] = 0.f;
+  }
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-    mma_rs(acc, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3], mnmajor<BK>(v_tile, kk));
+  for (int kk = 0; kk < BK / 16; ++kk) mma_rs_chunks<BK>(acc, p, v_tile, kk);
   wgmma_commit_wait();
-  fence_acc(acc);
+  fence_chunks(acc);
   fence_regs(p);
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) {
-    const int col = 8 * (i / 4) + col0 + i % 2;
-    if (col < HD) o_out[(row0 + 8 * ((i / 2) % 2)) * HD + col] = acc[i];
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int i = 0; i < AW; ++i) {
+      const int col = c * 2 * AW + 8 * (i / 4) + col0 + i % 2;
+      if (col < HD) o_out[(row0 + 8 * ((i / 2) % 2)) * HD + col] = acc[c][i];
+    }
   }
 }
 
@@ -1423,17 +1713,18 @@ bool encode_bshd(CUtensorMap* map, const void* ptr, int B, int S, int H, int hd,
 // 1 KB to align the first tile.
 template <int HD>
 constexpr int fwd_smem() {
-  return tile_bytes<HD, kFwdBQ>() + 2 * kStages * tile_bytes<HD, kFwdBK>() +
+  return tile_bytes<HD, kFwdBQ>() + 2 * kStages * tile_bytes<HD, fwd_bk(HD)>() +
          8 * (1 + 4 * kStages) + 1024;
 }
 template <int HD>
-constexpr int dkdv_smem() {
-  return 2 * tile_bytes<HD, kKvBK>() + kStages * 2 * tile_bytes<HD, kKvBQ>() +
-         kStages * 2 * kKvBQ * 4 + 8 * (1 + 2 * kStages) + 1024;
+constexpr int dkdv_smem() {  // at hd 256 also P^T, kv_bk x kKvBQ fp32
+  return 2 * tile_bytes<HD, kv_bk(HD)>() + kStages * 2 * tile_bytes<HD, kKvBQ>() +
+         kStages * 2 * kKvBQ * 4 + (HD > 128 ? kv_bk(HD) * kKvBQ * 4 : 0) +
+         8 * (1 + 2 * kStages) + 1024;
 }
 template <int HD>
 constexpr int dq_smem() {
-  return 2 * tile_bytes<HD, kDqBQ>() + kStages * 2 * tile_bytes<HD, kDqBK>() +
+  return 2 * tile_bytes<HD, kDqBQ>() + kStages * 2 * tile_bytes<HD, dq_bk(HD)>() +
          8 * (1 + 2 * kStages) + 1024;
 }
 
@@ -1441,8 +1732,9 @@ template <int HD>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B, int S,
                 int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!encode_bshd(&mq, q, B, S, Hq, HD, kFwdBQ) || !encode_bshd(&mk, k, B, S, Hkv, HD, kFwdBK) ||
-      !encode_bshd(&mv, v, B, S, Hkv, HD, kFwdBK))
+  if (!encode_bshd(&mq, q, B, S, Hq, HD, kFwdBQ) ||
+      !encode_bshd(&mk, k, B, S, Hkv, HD, fwd_bk(HD)) ||
+      !encode_bshd(&mv, v, B, S, Hkv, HD, fwd_bk(HD)))
     return cudaErrorInvalidValue;
   auto kernel = flash_wgmma_fwd_kernel<HD>;
   cudaError_t err = allow_smem(kernel, fwd_smem<HD>());
@@ -1459,18 +1751,24 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o, cons
                 const void* dout, void* delta, void* dq, void* dk, void* dv, int B, int S, int Hq,
                 int Hkv, int causal, int window, float scale, cudaStream_t stream) {
   CUtensorMap kv_q, kv_k, kv_v, kv_do, q_q, q_k, q_v, q_do;
-  // the dK/dV pass streams 64-row Q and dO tiles against 128 keys, the dQ
-  // pass 64-key K and V tiles against 128 q rows
+  // the dK/dV pass streams 64-row Q and dO tiles against 128 keys (64 at hd
+  // 256), the dQ pass 64-key K and V tiles (32 at hd 256) against 128 q rows
+  constexpr int kv_keys = kv_bk(HD), dq_keys = dq_bk(HD);
   if (!encode_bshd(&kv_q, q, B, S, Hq, HD, kKvBQ) ||
       !encode_bshd(&kv_do, dout, B, S, Hq, HD, kKvBQ) ||
-      !encode_bshd(&kv_k, k, B, S, Hkv, HD, kKvBK) ||
-      !encode_bshd(&kv_v, v, B, S, Hkv, HD, kKvBK) ||
+      !encode_bshd(&kv_k, k, B, S, Hkv, HD, kv_keys) ||
+      !encode_bshd(&kv_v, v, B, S, Hkv, HD, kv_keys) ||
       !encode_bshd(&q_q, q, B, S, Hq, HD, kDqBQ) ||
       !encode_bshd(&q_do, dout, B, S, Hq, HD, kDqBQ) ||
-      !encode_bshd(&q_k, k, B, S, Hkv, HD, kDqBK) ||
-      !encode_bshd(&q_v, v, B, S, Hkv, HD, kDqBK))
+      !encode_bshd(&q_k, k, B, S, Hkv, HD, dq_keys) ||
+      !encode_bshd(&q_v, v, B, S, Hkv, HD, dq_keys))
     return cudaErrorInvalidValue;
-  auto dkdv = flash_wgmma_dkdv_kernel<HD>;
+  auto dkdv = [] {
+    if constexpr (HD > 128)
+      return flash_wgmma_dkdv_split_kernel<HD>;
+    else
+      return flash_wgmma_dkdv_kernel<HD>;
+  }();
   auto dqk = flash_wgmma_dq_kernel<HD>;
   cudaError_t err = allow_smem(dkdv, dkdv_smem<HD>());
   if (err == cudaSuccess) err = allow_smem(dqk, dq_smem<HD>());
@@ -1483,7 +1781,7 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o, cons
       Hq);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid_kv((S + kKvBK - 1) / kKvBK, B * Hkv);
+  dim3 grid_kv((S + kv_keys - 1) / kv_keys, B * Hkv);
   dkdv<<<grid_kv, kThreads, dkdv_smem<HD>(), stream>>>(
       kv_q, kv_k, kv_v, kv_do, lt, dt, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), S, Hq, Hkv, causal, window, scale, scale * kLog2e);
@@ -2384,7 +2682,7 @@ cudaError_t probe(const void* q, const void* k, const void* v, void* s, void* o,
 
 }  // namespace x3
 
-#define REPRO_WGMMA_HEAD_DIMS(X) X(64) X(80) X(96) X(128)
+#define REPRO_TF32X3_HEAD_DIMS(X) X(64) X(80) X(96) X(128)
 
 #define REPRO_HEAD_DIMS(X) X(64) X(80) X(96) X(128) X(256)
 
@@ -2430,7 +2728,7 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   return (int)cudaErrorInvalidValue;
 }
 
-// The wgmma route: bf16, hd 64, 80, 96 or 128, every pointer 16-byte aligned
+// The wgmma route: bf16, hd 64, 80, 96, 128 or 256, every pointer 16-byte aligned
 // (flash_attention.py's route() decides).  Same arguments as above, no dtype.
 extern "C" int repro_flash_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
                                      void* lse, int B, int S, int Hq, int Hkv, int hd, int causal,
@@ -2438,7 +2736,7 @@ extern "C" int repro_flash_wgmma_fwd(const void* q, const void* k, const void* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_WGMMA_FWD(HD) \
   if (hd == HD) return (int)tc::fwd<HD>(q, k, v, o, lse, B, S, Hq, Hkv, causal, window, scale, st);
-  REPRO_WGMMA_HEAD_DIMS(REPRO_WGMMA_FWD)
+  REPRO_HEAD_DIMS(REPRO_WGMMA_FWD)
 #undef REPRO_WGMMA_FWD
   return (int)cudaErrorInvalidValue;
 }
@@ -2454,7 +2752,7 @@ extern "C" int repro_flash_wgmma_bwd(const void* q, const void* k, const void* v
   if (hd == HD)                                                                                 \
     return (int)tc::bwd<HD>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, S, Hq, Hkv, causal,    \
                             window, scale, st);
-  REPRO_WGMMA_HEAD_DIMS(REPRO_WGMMA_BWD)
+  REPRO_HEAD_DIMS(REPRO_WGMMA_BWD)
 #undef REPRO_WGMMA_BWD
   return (int)cudaErrorInvalidValue;
 }
@@ -2462,7 +2760,8 @@ extern "C" int repro_flash_wgmma_bwd(const void* q, const void* k, const void* v
 // One tile of the forward's products, for checking the descriptors and
 // fragment layouts against a matrix product: q [64, hd], k and v [bk, hd]
 // bf16; s = q k^T [64, bk] and o = bf16(s) v [64, hd], both fp32.  hd 96 or
-// 128, bk 64 or 128.
+// 128 with bk 64 or 128; hd 256 with bk 32 (the dQ pass's tiles) or 64 (the
+// forward's and the dK/dV pass's).
 extern "C" int repro_flash_wgmma_probe(const void* q, const void* k, const void* v, void* s,
                                        void* o, int hd, int bk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -2470,6 +2769,8 @@ extern "C" int repro_flash_wgmma_probe(const void* q, const void* k, const void*
   if (hd == 96 && bk == 128) return (int)tc::probe<96, 128>(q, k, v, s, o, st);
   if (hd == 128 && bk == 64) return (int)tc::probe<128, 64>(q, k, v, s, o, st);
   if (hd == 128 && bk == 128) return (int)tc::probe<128, 128>(q, k, v, s, o, st);
+  if (hd == 256 && bk == 32) return (int)tc::probe<256, 32>(q, k, v, s, o, st);
+  if (hd == 256 && bk == 64) return (int)tc::probe<256, 64>(q, k, v, s, o, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -2479,7 +2780,7 @@ extern "C" int repro_flash_wgmma_smem_bytes(int kernel, int hd) {
 #define REPRO_WGMMA_SMEM(HD) \
   if (hd == HD)              \
     return kernel == 0 ? tc::fwd_smem<HD>() : kernel == 1 ? tc::dkdv_smem<HD>() : tc::dq_smem<HD>();
-  REPRO_WGMMA_HEAD_DIMS(REPRO_WGMMA_SMEM)
+  REPRO_HEAD_DIMS(REPRO_WGMMA_SMEM)
 #undef REPRO_WGMMA_SMEM
   return -1;
 }
@@ -2494,7 +2795,7 @@ extern "C" int repro_flash_tf32x3_fwd(const void* q, const void* k, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_X3_FWD(HD) \
   if (hd == HD) return (int)x3::fwd<HD>(q, k, v, o, lse, B, S, Hq, Hkv, causal, window, scale, st);
-  REPRO_WGMMA_HEAD_DIMS(REPRO_X3_FWD)
+  REPRO_TF32X3_HEAD_DIMS(REPRO_X3_FWD)
 #undef REPRO_X3_FWD
   return (int)cudaErrorInvalidValue;
 }
@@ -2508,7 +2809,7 @@ extern "C" int repro_flash_tf32x3_bwd(const void* q, const void* k, const void* 
   if (hd == HD)                                                                              \
     return (int)x3::bwd<HD>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, S, Hq, Hkv, causal, \
                             window, scale, st);
-  REPRO_WGMMA_HEAD_DIMS(REPRO_X3_BWD)
+  REPRO_TF32X3_HEAD_DIMS(REPRO_X3_BWD)
 #undef REPRO_X3_BWD
   return (int)cudaErrorInvalidValue;
 }
@@ -2531,7 +2832,7 @@ extern "C" int repro_flash_tf32x3_smem_bytes(int kernel, int hd) {
 #define REPRO_X3_SMEM(HD) \
   if (hd == HD)           \
     return kernel == 0 ? x3::fwd_smem<HD>() : kernel == 1 ? x3::dkdv_smem<HD>() : x3::dq_smem<HD>();
-  REPRO_WGMMA_HEAD_DIMS(REPRO_X3_SMEM)
+  REPRO_TF32X3_HEAD_DIMS(REPRO_X3_SMEM)
 #undef REPRO_X3_SMEM
   return -1;
 }

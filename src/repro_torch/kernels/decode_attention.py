@@ -34,8 +34,7 @@ def build():
     P, I, F = _build.P, _build.I, _build.F
     return _build.load("decode_attention", {
         "repro_decode_attention": [P] * 6 + [I] * 7 + [F, P],
-        "repro_decode_attention_heads": [I] * 3,
-        "repro_decode_attention_simt": [P] * 5 + [I] * 6 + [F, P]})
+        "repro_decode_attention_heads": [I] * 3})
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

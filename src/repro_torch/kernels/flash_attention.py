@@ -9,9 +9,10 @@ backward kernels.  Positions are ``arange(S)``, as on the Pallas path.
 
 Each direction has three designs, and :func:`route` picks one before the
 launch from the dtype, the head dim and the pointers: ``"wgmma"`` (tensor
-cores fed by TMA, bf16 at hd 64-128), ``"tf32x3"`` (tensor cores through
-``mma.sync``, fp32 at hd 64-128, each product as three TF32 products that
-hold fp32's accuracy) or ``"simt"`` (fp32 FMAs on the CUDA cores, hd 256).
+cores fed by TMA, bf16 at every head dim), ``"tf32x3"`` (tensor cores
+through ``mma.sync``, fp32 at hd 64-128, each product as three TF32 products
+that hold fp32's accuracy) or ``"simt"`` (fp32 FMAs on the CUDA cores: fp32
+at hd 256, and misaligned tensors).
 ``LAUNCHES`` and ``BWD_LAUNCHES`` count the forward and backward launches by
 route (one backward call launches all its passes from one C call).
 """
@@ -22,7 +23,7 @@ import torch
 from repro_torch.kernels import build as _build
 
 HEAD_DIMS = (64, 80, 96, 128, 256)
-WGMMA_HEAD_DIMS = (64, 80, 96, 128)
+TF32X3_HEAD_DIMS = (64, 80, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 ROUTES = ("wgmma", "tf32x3", "simt")
@@ -49,14 +50,17 @@ def build():
 
 
 def route(dtype: torch.dtype, hd: int, *ptrs: int) -> str:
-    """The kernel a call takes, decided before its launch.  At hd 64, 80, 96
-    or 128 with every pointer 16-byte aligned: ``"wgmma"`` for bf16 (TMA's
-    rules: base addresses 16-byte aligned; the row strides ``H * hd * 2``
-    bytes are multiples of 16 at these head dims), ``"tf32x3"`` for fp32
-    (16-byte loads).  ``"simt"`` for everything else (hd 256, misaligned
-    tensors)."""
-    if hd in WGMMA_HEAD_DIMS and all(p % 16 == 0 for p in ptrs):
-        return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    """The kernel a call takes, decided before its launch.  With every
+    pointer 16-byte aligned: ``"wgmma"`` for bf16 at any of ``HEAD_DIMS``
+    (TMA's rules: base addresses 16-byte aligned; the row strides
+    ``H * hd * 2`` bytes are multiples of 16 at these head dims),
+    ``"tf32x3"`` for fp32 at hd 64-128 (16-byte loads).  ``"simt"`` for
+    everything else (fp32 at hd 256, misaligned tensors)."""
+    if all(p % 16 == 0 for p in ptrs):
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if hd in TF32X3_HEAD_DIMS:
+            return "tf32x3"
     return "simt"
 
 

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
-from repro_torch.models.common import apply_rope, dense_init
+from repro_torch.models.common import apply_rope, dense_init, init_norm, rms_norm
 
 BLOCKWISE_THRESHOLD = 4_096  # O(S*block) attention at and above this length
 Q_BLOCK = 512
@@ -49,11 +49,15 @@ def init_attn_params(gen: torch.Generator, cfg: ArchConfig, dtype, n: int) -> di
         for name, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
                             ("bv", cfg.n_kv_heads)):
             p[name] = torch.zeros((n, width * hd), dtype=dtype, device=gen.device)
+    if cfg.qk_norm:
+        for name in ("q_norm", "k_norm"):
+            p[name] = init_norm(hd, dtype, gen.device, n)
     return p
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
-    """x [B,S,d] -> q [B,S,Hq,hd], k/v [B,S,Hkv,hd]."""
+    """x [B,S,d] -> q [B,S,Hq,hd], k/v [B,S,Hkv,hd]; with ``qk_norm``, q and
+    k RMS-normed over the head dim (before RoPE, as in JAX)."""
     hd = cfg.hd
     q = x @ p["wq"]
     k = x @ p["wk"]
@@ -61,7 +65,11 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     B, S = x.shape[0], x.shape[1]
-    return q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd), v.reshape(B, S, -1, hd)
+    q, k, v = q.reshape(B, S, -1, hd), k.reshape(B, S, -1, hd), v.reshape(B, S, -1, hd)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int, dim: int = 2) -> torch.Tensor:

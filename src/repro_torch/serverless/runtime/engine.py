@@ -133,7 +133,8 @@ def _worker_step_program(ctx, *, k: int, s: int, r: int, agg, worker, batch,
     vec = worker.grad_vector() if worker is not None else None
     reduced = yield ("sync", vec)
     if worker is not None:
-        worker.apply_update(reduced / d, step=k)
+        # x / 1 is x: a single replica's gradient goes in without a copy
+        worker.apply_update(reduced / d if d > 1 else reduced, step=k)
         losses[(s, r)] = (ce_acc, aux_acc)
 
 

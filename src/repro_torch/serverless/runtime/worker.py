@@ -239,10 +239,13 @@ class StageWorker:
     # ------------------------------------------------------------------- sync
     def grad_vector(self) -> torch.Tensor:
         """Accumulated stage gradient, flattened fp32 in ``jax.tree.flatten``
-        order on the worker's device (the scatter-reduce payload)."""
+        order on the worker's device (the scatter-reduce payload).  It
+        consumes the accumulators, so a stage never holds its gradient
+        twice."""
         if self._grad_acc is None:
             raise RuntimeError("backward() must run first")
-        return torch.cat([g.reshape(-1) for g in self._grad_acc])
+        acc, self._grad_acc = self._grad_acc, None
+        return torch.cat([g.reshape(-1) for g in acc])
 
     def apply_update(self, reduced: torch.Tensor, step: int) -> None:
         """Optimizer step from the (already averaged) flat fp32 gradient."""
@@ -250,16 +253,20 @@ class StageWorker:
             raise ValueError(f"gradient of {reduced.numel()} values for "
                              f"{sum(self._sizes)} parameters")
         parts = torch.split(reduced.to(self.device), self._sizes)
+        self._grad_acc = None
+        # the worker lets go of each leaf's old master and moments as their
+        # new ones are made, so a stage never holds two copies of its state
         states = tree_leaves(self.opt_state, is_leaf=_is_state)
+        like, self.opt_state = _structure(self.opt_state), None
         new_params, new_states = [], []
-        for g, shape, st, p in zip(parts, self._shapes, states, tree_leaves(self.params)):
+        for i, (g, shape, p) in enumerate(zip(parts, self._shapes, tree_leaves(self.params))):
+            st, states[i] = states[i], None
             sub = {k: v for k, v in st.items() if k != "master"}
             master, sub = self.optimizer.update(g.reshape(shape), st["master"], sub, step)
             new_params.append(master.to(p.dtype))
             new_states.append({"master": master, **sub})
         self.params = tree_unflatten(self.params, new_params)
-        self.opt_state = tree_unflatten(self.opt_state, new_states, is_leaf=_is_state)
-        self._grad_acc = None
+        self.opt_state = tree_unflatten(like, new_states, is_leaf=_is_state)
 
 
 def assemble_params(cfg: ArchConfig, workers: List[StageWorker]) -> dict:

@@ -688,21 +688,21 @@ def test_swiglu_route_takes_every_config_in_fp32(arch):
 @pytest.mark.parametrize("hd", [64, 80, 96, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_route(dtype, hd, offset):
-    """At hd 64-128 with 16-byte aligned pointers, wgmma for bf16 (TMA's
-    rules) and tf32x3 for fp32 (16-byte loads); hd 256 and misaligned
-    tensors take the simt kernels."""
+    """With 16-byte aligned pointers, wgmma for bf16 at every head dim (TMA's
+    rules) and tf32x3 for fp32 at hd 64-128 (16-byte loads); fp32 at hd 256
+    and misaligned tensors take the simt kernels."""
     base = torch.empty(64, dtype=torch.bfloat16).data_ptr()   # 64-byte aligned or more
     ptrs = (base, base + 256, base + 512 + offset, base + 1024)
-    if hd == 256 or offset % 16:
+    if offset % 16 or (hd == 256 and dtype == torch.float32):
         want = "simt"
     else:
         want = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     assert fa.route(dtype, hd, *ptrs) == want
 
 
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "qwen2.5-14b"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "qwen2.5-14b", "gemma3-4b"])
 def test_flash_route_takes_every_config_in_bf16(arch):
-    # phi3 hd 96, qwen2.5 hd 128, both reduced configs hd 64
+    # phi3 hd 96, qwen2.5 hd 128, gemma3 hd 256, the reduced configs hd 64
     for cfg in (get_config(arch), get_config(arch).reduced()):
         q = torch.empty(1, 3, cfg.n_heads, cfg.head_dim, dtype=torch.bfloat16)
         kv = torch.empty(1, 3, cfg.n_kv_heads, cfg.head_dim, dtype=torch.bfloat16)
@@ -779,7 +779,8 @@ def test_swiglu_wrappers_launch_and_count_by_route(monkeypatch, dtype, d, f, off
 
 
 @pytest.mark.parametrize("dtype,hd,offset,way", [(torch.bfloat16, 96, 0, "wgmma"),
-                                                 (torch.bfloat16, 256, 0, "simt"),
+                                                 (torch.bfloat16, 256, 0, "wgmma"),
+                                                 (torch.bfloat16, 256, 1, "simt"),
                                                  (torch.float32, 96, 0, "tf32x3"),
                                                  (torch.float32, 96, 1, "simt"),
                                                  (torch.float32, 256, 0, "simt")])
@@ -844,13 +845,15 @@ def test_cuda_flash_wgmma_probe_matches_matmul(cuda_device):
     """The wgmma route's descriptors and fragment layouts alone, on one tile:
     S = Q K^T (fp32 out) against an fp32 matrix product of the same bf16
     inputs, and O = bf16(S) V against the product of the kernel's own S,
-    rounded alike.  hd 96 (two boxes, the second partly zeros) and 128;
-    64 and 128 keys (the backward's and the forward's tiles)."""
+    rounded alike.  hd 96 (two boxes, the second partly zeros) and 128 at
+    64 and 128 keys (the backward's and the forward's tiles); hd 256 (four
+    boxes, O in two 128-column chunks) at 32 keys (the dQ pass's tiles) and
+    64 (the forward's and the dK/dV pass's)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     lib = fa.build()
     rng = np.random.default_rng(13)
-    for hd in (96, 128):
-        for bk in (64, 128):
+    for hd, bks in ((96, (64, 128)), (128, (64, 128)), (256, (32, 64))):
+        for bk in bks:
             q, k, v = (torch.from_numpy(rng.standard_normal((rows, hd), dtype=np.float32))
                        .to(cuda_device, torch.bfloat16) for rows in (64, bk, bk))
             s = torch.full((64, bk), float("nan"), device=cuda_device)
@@ -906,7 +909,9 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, dtype):
         q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in _qkv(B, S, Hq, Hkv, hd))
         do = torch.randn(q.shape, generator=torch.Generator(cuda_device).manual_seed(1),
                          device=cuda_device).to(dtype)
-        way = "simt" if hd == 256 else "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+        way = fa.route(dtype, hd, q.data_ptr(), k.data_ptr(), v.data_ptr())
+        assert way == ("wgmma" if dtype == torch.bfloat16 else
+                       "simt" if hd == 256 else "tf32x3")
         what = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} causal={causal} window={window} "
                 f"{dtype} ({way})")
         ops.reset_launch_counts()
@@ -922,6 +927,42 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, dtype):
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol, msg=what)
         _assert_grads_close(grads, ref_grads, dtype, what)
         # no atomics: the same inputs give the same bits
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        first = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        second = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), f"{what}: not bit-equal"
+    torch.cuda.synchronize()
+
+
+# gemma3-4b's attention (Hq 8, Hkv 4, hd 256) on the wgmma route: the
+# training shape's global and window-1024 layers, a ragged S, MQA, a window
+# that is no tile's multiple over a ragged S, and no mask
+FLASH_HD256 = [(1, 2048, 8, 4, 256, True, 0), (1, 2048, 8, 4, 256, True, 1024),
+               (2, 200, 8, 4, 256, True, 0), (2, 256, 4, 1, 256, True, 0),
+               (1, 200, 4, 4, 256, True, 48), (2, 128, 4, 4, 256, False, 0)]
+
+
+@pytest.mark.cuda
+def test_cuda_flash_hd256_wgmma_matches_plain(cuda_device):
+    """bf16 at hd 256 on the wgmma route, forward and backward, against the
+    plain version at 2e-2 (outputs) and 2e-2 x max|ref| (gradients); two
+    backward calls give the same bits."""
+    for B, S, Hq, Hkv, hd, causal, window in FLASH_HD256:
+        q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                   for a in _qkv(B, S, Hq, Hkv, hd))
+        do = torch.randn(q.shape, generator=torch.Generator(cuda_device).manual_seed(1),
+                         device=cuda_device).to(torch.bfloat16)
+        what = f"B={B} S={S} Hq={Hq} Hkv={Hkv} window={window}"
+        ops.reset_launch_counts()
+        out, grads = _grads(lambda a, b, c: ops.flash_attention(
+            a, b, c, causal=causal, window=window), (q, k, v), do)
+        counts = ops.launch_counts()
+        assert (counts["flash_attention_wgmma"], counts["flash_attention_bwd_wgmma"]) == (1, 1), \
+            f"{what}: {counts}"
+        ref, ref_grads = _grads(lambda a, b, c: ops.flash_attention(
+            a, b, c, causal=causal, window=window, impl="ref"), (q, k, v), do)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2, msg=what)
+        _assert_grads_close(grads, ref_grads, torch.bfloat16, what)
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
         first = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
         second = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)

@@ -3,9 +3,11 @@ on the CPU, in fp32, at 2e-4: the training forward (attention and MLP on
 both routes, the blockwise attention at 4096 tokens), ``loss_fn`` and every
 gradient, attention prefill/decode (caches included, append and ring
 layouts, and prompts of 4096 tokens), the monolithic prefill + three decode
-steps, and the parameter layout.  Inputs come from numpy with a seed or from
-the JAX package's own ``init_params`` and ``make_batch``, handed across as
-numpy arrays."""
+steps, and the parameter layout; for phi3-mini-3.8b, qwen2.5-14b (q/k/v
+biases) and gemma3-4b (sliding windows, q/k norms) reduced, and gemma3-4b
+reduced at heads of 256.  Inputs come from numpy with a seed or from the
+JAX package's own ``init_params`` and ``make_batch``, handed across as numpy
+arrays."""
 import dataclasses
 
 import jax
@@ -29,23 +31,37 @@ from repro_torch.serving import arch_config_for_model
 
 torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means fp32 on a card too
 
-ARCHS = ["phi3-mini-3.8b@reduced", "qwen2.5-14b@reduced"]
+# "<arch>@hd256": the reduced config at heads of 256 (d_model 512, 2 query
+# heads sharing 1 kv head), built alike in both packages
+ARCHS = ["phi3-mini-3.8b@reduced", "qwen2.5-14b@reduced", "gemma3-4b@reduced",
+         "gemma3-4b@hd256"]
+HD256 = dict(d_model=512, n_heads=2, n_kv_heads=1, head_dim=256)
 TOL = dict(rtol=2e-4, atol=2e-4)
 B, S = 2, 8
+
+
+def _configs(model):
+    """(port cfg, jax cfg) of an ``ARCHS`` id."""
+    base, _, spec = model.partition("@")
+    if spec == "hd256":
+        return (dataclasses.replace(arch_config_for_model(f"{base}@reduced"), **HD256),
+                dataclasses.replace(jax_arch(f"{base}@reduced"), **HD256))
+    return arch_config_for_model(model), jax_arch(model)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
 def arch(request):
     """(port cfg, jax cfg, jax params as numpy, port params)."""
-    cfg, jcfg = arch_config_for_model(request.param), jax_arch(request.param)
+    cfg, jcfg = _configs(request.param)
     jparams = jreg.init_params(jcfg, jax.random.PRNGKey(0))
-    if jcfg.qkv_bias:   # zero-initialised: give the bias terms real values
-        rng = np.random.default_rng(1)
-        layers = jparams["layers"][0]
-        for name in ("bq", "bk", "bv"):
-            shape = layers["mixer"][name].shape
-            layers["mixer"][name] = jnp.asarray(
-                0.1 * rng.standard_normal(shape, dtype=np.float32))
+    # zero-initialised biases and q/k norm scales: give them real values
+    rng = np.random.default_rng(1)
+    for layer in jparams["layers"]:
+        for name in ("bq", "bk", "bv", "q_norm", "k_norm"):
+            if name in layer["mixer"]:
+                shape = layer["mixer"][name].shape
+                layer["mixer"][name] = jnp.asarray(
+                    0.1 * rng.standard_normal(shape, dtype=np.float32))
     params_np = jax.tree.map(np.asarray, jparams)
     return cfg, jcfg, params_np, registry.params_from_jax(params_np, device="cpu")
 

@@ -230,16 +230,21 @@ def _param_err(params, jparams):
     return worst
 
 
-def _two_steps_on_jax(param_dtype: str, lr: float) -> dict:
+_OPTIMIZERS = {"adamw": (AdamW, JaxAdamW), "sgd": (SGD, JaxSGD)}
+
+
+def _two_steps_on_jax(param_dtype: str, lr: float, arch=PHI3, n_layers=4,
+                      optimizer="adamw") -> dict:
     """tests/test_runtime.py::test_engine_two_steps_match_monolithic's plan
     (phi3@reduced, 4 layers, 2 stages x 2 replicas, mu 2, AdamW, 2 steps) in
-    ``param_dtype``, on the JAX engine."""
-    jcfg, cfg = _cfgs(n_layers=4)
+    ``param_dtype``, on the JAX engine; for another ``arch``, ``n_layers``
+    cut in half (each stage a whole number of periods)."""
+    jcfg, cfg = _cfgs(arch, n_layers=n_layers)
     jcfg = dataclasses.replace(jcfg, param_dtype=param_dtype)
     cfg = dataclasses.replace(cfg, param_dtype=param_dtype)
     B, S, d, mu, steps = 8, 16, 2, 2, 2
     L = cfg.n_layers + 2
-    x = _x(L, {2})
+    x = _x(L, {n_layers // 2})
     params0 = jreg.init_params(jcfg, jax.random.PRNGKey(0))
     batches = [jax_make_batch(jcfg, JaxInputShape("emu", S, B, "train"), step=k)
                for k in range(steps)]
@@ -247,9 +252,10 @@ def _two_steps_on_jax(param_dtype: str, lr: float) -> dict:
         jax_profile(jcfg, AWS_LAMBDA, seq=S, micro_batch=B // (d * mu)), AWS_LAMBDA,
         JaxConfig(x=x, d=d, z=(0,) * L), total_micro_batches=d * mu,
         exec_config=ExecutionConfig(steps=steps),
-        execution=JaxExecution(cfg=jcfg, optimizer=JaxAdamW(lr=lr), init_params=params0,
-                               batch_fn=lambda k: batches[k]))
+        execution=JaxExecution(cfg=jcfg, optimizer=_OPTIMIZERS[optimizer][1](lr=lr),
+                               init_params=params0, batch_fn=lambda k: batches[k]))
     return dict(cfg=cfg, S=S, B=B, d=d, mu=mu, steps=steps, x=x, L=L, lr=lr, jres=jres,
+                optimizer=optimizer,
                 params=params_from_jax(_np_tree(params0), device="cpu"),
                 batches=[_torch_batch(b) for b in batches])
 
@@ -259,7 +265,8 @@ def _two_steps_on_port(r: dict, use_kernels: bool):
     prof = arch_model_profile(cfg, AWS, seq=r["S"], micro_batch=r["B"] // (d * mu))
     return run_plan(prof, AWS, Config(x=r["x"], d=d, z=(0,) * r["L"]),
                     total_micro_batches=d * mu, steps=r["steps"],
-                    execution=Execution(cfg=cfg, optimizer=AdamW(lr=r["lr"]),
+                    execution=Execution(cfg=cfg, optimizer=_OPTIMIZERS[r["optimizer"]][0](
+                                            lr=r["lr"]),
                                         init_params=r["params"],
                                         batch_fn=lambda k: r["batches"][k],
                                         use_kernels=use_kernels, device="cpu"))
@@ -283,6 +290,41 @@ def test_engine_two_steps_match_jax_engine(two_steps_jax, use_kernels):
     assert err < 2e-3, (name, err)
     _assert_same_clock(res, jres)
     assert res.steps == 2 and len(res.metrics) == 2 and res.backend == "emulated"
+
+
+@pytest.fixture(scope="module", params=["sgd", "adamw"])
+def two_steps_jax_gemma(request):
+    """gemma3-4b@reduced at 12 layers: two periods of five window layers and
+    one global layer, q/k norms; a stage of one period each."""
+    return _two_steps_on_jax("float32", 1e-2, arch="gemma3-4b", n_layers=12,
+                             optimizer=request.param)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_engine_gemma3_two_steps_match_jax_engine(two_steps_jax_gemma, use_kernels):
+    """The same storage-backed steps on gemma3-4b@reduced (12 layers, 2
+    stages of one period, 2 replicas), SGD and AdamW at lr 1e-2: losses
+    within 2e-4 and params within 2e-3 of the JAX engine's; the clock, cost
+    and store traffic exactly equal.  Under AdamW a few elements miss 2e-3:
+    its first steps move each element by about lr whatever its gradient's
+    size, so an element whose gradient is near 0 (100-1000x below the
+    median) and whose sign the two summation orders decide differently
+    lands up to 2 lr a step away.  There the bar is held on all but 1e-5 of
+    the elements, and every element within 4 lr (two such steps)."""
+    r = two_steps_jax_gemma
+    res, jres = _two_steps_on_port(r, use_kernels), r["jres"]
+    assert [s.inst_hi - s.inst_lo for s in stage_instance_ranges(r["cfg"], r["x"])] == [1, 1]
+    for got, want in zip(res.losses, jres.losses):
+        assert abs(got - want) < 2e-4, (got, want)
+    name, err = _param_err(res.params, jres.params)
+    if r["optimizer"] == "sgd":
+        assert err < 2e-3, (name, err)
+    else:
+        past = sum(int((np.abs(b.detach().numpy() - np.asarray(a)) >= 2e-3).sum())
+                   for a, b in zip(jax.tree.leaves(jres.params), tree_leaves(res.params)))
+        total = sum(a.numel() for a in tree_leaves(res.params))
+        assert past <= 1e-5 * total and err < 4 * r["lr"], (name, err, past, total)
+    _assert_same_clock(res, jres)
 
 
 @pytest.fixture(scope="module")
