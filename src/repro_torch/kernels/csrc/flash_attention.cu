@@ -74,7 +74,8 @@
 //     mean block's work.
 // "tf32x3" -- fp32 at hd 64, 80, 96 or 128 with 16-byte aligned pointers
 // (replaces the simt kernels below for these shapes; the Pallas kernel's
-// fp32 path is the same function):
+// fp32 path is the same function; hd 256 takes the design of namespace x3w
+// below, wgmma on split planes):
 //   * why three products: fp32 inputs have to hold 2e-5 (outputs) and 1e-4
 //     (gradients), and one TF32 product (10-bit mantissas) misses that by
 //     two orders of magnitude.  Each operand x is split once into hi =
@@ -122,10 +123,9 @@
 //     cp.async) and add their two partial sums once at the end.  At hd 128
 //     dK and dV together do not fit the registers: the dK/dV pass runs as
 //     two launches, dV and then dK.
-// "simt" -- fp32 at hd 256 (its 128-column accumulators fit neither the
-// tf32x3 design's registers nor its planes' shared memory) and tensors the
-// other routes cannot load (misaligned pointers): fp32 FMAs on the CUDA
-// cores, the operands in shared memory and the output tile in registers:
+// "simt" -- tensors the other routes cannot load (misaligned pointers):
+// fp32 FMAs on the CUDA cores, the operands in shared memory and the output
+// tile in registers:
 //   * TPU: the k-block grid axis is sequential with (m, l, acc) in VMEM.
 //     Here one thread block owns a (batch, q head, q tile) and loops over
 //     the k tiles itself, from the window's first tile to the causal
@@ -145,6 +145,11 @@
 //     registers; dq, one block per (batch, q head, q tile), loops over the k
 //     tiles like the forward.  Each recomputes D = rowsum(dO * O) for the q
 //     rows it loads, and P = exp(s - lse).
+//
+// "tf32x3" at hd 256 (gemma3-4b in fp32) -- namespace x3w: a split pass
+// writes hi/lo planes (some transposed) into a per-call workspace, then
+// wgmma TF32 takes them by TMA, three products a product; its header
+// comment has the design.
 //
 // Build: nvcc -gencode=arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
@@ -2682,6 +2687,1059 @@ cudaError_t probe(const void* q, const void* k, const void* v, void* s, void* o,
 
 }  // namespace x3
 
+// ------------------------------------------------ tf32x3 route at hd 256
+// fp32 at hd 256 (gemma3-4b) on wgmma: each fp32 product as three TF32
+// products (x3::split's hi/lo, the order lo hi, hi lo, hi hi), wgmma taking
+// both operands from split planes by TMA.  wgmma takes a TF32 operand from
+// shared memory K-major only, so a split pass writes, per call, into a
+// workspace the wrapper allocates:
+//   * natural planes [B, S, H, 256] (hi, lo) of what a product reduces over
+//     the head dim: Q and K forward (S = Q K^T); Q, K, V and dO backward;
+//   * transposed planes [B, H, 256, S_pad] of what a product reduces over
+//     keys or q rows: V forward (O = P V); Q, dO and K backward (dK = dS^T Q,
+//     dV = P^T dO, dQ = dS K).  S_pad is S rounded up to kPad, zero-filled, so
+//     TMA's 16-byte stride rule holds and ragged S needs no masked loads.
+//     Within each group of 8 positions, position p holds row 8 (p / 8) +
+//     perm8(p % 8): the order in which an accumulator's columns feed a
+//     register A fragment (x3::split_acc's permutation), so P goes from the
+//     scores' accumulator to O = P V without a shuffle or shared memory.
+//
+// The budget that decides the design: a hi/lo pair costs 8 bytes an element,
+// so a 64-row operand over hd 256 is 128 KB of the block's 227 KB, and two
+// (Q and K, or K and V, as the 64-row A of a wgmma) do not fit.  Each
+// K / V byte brought from L2 feeds only the q rows the block holds (64 rows:
+// ~16 counted flops a byte), so a block is capped near 50 TFLOP/s by L2 alone
+// whatever its tensor rate.  The three options weighed:
+//   1. 64 resident q rows and 32-key tiles through a ring (chosen for the
+//      forward: Q 128 KB + 3 slots of 32 KB);
+//   2. a cluster of two blocks sharing each K / V tile by TMA multicast
+//      (doubles the reuse; not tried: left for a later slice);
+//   3. O as 64-column chunks, each tile's P V in a fresh accumulator (chosen:
+//      O is 128 registers a thread, the fresh chunk 32).
+// ptxas (CUDA 12.8): forward 230 registers, dK/dV pass 240, dQ pass 190,
+// probe 233, 0 spill bytes each; one block an SM (230 KB of shared memory).
+// Forward, one block per (batch, q head, 64 q rows): one consumer warpgroup
+// and a producer warp.  Q's planes arrive once; each 32-key tile is four
+// items through a 3-slot ring of 32 KB: K over hd 0-127 and 128-255 (S = Q K^T,
+// m64n32k8, both operands K-major from shared memory, each half in a fresh
+// accumulator), then V^T over hd 0-127 and 128-255 (O += P V, m64n64k8 with P
+// as the register A operand, one fresh accumulator a 64-column chunk).  The
+// online softmax runs in the log2 domain on the accumulator fragments as on
+// the wgmma route; masks only on tiles that hold a disallowed pair.
+// Backward: D = rowsum(dO O) (flash_delta_kernel), then two passes of one
+// template, neither keeping a 64-row operand of a score product resident.
+// Both score products (S and dP) take the streamed tile as their 64-row A
+// (hd chunks of 32 columns, Q and dO or K and V, 32 KB an item through a
+// 2-slot ring) and the block's 32 resident rows as B (K and V, or Q and dO:
+// 128 KB); P and dS are written into shared memory as B operands (rows the
+// resident index, columns the streamed one in the planes' order), and the
+// gradients are taken transposed, M = the head dim: dV^T = dO^T P and dK^T =
+// Q^T dS (dK/dV pass, a block per (batch, kv head, 32 keys), streaming the
+// 64-row q tiles of the G query heads), dQ^T = K^T dS (dQ pass, a block per
+// (batch, q head, 32 q rows), streaming 64-key tiles).  The accumulators over
+// the head dim are 4 x 16 registers a thread each.  14 hd flops a (q, k) pair,
+// no atomics: two calls give the same bits.
+// Accumulation: the tensor cores' fp32 adds truncate, so each product summed
+// over a streamed dimension takes each tile in a fresh accumulator added to
+// its running sum with IEEE adds: every kPvRefresh keys of O = P V and every
+// kGradRefresh rows of dV, dK and dQ; the scores take a fresh accumulator
+// every kScoreRefreshFwd (forward) and kScoreRefreshBwd (backward) head-dim
+// columns.  tests/test_torch_kernels.py emulates this summation on the CPU
+// with the same intervals (FLASH_HD256_REFRESH).
+namespace x3w {
+
+using namespace hopper;
+using tc::ex2;
+using tc::fence_regs;
+using tc::kLn2;
+using tc::kLog2e;
+using tc::needs_mask;
+using tc::prefetch_map;
+using tc::wgmma_commit_wait;
+using tc::wgmma_fence;
+
+constexpr int HD = 256;
+constexpr int kConsumer = 128;            // one consumer warpgroup
+constexpr int kThreads = kConsumer + 32;  // and a producer warp
+constexpr int kPad = 64;                  // the transposed planes' S rounds up to this
+constexpr int kSlot = 32 * 1024;          // a ring slot: one item, hi and lo planes
+constexpr int kFwdRows = 64;              // forward: q rows a block
+constexpr int kFwdKeys = 32;              // forward: keys a tile
+constexpr int kFwdSlots = 3;
+constexpr int kRes = 32;                  // backward: resident rows a block
+constexpr int kTile = 64;                 // backward: rows of a streamed tile
+constexpr int kBwdSlots = 2;
+// fresh-accumulator intervals (tests/test_torch_kernels.py: FLASH_HD256_REFRESH)
+constexpr int kScoreRefreshFwd = 128;  // head-dim columns of S = Q K^T, forward: an item
+constexpr int kScoreRefreshBwd = 32;   // head-dim columns of S and dP, backward: an item
+constexpr int kPvRefresh = kFwdKeys;   // keys of O = P V: a tile
+constexpr int kGradRefresh = kTile;    // rows of dV, dK (q) and dQ (keys): a tile
+
+__host__ __device__ constexpr int padded(int S) { return (S + kPad - 1) / kPad * kPad; }
+// Position p of an 8-group holds row 8 (p / 8) + perm8(p % 8); row r sits at
+// position 8 (r / 8) + ipos8(r % 8).
+__host__ __device__ constexpr int perm8(int p) { return p < 4 ? 2 * p : 2 * (p - 4) + 1; }
+__host__ __device__ constexpr int ipos8(int r) { return r % 2 == 0 ? r / 2 : r / 2 + 4; }
+
+// K-major operand, 128B swizzle: rows of 128 bytes (32 fp32), 8-row groups
+// 1 KB apart; a k8 step is 32 bytes along the row.
+__device__ __forceinline__ uint64_t kdesc(uint32_t addr) { return desc(addr, 16, 1024); }
+
+// d[64x32] (+)= A[64x8] B[8x32], TF32, both K-major in shared memory; d is
+// overwritten when scale_d is 0.
+__device__ __forceinline__ void mma32(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[64x64] (+)= A[64x8] B[8x64], TF32: A from registers (the fragment
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) of each warp's 16 rows), B
+// K-major in shared memory.
+__device__ __forceinline__ void mma64_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d = A B over k8 steps [0, n_k) as three TF32 products a step (lo hi, hi lo,
+// hi hi) into a fresh accumulator; a_lo = a_hi + a_dlo, b_lo = b_hi + b_dlo,
+// step kk at a(kk) and b(kk) bytes past the hi planes.
+template <int NK, typename AOff, typename BOff>
+__device__ __forceinline__ void product32(float (&d)[16], uint32_t a_hi, uint32_t a_dlo,
+                                          uint32_t b_hi, uint32_t b_dlo, AOff a, BOff b) {
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    const uint32_t ah = a_hi + a(kk), bh = b_hi + b(kk);
+    mma32(d, kdesc(ah + a_dlo), kdesc(bh), kk > 0);
+    mma32(d, kdesc(ah), kdesc(bh + b_dlo), 1);
+    mma32(d, kdesc(ah), kdesc(bh), 1);
+  }
+}
+
+// Byte offset of element (row r, column c) of a [R x 32] fp32 box, 128B-swizzled.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((((c / 4) ^ (r % 8)) & 7) << 4) + (c % 4) * 4;
+}
+
+// ---------------------------------------------------------------- split pass
+// a[j] with constant indices only: a runtime index into an array of a kernel
+// parameter copies the array to local memory, in every thread
+template <typename T, int N>
+__device__ __forceinline__ T pick(const T (&a)[N], int j) {
+  T x = a[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i)
+    if (j == i) x = a[i];
+  return x;
+}
+
+struct SplitRows {  // elementwise: src -> hi, lo, n4 float4s each
+  const float4* src[4];
+  float4* hi[4];
+  float4* lo[4];
+  long long n4[4];
+};
+
+__global__ void __launch_bounds__(256)
+flash_tf32x3_split_kernel(const SplitRows jobs) {
+  const int j = blockIdx.y;
+  const float4* src = pick(jobs.src, j);
+  float4* hi = pick(jobs.hi, j);
+  float4* lo = pick(jobs.lo, j);
+  const long long n4 = pick(jobs.n4, j);
+  for (long long i = blockIdx.x * 256ll + threadIdx.x; i < n4; i += gridDim.x * 256ll) {
+    const float4 v = __ldg(src + i);
+    uint4 h, l;
+    x3::split(v.x, h.x, l.x);
+    x3::split(v.y, h.y, l.y);
+    x3::split(v.z, h.z, l.z);
+    x3::split(v.w, h.w, l.w);
+    reinterpret_cast<uint4*>(hi)[i] = h;
+    reinterpret_cast<uint4*>(lo)[i] = l;
+  }
+}
+
+struct SplitT {  // [B, S, H, 256] -> [B, H, 256, S_pad], permuted and padded
+  const float* src[3];
+  uint32_t* hi[3];
+  uint32_t* lo[3];
+  int H[3];
+};
+
+// Block (32 positions, 32 head-dim columns of one head): the rows through a
+// 32 x 33 shared tile, both sides coalesced.
+__global__ void __launch_bounds__(256)
+flash_tf32x3_split_t_kernel(const SplitT jobs, int B, int S, int S_pad) {
+  __shared__ float tile[32][33];
+  const int j = blockIdx.z / B, b = blockIdx.z % B;
+  const int H = pick(jobs.H, j), h = blockIdx.y / (HD / 32), d0 = (blockIdx.y % (HD / 32)) * 32;
+  if (h >= H) return;
+  const int p0 = blockIdx.x * 32, tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const float* src = pick(jobs.src, j);
+  uint32_t* const hi_plane = pick(jobs.hi, j);
+  uint32_t* const lo_plane = pick(jobs.lo, j);
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    const int s = p0 + r;
+    tile[r][tx] = s < S ? __ldg(src + ((static_cast<size_t>(b) * S + s) * H + h) * HD + d0 + tx)
+                        : 0.f;
+  }
+  __syncthreads();
+  const int row = 8 * (tx / 8) + perm8(tx % 8);
+#pragma unroll
+  for (int r = ty; r < 32; r += 8) {
+    uint32_t hi, lo;
+    x3::split(tile[row][r], hi, lo);
+    const size_t at = ((static_cast<size_t>(b) * H + h) * HD + d0 + r) * S_pad + p0 + tx;
+    hi_plane[at] = hi;
+    lo_plane[at] = lo;
+  }
+}
+
+// ---------------------------------------------------------------- forward
+struct FwdMaps {
+  CUtensorMap q_hi, q_lo, k_hi, k_lo, vt_hi, vt_lo;
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tf32x3_hd256_fwd_kernel(const __grid_constant__ FwdMaps maps, float* __restrict__ o,
+                              float* __restrict__ lse, int S, int Hq, int Hkv, int causal,
+                              int window, float scale_log2) {
+  constexpr uint32_t kQPlane = kFwdRows * HD * 4;  // 64 KB: 8 boxes of 64 rows x 32 columns
+  constexpr uint32_t kHalf = kSlot / 2;            // an item's lo plane follows its hi plane
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_hi = base;
+  auto slot = [&](int s) { return base + 2 * kQPlane + s * kSlot; };
+  const uint32_t bars = base + 2 * kQPlane + kFwdSlots * kSlot;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kFwdSlots + s); };
+
+  // causal: the q tiles with the most k tiles start first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * kFwdRows;
+  const int b = blockIdx.y / Hq, h = blockIdx.y % Hq, hk = h / (Hq / Hkv);
+  int kt_lo, kt_hi;
+  k_tile_range(q0, kFwdRows, kFwdKeys, S, causal, window, &kt_lo, &kt_hi);
+  const int n = kt_hi - kt_lo;
+
+  if (threadIdx.x == 0) {
+    prefetch_map(&maps.q_hi);
+    prefetch_map(&maps.k_hi);
+    prefetch_map(&maps.vt_hi);
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kFwdSlots; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumer) {
+    // ---- producer: Q once, then per key tile K (hd 0-127, 128-255) and V^T
+    // (hd 0-127, 128-255), one item a slot
+    if (threadIdx.x == kConsumer) {
+      mbar_expect_tx(q_full, 2 * kQPlane);
+      for (int bx = 0; bx < HD / 32; ++bx) {
+        tma_load_4d(q_hi + bx * 8192, &maps.q_hi, q_full, 32 * bx, h, q0, b);
+        tma_load_4d(q_hi + kQPlane + bx * 8192, &maps.q_lo, q_full, 32 * bx, h, q0, b);
+      }
+      for (int j = 0; j < 4 * n; ++j) {
+        const int s = j % kFwdSlots, part = j % 4, half = part % 2;
+        const int k0 = (kt_lo + j / 4) * kFwdKeys;
+        mbar_wait(empty(s), ((j / kFwdSlots) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(full(s), kSlot);
+        if (part < 2) {  // K rows k0.., columns 128 half..: 4 boxes of 32 x 32 a plane
+          for (int bx = 0; bx < 4; ++bx) {
+            const int c = 128 * half + 32 * bx;
+            tma_load_4d(slot(s) + bx * 4096, &maps.k_hi, full(s), c, hk, k0, b);
+            tma_load_4d(slot(s) + kHalf + bx * 4096, &maps.k_lo, full(s), c, hk, k0, b);
+          }
+        } else {  // V^T rows 128 half.. (head dim), positions k0..: one 128 x 32 box a plane
+          tma_load_4d(slot(s), &maps.vt_hi, full(s), k0, 128 * half, hk, b);
+          tma_load_4d(slot(s) + kHalf, &maps.vt_lo, full(s), k0, 128 * half, hk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: q rows q0 .. q0 + 63
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int row0 = q0 + warp * 16 + lane / 4;  // rows row0 and row0 + 8
+  const int col0 = 2 * (lane % 4);
+  float m[2] = {-1e30f, -1e30f};  // finite: a fully masked row leaves m, l and acc as they are
+  float l[2] = {0.f, 0.f};
+  float acc[4][32];  // O, 64-column chunk c in acc[c]
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < n; ++it) {
+    const int k0 = (kt_lo + it) * kFwdKeys;
+    // S = Q K^T, unscaled: each head-dim half (an item) in a fresh accumulator
+    float part[2][16];
+    const int s0 = (4 * it) % kFwdSlots, s1 = (4 * it + 1) % kFwdSlots;
+    mbar_wait(full(s0), ((4 * it) / kFwdSlots) & 1);
+    mbar_wait(full(s1), ((4 * it + 1) / kFwdSlots) & 1);
+    wgmma_fence();
+#pragma unroll
+    static_assert(kScoreRefreshFwd == HD / 2, "an item is half the head dim");
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      product32<kScoreRefreshFwd / 8>(part[half], q_hi + half * 4 * 8192, kQPlane,
+                                      slot(half ? s1 : s0), kHalf,
+                    [](int kk) { return (kk / 4) * 8192 + (kk % 4) * 32; },
+                    [](int kk) { return (kk / 4) * 4096 + (kk % 4) * 32; });
+    wgmma_commit_wait();
+    fence_acc(part[0]);
+    fence_acc(part[1]);
+    if (t == 0) {
+      mbar_arrive(empty(s0));
+      mbar_arrive(empty(s1));
+    }
+    float sc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) sc[i] = part[0][i] + part[1][i];
+
+    // masks only on tiles that hold a disallowed pair; the online softmax in
+    // the log2 domain, each row's four lanes reducing in a fixed order
+    if (needs_mask(q0, kFwdRows, k0, kFwdKeys, S, causal, window)) {
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (!allowed(row0 + 8 * ((i / 2) % 2), k0 + 8 * (i / 4) + col0 + i % 2, S, causal,
+                     window))
+          sc[i] = -INFINITY;
+    }
+    float mx[2] = {-INFINITY, -INFINITY}, corr[2];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+      mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+      const float m_new = fmaxf(m[hh], mx[hh] * scale_log2);
+      corr[hh] = ex2(m[hh] - m_new);
+      m[hh] = m_new;
+      l[hh] *= corr[hh];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] *= corr[(i / 2) % 2];
+    // P, split in registers: k8 step kk is keys 8 kk.. of the tile, the A
+    // fragment (c0, c2, c1, c3) of its accumulator block (the V^T planes
+    // hold the keys in that order)
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = ex2(fmaf(sc[4 * kk + e], scale_log2, -m[e / 2]));  // 0 where masked
+        l[e / 2] += p[e];
+      }
+      x3::split(p[0], ph[kk][0], pl[kk][0]);
+      x3::split(p[2], ph[kk][1], pl[kk][1]);
+      x3::split(p[1], ph[kk][2], pl[kk][2]);
+      x3::split(p[3], ph[kk][3], pl[kk][3]);
+    }
+
+    // O += P V: per head-dim half (an item), per 64-column chunk, the tile's
+    // product in a fresh accumulator added with IEEE adds
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = 4 * it + 2 + half, s = j % kFwdSlots;
+      mbar_wait(full(s), (j / kFwdSlots) & 1);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float f[32];
+        wgmma_fence();
+        static_assert(kPvRefresh == kFwdKeys, "a tile's P V in a fresh accumulator");
+#pragma unroll
+        for (int kk = 0; kk < kPvRefresh / 8; ++kk) {
+          const uint32_t vb = slot(s) + c * 8192 + kk * 32;
+          mma64_rs(f, pl[kk], kdesc(vb), kk > 0);
+          mma64_rs(f, ph[kk], kdesc(vb + kHalf), 1);
+          mma64_rs(f, ph[kk], kdesc(vb), 1);
+        }
+        wgmma_commit_wait();
+        fence_acc(f);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          fence_regs(ph[kk]);
+          fence_regs(pl[kk]);
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[2 * half + c][i] += f[i];
+      }
+      if (t == 0) mbar_arrive(empty(s));
+    }
+  }
+
+  // epilogue: o = acc / l in float2 pairs, lse = m + log(l)
+  const size_t row_stride = static_cast<size_t>(Hq) * HD;
+  float* ob = o + static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * HD;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+    l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    l[hh] = fmaxf(l[hh], 1e-30f);
+    const int row = row0 + 8 * hh;
+    if (row >= S) continue;
+    const float inv = 1.f / l[hh];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(ob + row * row_stride + 64 * c + 8 * j + col0) =
+            make_float2(acc[c][4 * j + 2 * hh] * inv, acc[c][4 * j + 2 * hh + 1] * inv);
+    if (lane % 4 == 0) lse[(static_cast<size_t>(b) * Hq + h) * S + row] = (m[hh] + log2f(l[hh])) * kLn2;
+  }
+}
+
+// ---------------------------------------------------------------- backward
+// kKV: the dK/dV pass (resident K and V; streamed Q and dO; gradients dV^T =
+// dO^T P and dK^T = Q^T dS).  !kKV: the dQ pass (resident Q and dO; streamed
+// K and V; dQ^T = K^T dS).  The score products X0 = S and X1 = dP are taken
+// with the streamed tile as A (M, 64 rows) and the resident rows as B (N, 32
+// rows), so in the dQ pass they are S^T and dP^T.
+struct BwdMaps {
+  CUtensorMap res_hi[2], res_lo[2];  // natural, boxes of 32 rows: K, V or Q, dO
+  CUtensorMap str_hi[2], str_lo[2];  // natural, boxes of 64 rows: Q, dO or K, V
+  CUtensorMap tr_hi[2], tr_lo[2];    // transposed, boxes of 64 x 32: dO^T, Q^T or K^T
+};
+
+template <bool kKV>
+__device__ __forceinline__ void bwd_pass(const BwdMaps& maps, const float* __restrict__ lse,
+                                         const float* __restrict__ delta,
+                                         float* __restrict__ out0, float* __restrict__ out1,
+                                         int S, int Hq, int Hkv, int causal, int window,
+                                         float scale, float scale_log2) {
+  constexpr int NO = kKV ? 2 : 1;                 // gradients a block writes
+  constexpr uint32_t kResPlane = kRes * HD * 4;   // 32 KB: 8 boxes of 32 rows x 32 columns
+  constexpr uint32_t kBPlane = kRes * kTile * 4;  // 8 KB: a written B operand, 2 boxes
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - smem_addr(smem_raw));  // generic address of base
+  // resident X_i's B: hi at res(i), lo a plane later
+  auto res = [&](int i) { return base + 2 * i * kResPlane; };
+  auto slot = [&](int s) { return base + 4 * kResPlane + s * kSlot; };
+  const uint32_t bops = 4 * kResPlane + kBwdSlots * kSlot;  // offset of the written B operands
+  const uint32_t bars = base + bops + NO * 2 * kBPlane;
+  const uint32_t res_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kBwdSlots + s); };
+
+  const int G = Hq / Hkv;
+  const int b = blockIdx.y / (kKV ? Hkv : Hq), hb = blockIdx.y % (kKV ? Hkv : Hq);
+  // the block's resident rows [r0, r0 + 32): keys (dK/dV) or q rows (dQ)
+  const int rt = kKV || !causal ? blockIdx.x : gridDim.x - 1 - blockIdx.x;
+  const int r0 = rt * kRes;
+  // the streamed tiles: q tiles of the G heads that see the keys, or the
+  // key tiles the q rows see
+  int lo_t, nt, n;
+  if (kKV) {
+    int first = 0, end = S;
+    if (causal) {
+      first = r0;
+      if (window > 0) end = min(S, r0 + kRes - 1 + window);
+    }
+    lo_t = first / kTile;
+    nt = (end + kTile - 1) / kTile - lo_t;
+    n = G * nt;
+  } else {
+    int kt_hi;
+    k_tile_range(r0, kRes, kTile, S, causal, window, &lo_t, &kt_hi);
+    nt = kt_hi - lo_t;
+    n = nt;
+  }
+  // tile it: its first streamed row and its head (the streamed tensors' head)
+  auto tile_row = [&](int it) { return (lo_t + it % nt) * kTile; };
+  auto tile_head = [&](int it) { return kKV ? hb * G + it / nt : hb / G; };
+
+  if (threadIdx.x == 0) {
+    prefetch_map(&maps.res_hi[0]);
+    prefetch_map(&maps.str_hi[0]);
+    prefetch_map(&maps.tr_hi[0]);
+    mbar_init(res_full, 1);
+    for (int s = 0; s < kBwdSlots; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumer) {
+    // ---- producer: the resident rows once, then per streamed tile 8 score
+    // items (hd chunk c of both streamed tensors) and 4 gradient items per
+    // output (head-dim rows 64 mb.. of its transposed plane, 64 positions)
+    if (threadIdx.x == kConsumer) {
+      mbar_expect_tx(res_full, 4 * kResPlane);
+      for (int i = 0; i < 2; ++i)
+        for (int bx = 0; bx < HD / 32; ++bx) {
+          tma_load_4d(res(i) + bx * 4096, &maps.res_hi[i], res_full, 32 * bx, hb, r0, b);
+          tma_load_4d(res(i) + kResPlane + bx * 4096, &maps.res_lo[i], res_full, 32 * bx, hb,
+                      r0, b);
+        }
+      int j = 0;
+      for (int it = 0; it < n; ++it) {
+        const int t0 = tile_row(it), th = tile_head(it);
+        // the transposed planes' head: Q^T and dO^T by q head, K^T by kv head
+        for (int item = 0; item < 8 + 4 * NO; ++item, ++j) {
+          const int s = j % kBwdSlots;
+          mbar_wait(empty(s), ((j / kBwdSlots) & 1) ^ 1);
+          mbar_expect_tx(full(s), kSlot);
+          if (item < 8) {  // X0's and X1's A: rows t0.., hd columns 32 item..
+            for (int i = 0; i < 2; ++i) {
+              tma_load_4d(slot(s) + i * 16384, &maps.str_hi[i], full(s), 32 * item, th, t0, b);
+              tma_load_4d(slot(s) + i * 16384 + 8192, &maps.str_lo[i], full(s), 32 * item, th,
+                          t0, b);
+            }
+          } else {  // output (item - 8) / 4's A: hd rows 64 mb.., positions t0..
+            const int ot = (item - 8) / 4, mb = (item - 8) % 4;
+            for (int sub = 0; sub < 2; ++sub) {
+              tma_load_4d(slot(s) + sub * 8192, &maps.tr_hi[ot], full(s), t0 + 32 * sub, 64 * mb,
+                          th, b);
+              tma_load_4d(slot(s) + 16384 + sub * 8192, &maps.tr_lo[ot], full(s), t0 + 32 * sub,
+                          64 * mb, th, b);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+  // the dQ pass's statistics are by column (its q rows), fixed for the block
+  float cl[8], cd[8];
+  if (!kKV) {
+    const size_t stat = (static_cast<size_t>(b) * Hq + hb) * S;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int q = r0 + 8 * (i / 2) + 2 * tq + i % 2;
+      cl[i] = q < S ? lse[stat + q] * kLog2e : 0.f;
+      cd[i] = q < S ? delta[stat + q] : 0.f;
+    }
+  }
+  float acc[NO][4][16];  // the gradients, transposed: head-dim rows 64 mb.. in acc[o][mb]
+#pragma unroll
+  for (int o = 0; o < NO; ++o)
+#pragma unroll
+    for (int mb = 0; mb < 4; ++mb)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[o][mb][i] = 0.f;
+
+  mbar_wait(res_full, 0);
+  int j = 0;
+  for (int it = 0; it < n; ++it) {
+    const int t0 = tile_row(it), th = tile_head(it);
+    // the dK/dV pass's statistics are by row (the tile's q rows)
+    float rl[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f};
+    if (kKV) {
+      const size_t stat = (static_cast<size_t>(b) * Hq + th) * S;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int q = t0 + 16 * warp + g + 8 * hh;
+        rl[hh] = q < S ? lse[stat + q] * kLog2e : 0.f;
+        rd[hh] = q < S ? delta[stat + q] : 0.f;
+      }
+    }
+    // X0 = S and X1 = dP (dQ pass: transposed), each hd chunk in a fresh
+    // accumulator
+    static_assert(kScoreRefreshBwd == 32, "an item is 32 head-dim columns, a 128-byte box");
+    float x[2][16] = {};
+    for (int c = 0; c < HD / kScoreRefreshBwd; ++c, ++j) {
+      const int s = j % kBwdSlots;
+      mbar_wait(full(s), (j / kBwdSlots) & 1);
+      float part[2][16];
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        product32<kScoreRefreshBwd / 8>(part[i], slot(s) + i * 16384, 8192,
+                                        res(i) + c * 4096, kResPlane,
+                     [](int kk) { return kk * 32; }, [](int kk) { return kk * 32; });
+      wgmma_commit_wait();
+      fence_acc(part[0]);
+      fence_acc(part[1]);
+      if (t == 0) mbar_arrive(empty(s));
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 16; ++e) x[i][e] += part[i][e];
+    }
+
+    // P = exp(S scale - lse) and dS = P (dP - D), masked only on tiles that
+    // hold a disallowed pair or rows past S
+    const int q_first = kKV ? t0 : r0, k_first = kKV ? r0 : t0;
+    const bool mask = needs_mask(q_first, kKV ? kTile : kRes, k_first, kKV ? kRes : kTile, S,
+                                 causal, window);
+    float pv[16], dsv[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      // accumulator i: streamed row mr (M), resident row nc (N)
+      const int hh = (i / 2) % 2, ci = 2 * (i / 4) + i % 2;
+      const int mr = 16 * warp + g + 8 * hh, nc = 8 * (i / 4) + 2 * tq + i % 2;
+      const int q = kKV ? t0 + mr : r0 + nc, key = kKV ? r0 + nc : t0 + mr;
+      float p = ex2(fmaf(x[0][i], scale_log2, -(kKV ? rl[hh] : cl[ci])));
+      if (mask && !(q < S && allowed(q, key, S, causal, window))) p = 0.f;
+      pv[i] = p;
+      dsv[i] = p * (x[1][i] - (kKV ? rd[hh] : cd[ci]));
+    }
+    // ... written as the gradient products' B operands (the last tile's
+    // products that read them have completed): row = the resident row,
+    // column = the streamed row's position in the planes' order, hi then lo
+    // plane, 128B-swizzled.  dK/dV: P^T for dV, dS^T for dK; dQ: dS.
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int hh = (i / 2) % 2;
+      const int nc = 8 * (i / 4) + 2 * tq + i % 2;
+      const int pos = 8 * (2 * warp + hh) + ipos8(g);  // of streamed row 16 warp + g + 8 hh
+      uint32_t* at = reinterpret_cast<uint32_t*>(gbase + bops + (pos / 32) * 4096 +
+                                                 swz(nc, pos % 32));
+      constexpr int kLo = kBPlane / 4, kNext = 2 * kBPlane / 4;  // in words
+      uint32_t hi, lo;
+      x3::split(kKV ? pv[i] : dsv[i], hi, lo);
+      at[0] = hi;
+      at[kLo] = lo;
+      if (kKV) {
+        x3::split(dsv[i], hi, lo);
+        at[kNext] = hi;
+        at[kNext + kLo] = lo;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumer) : "memory");
+
+    // the gradients, transposed (M = the head dim): output o's head-dim rows
+    // 64 mb.. from its transposed plane (an item) times its B operand, the
+    // tile's product in a fresh accumulator added with IEEE adds
+#pragma unroll
+    for (int o = 0; o < NO; ++o) {
+#pragma unroll
+      for (int mb = 0; mb < 4; ++mb, ++j) {
+        const int s = j % kBwdSlots;
+        mbar_wait(full(s), (j / kBwdSlots) & 1);
+        float f[16];
+        wgmma_fence();
+        static_assert(kGradRefresh == kTile, "a streamed tile's rows in a fresh accumulator");
+        product32<kGradRefresh / 8>(f, slot(s), 16384, base + bops + o * 2 * kBPlane, kBPlane,
+                     [](int kk) { return (kk / 4) * 8192 + (kk % 4) * 32; },
+                     [](int kk) { return (kk / 4) * 4096 + (kk % 4) * 32; });
+        wgmma_commit_wait();
+        fence_acc(f);
+        if (t == 0) mbar_arrive(empty(s));
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[o][mb][i] += f[i];
+      }
+    }
+  }
+
+  // epilogue: acc[o][mb][i] is head-dim row 64 mb + 16 warp + g + 8 ((i / 2) %
+  // 2) of resident row r0 + 8 (i / 4) + 2 tq + i % 2; dK and dQ scaled once
+  const int Ho = kKV ? Hkv : Hq;
+  const size_t row_stride = static_cast<size_t>(Ho) * HD;
+#pragma unroll
+  for (int o = 0; o < NO; ++o) {
+    float* ob = (o == 0 ? out0 : out1) + static_cast<size_t>(b) * S * row_stride +
+                static_cast<size_t>(hb) * HD;
+    const float mul = kKV && o == 0 ? 1.f : scale;
+#pragma unroll
+    for (int mb = 0; mb < 4; ++mb)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int row = r0 + 8 * (i / 4) + 2 * tq + i % 2;
+        if (row < S)
+          ob[row * row_stride + 64 * mb + 16 * warp + g + 8 * ((i / 2) % 2)] = acc[o][mb][i] * mul;
+      }
+  }
+}
+
+// The two passes as kernels of their own names (profiles tell them apart).
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tf32x3_hd256_dkdv_kernel(const __grid_constant__ BwdMaps maps,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               float* __restrict__ dv, float* __restrict__ dk, int S, int Hq,
+                               int Hkv, int causal, int window, float scale, float scale_log2) {
+  bwd_pass<true>(maps, lse, delta, dv, dk, S, Hq, Hkv, causal, window, scale, scale_log2);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tf32x3_hd256_dq_kernel(const __grid_constant__ BwdMaps maps,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             float* __restrict__ dq, int S, int Hq, int Hkv, int causal,
+                             int window, float scale, float scale_log2) {
+  bwd_pass<false>(maps, lse, delta, dq, nullptr, S, Hq, Hkv, causal, window, scale, scale_log2);
+}
+
+// -------------------------------------------------------------- the probe
+// The route's building blocks on one tile, from the split pass's planes: s =
+// q k^T [64 x 32] (both K-major from shared memory), o = s v [64 x 256] (s as
+// the register A operand against the permuted V^T planes) and z = s^T q
+// [32 x 256] (s written as a B operand in the planes' order, Q^T as A: the
+// backward's transposed gradient product); q [64, 256], k and v [32, 256].
+struct ProbeMaps {
+  CUtensorMap q_hi, q_lo, k_hi, k_lo, vt_hi, vt_lo, qt_hi, qt_lo;
+};
+
+__global__ void __launch_bounds__(kConsumer, 1)
+flash_tf32x3_hd256_probe_kernel(const __grid_constant__ ProbeMaps maps, float* __restrict__ s_out,
+                                float* __restrict__ o_out, float* __restrict__ z_out) {
+  constexpr uint32_t kQPlane = 64 * HD * 4, kHalf = kSlot / 2, kBPlane = kRes * kTile * 4;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t a_reg = base, b_reg = base + 2 * kQPlane, bop = b_reg + 2 * kSlot;
+  const uint32_t bar = bop + 2 * kBPlane;  // three barriers, one a phase
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32, g = lane / 4, tq = lane % 4;
+  if (t == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (t == 0) {  // Q's planes, and K as the forward's two items
+    mbar_expect_tx(bar, 2 * kQPlane + 2 * kSlot);
+    for (int bx = 0; bx < HD / 32; ++bx) {
+      tma_load_4d(a_reg + bx * 8192, &maps.q_hi, bar, 32 * bx, 0, 0, 0);
+      tma_load_4d(a_reg + kQPlane + bx * 8192, &maps.q_lo, bar, 32 * bx, 0, 0, 0);
+      const uint32_t kb = b_reg + (bx / 4) * kSlot + (bx % 4) * 4096;
+      tma_load_4d(kb, &maps.k_hi, bar, 32 * bx, 0, 0, 0);
+      tma_load_4d(kb + kHalf, &maps.k_lo, bar, 32 * bx, 0, 0, 0);
+    }
+  }
+  mbar_wait(bar, 0);
+  float part[2][16];
+  wgmma_fence();
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+    product32<16>(part[half], a_reg + half * 4 * 8192, kQPlane, b_reg + half * kSlot, kHalf,
+                  [](int kk) { return (kk / 4) * 8192 + (kk % 4) * 32; },
+                  [](int kk) { return (kk / 4) * 4096 + (kk % 4) * 32; });
+  wgmma_commit_wait();
+  fence_acc(part[0]);
+  fence_acc(part[1]);
+  float sc[16];
+  uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    sc[i] = part[0][i] + part[1][i];
+    s_out[(16 * warp + g + 8 * ((i / 2) % 2)) * 32 + 8 * (i / 4) + 2 * tq + i % 2] = sc[i];
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    x3::split(sc[4 * kk], ph[kk][0], pl[kk][0]);
+    x3::split(sc[4 * kk + 2], ph[kk][1], pl[kk][1]);
+    x3::split(sc[4 * kk + 1], ph[kk][2], pl[kk][2]);
+    x3::split(sc[4 * kk + 3], ph[kk][3], pl[kk][3]);
+  }
+  __syncthreads();  // K is consumed: V^T's two items take its place
+  if (t == 0) {
+    mbar_expect_tx(bar + 8, 2 * kSlot);
+    for (int half = 0; half < 2; ++half) {
+      tma_load_4d(b_reg + half * kSlot, &maps.vt_hi, bar + 8, 0, 128 * half, 0, 0);
+      tma_load_4d(b_reg + half * kSlot + kHalf, &maps.vt_lo, bar + 8, 0, 128 * half, 0, 0);
+    }
+  }
+  mbar_wait(bar + 8, 0);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    float f[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t vb = b_reg + (c / 2) * kSlot + (c % 2) * 8192 + kk * 32;
+      mma64_rs(f, pl[kk], kdesc(vb), kk > 0);
+      mma64_rs(f, ph[kk], kdesc(vb + kHalf), 1);
+      mma64_rs(f, ph[kk], kdesc(vb), 1);
+    }
+    wgmma_commit_wait();
+    fence_acc(f);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(ph[kk]);
+      fence_regs(pl[kk]);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      o_out[(16 * warp + g + 8 * ((i / 2) % 2)) * HD + 64 * c + 8 * (i / 4) + 2 * tq + i % 2] =
+          f[i];
+  }
+  // s as the B operand [32 keys x 64 q positions], as the dK/dV pass writes P^T
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int hh = (i / 2) % 2, nc = 8 * (i / 4) + 2 * tq + i % 2;
+    const int pos = 8 * (2 * warp + hh) + ipos8(g);
+    uint32_t* at = reinterpret_cast<uint32_t*>(gbase + (bop - base) + (pos / 32) * 4096 +
+                                               swz(nc, pos % 32));
+    uint32_t hi, lo;
+    x3::split(sc[i], hi, lo);
+    at[0] = hi;
+    at[kBPlane / 4] = lo;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();  // and Q is consumed: Q^T's four items take its place
+  if (t == 0) {
+    mbar_expect_tx(bar + 16, 4 * kSlot);
+    for (int mb = 0; mb < 4; ++mb)
+      for (int sub = 0; sub < 2; ++sub) {
+        tma_load_4d(a_reg + mb * kSlot + sub * 8192, &maps.qt_hi, bar + 16, 32 * sub, 64 * mb, 0,
+                    0);
+        tma_load_4d(a_reg + mb * kSlot + 16384 + sub * 8192, &maps.qt_lo, bar + 16, 32 * sub,
+                    64 * mb, 0, 0);
+      }
+  }
+  mbar_wait(bar + 16, 0);
+#pragma unroll
+  for (int mb = 0; mb < 4; ++mb) {
+    float f[16];
+    wgmma_fence();
+    product32<8>(f, a_reg + mb * kSlot, 16384, bop, kBPlane,
+                 [](int kk) { return (kk / 4) * 8192 + (kk % 4) * 32; },
+                 [](int kk) { return (kk / 4) * 4096 + (kk % 4) * 32; });
+    wgmma_commit_wait();
+    fence_acc(f);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      z_out[(8 * (i / 4) + 2 * tq + i % 2) * HD + 64 * mb + 16 * warp + g + 8 * ((i / 2) % 2)] =
+          f[i];
+  }
+}
+
+// ---------------------------------------------------------------- launches
+// A 4-D fp32 tensor map over a contiguous array of extents dims (innermost
+// first), boxes of `box`, 128B-swizzled (the inner box is 32 floats, 128
+// bytes); elements out of bounds read as zeros.
+bool encode_f32(CUtensorMap* map, const float* ptr, const int (&dims)[4], const int (&box)[4]) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t d[4], strides[3];
+  cuuint32_t bx[4], elem_strides[4] = {1, 1, 1, 1};
+  cuuint64_t stride = 4;
+  for (int i = 0; i < 4; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    bx[i] = static_cast<cuuint32_t>(box[i]);
+    stride *= d[i];
+    if (i < 3) strides[i] = stride;
+  }
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(ptr), d, strides, bx,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A natural plane [B, S, H, 256] in boxes of 32 columns x `rows` rows.
+bool encode_nat(CUtensorMap* map, const float* p, int B, int S, int H, int rows) {
+  return encode_f32(map, p, {HD, H, S, B}, {32, 1, rows, 1});
+}
+// A transposed plane [B, H, 256, S_pad] in boxes of 32 positions x `rows`
+// head-dim rows.
+bool encode_tr(CUtensorMap* map, const float* p, int B, int S_pad, int H, int rows) {
+  return encode_f32(map, p, {S_pad, HD, H, B}, {32, rows, 1, 1});
+}
+
+// The workspace, in floats, as kernels/flash_attention.py's workspace()
+// allocates it: hi and lo planes, natural ones first.  Forward: Q, K, V^T.
+// Backward: Q, dO, K, V, Q^T, dO^T, K^T.
+struct Carve {
+  float* at;
+  float* take(size_t n) {
+    float* p = at;
+    at += n;
+    return p;
+  }
+};
+
+cudaError_t split_rows(const SplitRows& jobs, int njobs, long long max_n4, cudaStream_t stream) {
+  const long long want = (max_n4 + 255) / 256;
+  dim3 grid(static_cast<unsigned>(want < 2048 ? want : 2048), njobs);
+  flash_tf32x3_split_kernel<<<grid, 256, 0, stream>>>(jobs);
+  return cudaGetLastError();
+}
+
+cudaError_t split_t(const SplitT& jobs, int njobs, int B, int S, int Hmax, cudaStream_t stream) {
+  dim3 grid(padded(S) / 32, Hmax * (HD / 32), B * njobs);
+  flash_tf32x3_split_t_kernel<<<grid, 256, 0, stream>>>(jobs, B, S, padded(S));
+  return cudaGetLastError();
+}
+
+constexpr int fwd_smem() { return 2 * kFwdRows * HD * 4 + kFwdSlots * kSlot + 8 * (1 + 2 * kFwdSlots) + 1024; }
+template <bool kKV>
+constexpr int bwd_smem() {
+  return 4 * kRes * HD * 4 + kBwdSlots * kSlot + (kKV ? 2 : 1) * 2 * kRes * kTile * 4 +
+         8 * (1 + 2 * kBwdSlots) + 1024;
+}
+constexpr int probe_smem() { return 2 * 64 * HD * 4 + 2 * kSlot + 2 * kRes * kTile * 4 + 24 + 1024; }
+
+cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse, void* ws, int B,
+                int S, int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+  const size_t nq = static_cast<size_t>(B) * S * Hq * HD, nk = static_cast<size_t>(B) * S * Hkv * HD;
+  const size_t nkt = static_cast<size_t>(B) * Hkv * HD * padded(S);
+  Carve w{static_cast<float*>(ws)};
+  float *qh = w.take(nq), *ql = w.take(nq), *kh = w.take(nk), *kl = w.take(nk);
+  float *vth = w.take(nkt), *vtl = w.take(nkt);
+  SplitRows rows{{static_cast<const float4*>(q), static_cast<const float4*>(k)},
+                 {reinterpret_cast<float4*>(qh), reinterpret_cast<float4*>(kh)},
+                 {reinterpret_cast<float4*>(ql), reinterpret_cast<float4*>(kl)},
+                 {static_cast<long long>(nq / 4), static_cast<long long>(nk / 4)}};
+  cudaError_t err = split_rows(rows, 2, nq / 4, stream);
+  if (err != cudaSuccess) return err;
+  SplitT tr{{static_cast<const float*>(v)}, {reinterpret_cast<uint32_t*>(vth)},
+            {reinterpret_cast<uint32_t*>(vtl)}, {Hkv}};
+  err = split_t(tr, 1, B, S, Hkv, stream);
+  if (err != cudaSuccess) return err;
+  FwdMaps maps;
+  if (!encode_nat(&maps.q_hi, qh, B, S, Hq, kFwdRows) ||
+      !encode_nat(&maps.q_lo, ql, B, S, Hq, kFwdRows) ||
+      !encode_nat(&maps.k_hi, kh, B, S, Hkv, kFwdKeys) ||
+      !encode_nat(&maps.k_lo, kl, B, S, Hkv, kFwdKeys) ||
+      !encode_tr(&maps.vt_hi, vth, B, padded(S), Hkv, 128) ||
+      !encode_tr(&maps.vt_lo, vtl, B, padded(S), Hkv, 128))
+    return cudaErrorInvalidValue;
+  err = allow_smem(flash_tf32x3_hd256_fwd_kernel, fwd_smem());
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + kFwdRows - 1) / kFwdRows, B * Hq);
+  flash_tf32x3_hd256_fwd_kernel<<<grid, kThreads, fwd_smem(), stream>>>(
+      maps, static_cast<float*>(o), static_cast<float*>(lse), S, Hq, Hkv, causal, window,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
+cudaError_t bwd(const void* q, const void* k, const void* v, const void* o, const void* lse,
+                const void* dout, void* delta, void* dq, void* dk, void* dv, void* ws, int B,
+                int S, int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+  const int Sp = padded(S);
+  const size_t nq = static_cast<size_t>(B) * S * Hq * HD, nk = static_cast<size_t>(B) * S * Hkv * HD;
+  const size_t nqt = static_cast<size_t>(B) * Hq * HD * Sp, nkt = static_cast<size_t>(B) * Hkv * HD * Sp;
+  Carve w{static_cast<float*>(ws)};
+  float *qh = w.take(nq), *ql = w.take(nq), *doh = w.take(nq), *dol = w.take(nq);
+  float *kh = w.take(nk), *kl = w.take(nk), *vh = w.take(nk), *vl = w.take(nk);
+  float *qth = w.take(nqt), *qtl = w.take(nqt), *doth = w.take(nqt), *dotl = w.take(nqt);
+  float *kth = w.take(nkt), *ktl = w.take(nkt);
+  auto f4 = [](const void* p) { return static_cast<const float4*>(p); };
+  auto w4 = [](float* p) { return reinterpret_cast<float4*>(p); };
+  auto u = [](float* p) { return reinterpret_cast<uint32_t*>(p); };
+  const long long n4q = static_cast<long long>(nq / 4), n4k = static_cast<long long>(nk / 4);
+  SplitRows rows{{f4(q), f4(dout), f4(k), f4(v)},
+                 {w4(qh), w4(doh), w4(kh), w4(vh)},
+                 {w4(ql), w4(dol), w4(kl), w4(vl)},
+                 {n4q, n4q, n4k, n4k}};
+  cudaError_t err = split_rows(rows, 4, n4q, stream);
+  if (err != cudaSuccess) return err;
+  SplitT tr{{static_cast<const float*>(q), static_cast<const float*>(dout),
+             static_cast<const float*>(k)},
+            {u(qth), u(doth), u(kth)},
+            {u(qtl), u(dotl), u(ktl)},
+            {Hq, Hq, Hkv}};
+  err = split_t(tr, 3, B, S, Hq, stream);
+  if (err != cudaSuccess) return err;
+  const int rows_total = B * S * Hq;
+  float* dt = static_cast<float*>(delta);
+  flash_delta_kernel<float, HD><<<(rows_total + 31) / 32, 256, 0, stream>>>(
+      static_cast<const float*>(o), static_cast<const float*>(dout), dt, rows_total, S, Hq);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // dK/dV: resident K, V (32 keys), streamed Q, dO (64 rows), dO^T for dV
+  // and Q^T for dK
+  BwdMaps kv, dqm;
+  if (!encode_nat(&kv.res_hi[0], kh, B, S, Hkv, kRes) || !encode_nat(&kv.res_lo[0], kl, B, S, Hkv, kRes) ||
+      !encode_nat(&kv.res_hi[1], vh, B, S, Hkv, kRes) || !encode_nat(&kv.res_lo[1], vl, B, S, Hkv, kRes) ||
+      !encode_nat(&kv.str_hi[0], qh, B, S, Hq, kTile) || !encode_nat(&kv.str_lo[0], ql, B, S, Hq, kTile) ||
+      !encode_nat(&kv.str_hi[1], doh, B, S, Hq, kTile) ||
+      !encode_nat(&kv.str_lo[1], dol, B, S, Hq, kTile) ||
+      !encode_tr(&kv.tr_hi[0], doth, B, Sp, Hq, kTile) || !encode_tr(&kv.tr_lo[0], dotl, B, Sp, Hq, kTile) ||
+      !encode_tr(&kv.tr_hi[1], qth, B, Sp, Hq, kTile) || !encode_tr(&kv.tr_lo[1], qtl, B, Sp, Hq, kTile))
+    return cudaErrorInvalidValue;
+  // dQ: resident Q, dO (32 rows), streamed K, V (64 keys), K^T
+  if (!encode_nat(&dqm.res_hi[0], qh, B, S, Hq, kRes) || !encode_nat(&dqm.res_lo[0], ql, B, S, Hq, kRes) ||
+      !encode_nat(&dqm.res_hi[1], doh, B, S, Hq, kRes) ||
+      !encode_nat(&dqm.res_lo[1], dol, B, S, Hq, kRes) ||
+      !encode_nat(&dqm.str_hi[0], kh, B, S, Hkv, kTile) ||
+      !encode_nat(&dqm.str_lo[0], kl, B, S, Hkv, kTile) ||
+      !encode_nat(&dqm.str_hi[1], vh, B, S, Hkv, kTile) ||
+      !encode_nat(&dqm.str_lo[1], vl, B, S, Hkv, kTile) ||
+      !encode_tr(&dqm.tr_hi[0], kth, B, Sp, Hkv, kTile) ||
+      !encode_tr(&dqm.tr_lo[0], ktl, B, Sp, Hkv, kTile))
+    return cudaErrorInvalidValue;
+  dqm.tr_hi[1] = dqm.tr_hi[0];
+  dqm.tr_lo[1] = dqm.tr_lo[0];
+  err = allow_smem(flash_tf32x3_hd256_dkdv_kernel, bwd_smem<true>());
+  if (err == cudaSuccess) err = allow_smem(flash_tf32x3_hd256_dq_kernel, bwd_smem<false>());
+  if (err != cudaSuccess) return err;
+  const float* lt = static_cast<const float*>(lse);
+  flash_tf32x3_hd256_dkdv_kernel<<<dim3((S + kRes - 1) / kRes, B * Hkv), kThreads,
+                                   bwd_smem<true>(), stream>>>(
+      kv, lt, dt, static_cast<float*>(dv), static_cast<float*>(dk), S, Hq, Hkv, causal, window,
+      scale, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_tf32x3_hd256_dq_kernel<<<dim3((S + kRes - 1) / kRes, B * Hq), kThreads,
+                                 bwd_smem<false>(), stream>>>(
+      dqm, lt, dt, static_cast<float*>(dq), S, Hq, Hkv, causal, window, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+// q [64, 256], k and v [32, 256]; s [64, 32], o [64, 256], z [32, 256]; ws
+// holds eight planes of 64 x 256 floats.
+cudaError_t probe(const void* q, const void* k, const void* v, void* s, void* o, void* z,
+                  void* ws, cudaStream_t stream) {
+  constexpr size_t kPlaneFloats = 64 * HD;
+  Carve w{static_cast<float*>(ws)};
+  float *qh = w.take(kPlaneFloats), *ql = w.take(kPlaneFloats), *kh = w.take(kPlaneFloats);
+  float *kl = w.take(kPlaneFloats), *vth = w.take(kPlaneFloats), *vtl = w.take(kPlaneFloats);
+  float *qth = w.take(kPlaneFloats), *qtl = w.take(kPlaneFloats);
+  SplitRows rows{{static_cast<const float4*>(q), static_cast<const float4*>(k)},
+                 {reinterpret_cast<float4*>(qh), reinterpret_cast<float4*>(kh)},
+                 {reinterpret_cast<float4*>(ql), reinterpret_cast<float4*>(kl)},
+                 {64 * HD / 4, 32 * HD / 4}};
+  cudaError_t err = split_rows(rows, 2, 64 * HD / 4, stream);
+  if (err != cudaSuccess) return err;
+  SplitT vt{{static_cast<const float*>(v)}, {reinterpret_cast<uint32_t*>(vth)},
+            {reinterpret_cast<uint32_t*>(vtl)}, {1}};
+  SplitT qt{{static_cast<const float*>(q)}, {reinterpret_cast<uint32_t*>(qth)},
+            {reinterpret_cast<uint32_t*>(qtl)}, {1}};
+  err = split_t(vt, 1, 1, 32, 1, stream);
+  if (err == cudaSuccess) err = split_t(qt, 1, 1, 64, 1, stream);
+  if (err != cudaSuccess) return err;
+  ProbeMaps maps;
+  if (!encode_nat(&maps.q_hi, qh, 1, 64, 1, 64) || !encode_nat(&maps.q_lo, ql, 1, 64, 1, 64) ||
+      !encode_nat(&maps.k_hi, kh, 1, 32, 1, 32) || !encode_nat(&maps.k_lo, kl, 1, 32, 1, 32) ||
+      !encode_tr(&maps.vt_hi, vth, 1, padded(32), 1, 128) ||
+      !encode_tr(&maps.vt_lo, vtl, 1, padded(32), 1, 128) ||
+      !encode_tr(&maps.qt_hi, qth, 1, padded(64), 1, 64) ||
+      !encode_tr(&maps.qt_lo, qtl, 1, padded(64), 1, 64))
+    return cudaErrorInvalidValue;
+  err = allow_smem(flash_tf32x3_hd256_probe_kernel, probe_smem());
+  if (err != cudaSuccess) return err;
+  flash_tf32x3_hd256_probe_kernel<<<1, kConsumer, probe_smem(), stream>>>(
+      maps, static_cast<float*>(s), static_cast<float*>(o), static_cast<float*>(z));
+  return cudaGetLastError();
+}
+
+}  // namespace x3w
+
 #define REPRO_TF32X3_HEAD_DIMS(X) X(64) X(80) X(96) X(128)
 
 #define REPRO_HEAD_DIMS(X) X(64) X(80) X(96) X(128) X(256)
@@ -2785,14 +3843,17 @@ extern "C" int repro_flash_wgmma_smem_bytes(int kernel, int hd) {
   return -1;
 }
 
-// The tf32x3 route: fp32, hd 64, 80, 96 or 128, every pointer 16-byte
+// The tf32x3 route: fp32, hd 64, 80, 96, 128 or 256, every pointer 16-byte
 // aligned (flash_attention.py's route() decides).  The same arguments as the
-// wgmma route's entry points; the backward's three launches are D =
-// rowsum(dO * O) into `delta`, the dK/dV pass and the dQ pass.
+// wgmma route's entry points and `ws`, the split planes' workspace at hd 256
+// (flash_attention.py's workspace() allocates it per call; unused below hd
+// 256); the backward's launches are D = rowsum(dO * O) into `delta`, the
+// dK/dV pass and the dQ pass, after the split pass at hd 256.
 extern "C" int repro_flash_tf32x3_fwd(const void* q, const void* k, const void* v, void* o,
-                                      void* lse, int B, int S, int Hq, int Hkv, int hd, int causal,
-                                      int window, float scale, void* stream) {
+                                      void* lse, void* ws, int B, int S, int Hq, int Hkv, int hd,
+                                      int causal, int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 256) return (int)x3w::fwd(q, k, v, o, lse, ws, B, S, Hq, Hkv, causal, window, scale, st);
 #define REPRO_X3_FWD(HD) \
   if (hd == HD) return (int)x3::fwd<HD>(q, k, v, o, lse, B, S, Hq, Hkv, causal, window, scale, st);
   REPRO_TF32X3_HEAD_DIMS(REPRO_X3_FWD)
@@ -2802,9 +3863,12 @@ extern "C" int repro_flash_tf32x3_fwd(const void* q, const void* k, const void* 
 
 extern "C" int repro_flash_tf32x3_bwd(const void* q, const void* k, const void* v, const void* o,
                                       const void* lse, const void* dout, void* delta, void* dq,
-                                      void* dk, void* dv, int B, int S, int Hq, int Hkv, int hd,
-                                      int causal, int window, float scale, void* stream) {
+                                      void* dk, void* dv, void* ws, int B, int S, int Hq, int Hkv,
+                                      int hd, int causal, int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 256)
+    return (int)x3w::bwd(q, k, v, o, lse, dout, delta, dq, dk, dv, ws, B, S, Hq, Hkv, causal,
+                         window, scale, st);
 #define REPRO_X3_BWD(HD)                                                                     \
   if (hd == HD)                                                                              \
     return (int)x3::bwd<HD>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, S, Hq, Hkv, causal, \
@@ -2826,9 +3890,19 @@ extern "C" int repro_flash_tf32x3_probe(const void* q, const void* k, const void
   return (int)cudaErrorInvalidValue;
 }
 
+// The hd-256 design's building blocks on one tile (x3w::probe): q [64, 256],
+// k and v [32, 256] fp32; s = q k^T [64, 32], o = s v [64, 256] and z = s^T q
+// [32, 256]; `ws` holds eight planes of 64 x 256 floats.
+extern "C" int repro_flash_tf32x3_hd256_probe(const void* q, const void* k, const void* v,
+                                              void* s, void* o, void* z, void* ws, void* stream) {
+  return (int)x3w::probe(q, k, v, s, o, z, ws, static_cast<cudaStream_t>(stream));
+}
+
 // Dynamic shared memory of a tf32x3 block at head dim hd, for build reports:
 // kernel 0 the forward, 1 the dK/dV pass, 2 the dQ pass; -1 for another hd.
 extern "C" int repro_flash_tf32x3_smem_bytes(int kernel, int hd) {
+  if (hd == 256)
+    return kernel == 0 ? x3w::fwd_smem() : kernel == 1 ? x3w::bwd_smem<true>() : x3w::bwd_smem<false>();
 #define REPRO_X3_SMEM(HD) \
   if (hd == HD)           \
     return kernel == 0 ? x3::fwd_smem<HD>() : kernel == 1 ? x3::dkdv_smem<HD>() : x3::dq_smem<HD>();

@@ -7,12 +7,13 @@ entry: a ``torch.autograd.Function`` whose forward launches the forward
 kernel (output and row log-sum-exp) and whose backward launches the
 backward kernels.  Positions are ``arange(S)``, as on the Pallas path.
 
-Each direction has three designs, and :func:`route` picks one before the
+Each direction has three routes, and :func:`route` picks one before the
 launch from the dtype, the head dim and the pointers: ``"wgmma"`` (tensor
-cores fed by TMA, bf16 at every head dim), ``"tf32x3"`` (tensor cores
-through ``mma.sync``, fp32 at hd 64-128, each product as three TF32 products
-that hold fp32's accuracy) or ``"simt"`` (fp32 FMAs on the CUDA cores: fp32
-at hd 256, and misaligned tensors).
+cores fed by TMA, bf16 at every head dim), ``"tf32x3"`` (fp32, each product
+as three TF32 products that hold fp32's accuracy: through ``mma.sync`` at hd
+64-128, through ``wgmma`` at hd 256 after a split pass into hi and lo planes
+held in a per-call :func:`workspace`) or ``"simt"`` (fp32 FMAs on the CUDA
+cores, for misaligned tensors).
 ``LAUNCHES`` and ``BWD_LAUNCHES`` count the forward and backward launches by
 route (one backward call launches all its passes from one C call).
 """
@@ -23,7 +24,9 @@ import torch
 from repro_torch.kernels import build as _build
 
 HEAD_DIMS = (64, 80, 96, 128, 256)
-TF32X3_HEAD_DIMS = (64, 80, 96, 128)
+TF32X3_HEAD_DIMS = (64, 80, 96, 128, 256)
+#: the hd-256 tf32x3 kernels' transposed planes round S up to this (``x3w::kPad``)
+TF32X3_PAD = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 ROUTES = ("wgmma", "tf32x3", "simt")
@@ -42,9 +45,10 @@ def build():
         "repro_flash_wgmma_bwd": [P] * 10 + [I] * 7 + [F, P],
         "repro_flash_wgmma_probe": [P] * 5 + [I] * 2 + [P],
         "repro_flash_wgmma_smem_bytes": [I] * 2,
-        "repro_flash_tf32x3_fwd": [P] * 5 + [I] * 7 + [F, P],
-        "repro_flash_tf32x3_bwd": [P] * 10 + [I] * 7 + [F, P],
+        "repro_flash_tf32x3_fwd": [P] * 6 + [I] * 7 + [F, P],
+        "repro_flash_tf32x3_bwd": [P] * 11 + [I] * 7 + [F, P],
         "repro_flash_tf32x3_probe": [P] * 5 + [I, P],
+        "repro_flash_tf32x3_hd256_probe": [P] * 8,
         "repro_flash_tf32x3_smem_bytes": [I] * 2,
     })
 
@@ -54,14 +58,31 @@ def route(dtype: torch.dtype, hd: int, *ptrs: int) -> str:
     pointer 16-byte aligned: ``"wgmma"`` for bf16 at any of ``HEAD_DIMS``
     (TMA's rules: base addresses 16-byte aligned; the row strides
     ``H * hd * 2`` bytes are multiples of 16 at these head dims),
-    ``"tf32x3"`` for fp32 at hd 64-128 (16-byte loads).  ``"simt"`` for
-    everything else (fp32 at hd 256, misaligned tensors)."""
+    ``"tf32x3"`` for fp32 at any of ``TF32X3_HEAD_DIMS`` (16-byte loads;
+    at hd 256 the split pass's 16-byte loads).  ``"simt"`` for misaligned
+    tensors."""
     if all(p % 16 == 0 for p in ptrs):
         if dtype == torch.bfloat16:
             return "wgmma"
         if hd in TF32X3_HEAD_DIMS:
             return "tf32x3"
     return "simt"
+
+
+def workspace(B: int, S: int, Hq: int, Hkv: int, hd: int, *, backward: bool,
+              device) -> torch.Tensor:
+    """The split planes of one tf32x3 call at hd 256 (hi and lo of each),
+    natural ones [B, S, H, hd] first, then transposed ones [B, H, hd, S_pad]
+    with S_pad = S rounded up to ``TF32X3_PAD``: forward Q, K and V^T;
+    backward Q, dO, K, V, Q^T, dO^T and K^T.  Empty below hd 256, where the
+    planes live in shared memory."""
+    if hd != 256:
+        return torch.empty(0, dtype=torch.float32, device=device)
+    s_pad = -(-S // TF32X3_PAD) * TF32X3_PAD
+    nq, nk = B * S * Hq * hd, B * S * Hkv * hd
+    nqt, nkt = B * Hq * hd * s_pad, B * Hkv * hd * s_pad
+    n = 4 * nq + 4 * nk + 4 * nqt + 2 * nkt if backward else 2 * nq + 2 * nk + 2 * nkt
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def _check(q, k, v, *rest) -> None:
@@ -99,9 +120,13 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     way = route(q.dtype, hd, *ptrs)
     args = (B, S, Hq, k.shape[2], hd)
     with torch.cuda.device(q.device):
-        if way != "simt":
-            err = getattr(lib, f"repro_flash_{way}_fwd")(*ptrs, *args, int(causal), int(window),
-                                                         hd ** -0.5, _build.stream_of(q))
+        if way == "wgmma":
+            err = lib.repro_flash_wgmma_fwd(*ptrs, *args, int(causal), int(window), hd ** -0.5,
+                                            _build.stream_of(q))
+        elif way == "tf32x3":
+            ws = workspace(*args, backward=False, device=q.device)
+            err = lib.repro_flash_tf32x3_fwd(*ptrs, ws.data_ptr(), *args, int(causal),
+                                             int(window), hd ** -0.5, _build.stream_of(q))
         else:
             err = lib.repro_flash_attention_fwd(*ptrs, *args, _DTYPES[q.dtype], int(causal),
                                                 int(window), hd ** -0.5, _build.stream_of(q))
@@ -129,11 +154,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     args = (B, S, Hq, k.shape[2], hd)
     with torch.cuda.device(q.device):
         if way != "simt":
-            # D = rowsum(dO * O), written by the first of the three launches
+            # D = rowsum(dO * O), written by the first of the three passes
             delta = torch.empty_like(lse)
+            extra = ()
+            if way == "tf32x3":
+                ws = workspace(*args, backward=True, device=q.device)
+                extra = (ws.data_ptr(),)
             err = getattr(lib, f"repro_flash_{way}_bwd")(
-                *ins, delta.data_ptr(), *outs, *args, int(causal), int(window), hd ** -0.5,
-                _build.stream_of(q))
+                *ins, delta.data_ptr(), *outs, *extra, *args, int(causal), int(window),
+                hd ** -0.5, _build.stream_of(q))
         else:
             err = lib.repro_flash_attention_bwd(*ins, *outs, *args, _DTYPES[q.dtype],
                                                 int(causal), int(window), hd ** -0.5,

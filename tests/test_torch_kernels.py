@@ -448,13 +448,89 @@ def _flash_tf32(q, k, v, do, products):
     return o, (dq, dk, dv)
 
 
-def test_flash_tf32x3_arithmetic_holds_fp32_tolerances(need_jax):
-    """The tf32x3 route's arithmetic, emulated on the CPU at phi3-mini's
-    attention shape (S 1024, hd 96, causal; 4 of its heads), holds the fp32
-    bars against the JAX oracle: 2e-5 on the output, 1e-4 on the gradients
-    against ``jax.vjp``.  One TF32 product misses 2e-5, which is why the
-    kernels take three."""
-    B, S, H, hd = 1, 1024, 4, 96
+def _trunc32(v):
+    """float64 -> fp32 rounded toward zero, as the tensor cores' fp32
+    accumulation adds: rounded to nearest, then one step toward zero where
+    that went past ``v``."""
+    r = v.astype(np.float32)
+    r.view(np.uint32)[...] -= (np.abs(r) > np.abs(v)).astype(np.uint32)
+    return r
+
+
+#: k of a fresh accumulator in the swiglu tf32x3 kernel: one 32-wide k-tile
+SWIGLU_K_REFRESH = 32
+
+
+def _tf32x3_truncating(a, b, k_refresh):
+    """a [..., M, K] @ b [..., K, N] as the tf32x3 wgmma kernels sum it: per
+    k8 step three TF32 products (lo hi, hi lo, hi hi), each added to an fp32
+    accumulator that truncates toward zero (the sum over the k8 step
+    exact); every ``k_refresh`` of k the accumulator starts afresh and is
+    added to the running sum with round-to-nearest fp32 adds (``k_refresh``
+    >= K: one accumulator throughout)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    pairs = [(x.astype(np.float64), y.astype(np.float64))
+             for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))]
+    K = a.shape[-1]
+    shape = np.broadcast_shapes(a.shape[:-2], b.shape[:-2]) + (a.shape[-2], b.shape[-1])
+    running = np.zeros(shape, dtype=np.float32)
+    for r0 in range(0, K, k_refresh):
+        acc = np.zeros_like(running)
+        for k0 in range(r0, min(r0 + k_refresh, K), 8):
+            for x, y in pairs:
+                acc = _trunc32(acc + x[..., k0:k0 + 8] @ y[..., k0:k0 + 8, :])
+        running = running + acc
+    return running
+
+
+#: the hd-256 tf32x3 kernels' fresh-accumulator intervals
+#: (csrc/flash_attention.cu, namespace x3w): head-dim columns of the scores
+#: S = Q K^T forward (kScoreRefreshFwd) and of S and dP backward
+#: (kScoreRefreshBwd), keys of O = P V (kPvRefresh), and rows of the
+#: gradient products dV, dK (q rows) and dQ (keys) (kGradRefresh)
+FLASH_HD256_REFRESH = dict(scores_fwd=128, scores_bwd=32, pv=32, grads=64)
+
+
+def _flash_tf32x3_hd256(q, k, v, do):
+    """Causal attention and its gradients ([H, S, 256] fp32) as the hd-256
+    tf32x3 kernels sum them: every product by :func:`_tf32x3_truncating` at
+    the kernels' refresh intervals (the gradients taken transposed, as the
+    backward passes take them: dV^T = dO^T P, dK^T = Q^T dS, dQ^T = K^T dS^T);
+    the softmax, D = rowsum(dO O) and dS = P (dP - D) in fp32."""
+    r = FLASH_HD256_REFRESH
+    S, hd = q.shape[1], q.shape[2]
+    scale = np.float32(hd ** -0.5)
+    allow = np.tril(np.ones((S, S), dtype=bool))
+    kt, qt, dot = (a.transpose(0, 2, 1) for a in (k, q, do))
+    s = _tf32x3_truncating(q, kt, r["scores_fwd"])
+    z = np.where(allow, s * scale, -np.inf)
+    m = z.max(-1, keepdims=True)
+    p = np.exp(z - m)
+    l = p.sum(-1, keepdims=True)
+    o = _tf32x3_truncating(p, v, r["pv"]) / l
+    lse = m + np.log(l)
+    d = (do * o).sum(-1, keepdims=True)
+    s = _tf32x3_truncating(q, kt, r["scores_bwd"])
+    p = np.where(allow, np.exp(s * scale - lse), np.float32(0))
+    ds = p * (_tf32x3_truncating(do, v.transpose(0, 2, 1), r["scores_bwd"]) - d)
+    dv = _tf32x3_truncating(dot, p, r["grads"]).transpose(0, 2, 1)
+    dk = _tf32x3_truncating(qt, ds, r["grads"]).transpose(0, 2, 1) * scale
+    dq = _tf32x3_truncating(kt, ds.transpose(0, 2, 1), r["grads"]).transpose(0, 2, 1) * scale
+    return o, (dq, dk, dv)
+
+
+@pytest.mark.parametrize("hd", [96, 256])
+def test_flash_tf32x3_arithmetic_holds_fp32_tolerances(need_jax, hd):
+    """The tf32x3 route's arithmetic, emulated on the CPU, holds the fp32 bars
+    against the JAX oracle: 2e-5 on the output, 1e-4 on the gradients
+    against ``jax.vjp``.  hd 96: phi3-mini's attention shape (S 1024,
+    causal; 4 of its heads), the mma.sync kernels' products rounded to
+    nearest.  hd 256: gemma3-4b's heads (S 1024, causal, 2 heads), the
+    wgmma kernels' summation (truncating accumulators refreshed at
+    ``FLASH_HD256_REFRESH``).  One TF32 product misses 2e-5, which is why
+    the kernels take three."""
+    B, S, H = 1, 1024, 4 if hd == 96 else 2
     q, k, v = _qkv(B, S, H, H, hd, seed=15)
     do = np.random.default_rng(16).standard_normal(q.shape, dtype=np.float32)
     heads = [a[0].transpose(1, 0, 2).copy() for a in (q, k, v, do)]   # [H, S, hd]
@@ -465,48 +541,13 @@ def test_flash_tf32x3_arithmetic_holds_fp32_tolerances(need_jax):
     def bshd(a):
         return a.transpose(1, 0, 2)[None]
 
-    o, grads = _flash_tf32(*heads, products=3)
+    o, grads = _flash_tf32(*heads, products=3) if hd == 96 else _flash_tf32x3_hd256(*heads)
     assert o.dtype == np.float32
     np.testing.assert_allclose(bshd(o), np.asarray(want), rtol=2e-5, atol=2e-5)
     for g, w in zip(grads, want_grads):
         np.testing.assert_allclose(bshd(g), np.asarray(w), rtol=1e-4, atol=1e-4)
     o1, _ = _flash_tf32(*heads, products=1)
     assert np.abs(bshd(o1) - np.asarray(want)).max() > 2e-5
-
-
-def _trunc32(v):
-    """float64 -> fp32 rounded toward zero, as the tensor cores' fp32
-    accumulation adds."""
-    r = v.astype(np.float32)
-    over = np.abs(r.astype(np.float64)) > np.abs(v)
-    r[over] = np.nextafter(r[over], np.float32(0))
-    return r
-
-
-#: k of a fresh accumulator in the swiglu tf32x3 kernel: one 32-wide k-tile
-SWIGLU_K_REFRESH = 32
-
-
-def _tf32x3_truncating(a, b, k_refresh):
-    """a [M, K] @ b [K, N] as the swiglu tf32x3 kernel sums it: per k8 step
-    three TF32 products (lo hi, hi lo, hi hi), each added to an fp32
-    accumulator that truncates toward zero (the sum over the k8 step
-    exact); every ``k_refresh`` of k the accumulator starts afresh and is
-    added to the running sum with round-to-nearest fp32 adds (``k_refresh``
-    >= K: one accumulator throughout)."""
-    a_hi, b_hi = _tf32(a), _tf32(b)
-    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
-    pairs = [(x.astype(np.float64), y.astype(np.float64))
-             for x, y in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi))]
-    K = a.shape[1]
-    running = np.zeros((a.shape[0], b.shape[1]), dtype=np.float32)
-    for r0 in range(0, K, k_refresh):
-        acc = np.zeros_like(running)
-        for k0 in range(r0, min(r0 + k_refresh, K), 8):
-            for x, y in pairs:
-                acc = _trunc32(acc + x[:, k0:k0 + 8] @ y[k0:k0 + 8])
-        running = running + acc
-    return running
 
 
 def _swiglu_tf32x3(x, wg, wu, dout, k_refresh):
@@ -689,11 +730,12 @@ def test_swiglu_route_takes_every_config_in_fp32(arch):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_route(dtype, hd, offset):
     """With 16-byte aligned pointers, wgmma for bf16 at every head dim (TMA's
-    rules) and tf32x3 for fp32 at hd 64-128 (16-byte loads); fp32 at hd 256
-    and misaligned tensors take the simt kernels."""
+    rules) and tf32x3 for fp32 at every head dim (16-byte loads: mma.sync at
+    hd 64-128, wgmma after the split pass at hd 256); misaligned tensors
+    take the simt kernels."""
     base = torch.empty(64, dtype=torch.bfloat16).data_ptr()   # 64-byte aligned or more
     ptrs = (base, base + 256, base + 512 + offset, base + 1024)
-    if offset % 16 or (hd == 256 and dtype == torch.float32):
+    if offset % 16:
         want = "simt"
     else:
         want = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
@@ -710,15 +752,37 @@ def test_flash_route_takes_every_config_in_bf16(arch):
                         kv[:, 2:].data_ptr()) == "wgmma"
 
 
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "qwen2.5-14b"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "qwen2.5-14b", "gemma3-4b"])
 def test_flash_route_takes_every_config_in_fp32(arch):
     # the reduced configs are fp32 (train_reduced's route), hd 64; the full
-    # widths in fp32 (train_fp32's route) hd 96 and 128
+    # widths in fp32 hd 96 (train_fp32's route), 128 and 256 (train_gemma_fp32's)
     for cfg in (get_config(arch), get_config(arch).reduced()):
         q = torch.empty(1, 3, cfg.n_heads, cfg.head_dim)
         kv = torch.empty(1, 3, cfg.n_kv_heads, cfg.head_dim)
         assert fa.route(torch.float32, cfg.head_dim, q[:, 1:].data_ptr(), kv.data_ptr(),
                         kv[:, 2:].data_ptr()) == "tf32x3"
+
+
+@pytest.mark.parametrize("S", [2048, 200, 64, 1])
+@pytest.mark.parametrize("B,Hq,Hkv", [(1, 8, 4), (2, 4, 1)])
+def test_flash_tf32x3_workspace_size(B, S, Hq, Hkv):
+    """The hd-256 tf32x3 route's split planes, hi and lo of each: forward Q
+    and K natural, V transposed; backward Q, dO, K and V natural, Q, dO and
+    K transposed, the transposed planes' S padded with zeros to a multiple of
+    64 (ragged S 200 -> 256, 1 -> 64).  Below hd 256 there is none."""
+    s_pad = {2048: 2048, 200: 256, 64: 64, 1: 64}[S]
+    assert fa.TF32X3_PAD == 64 and -(-S // 64) * 64 == s_pad
+    nq, nk = B * S * Hq * 256, B * S * Hkv * 256
+    nqt, nkt = B * Hq * 256 * s_pad, B * Hkv * 256 * s_pad
+    fwd = fa.workspace(B, S, Hq, Hkv, 256, backward=False, device="meta")
+    bwd = fa.workspace(B, S, Hq, Hkv, 256, backward=True, device="meta")
+    assert fwd.dtype == bwd.dtype == torch.float32
+    assert fwd.numel() == 2 * nq + 2 * nk + 2 * nkt
+    assert bwd.numel() == 4 * nq + 4 * nk + 4 * nqt + 2 * nkt
+    for backward in (False, True):
+        assert fa.workspace(B, S, Hq, Hkv, 128, backward=backward, device="meta").numel() == 0
+    if (B, S, Hq, Hkv) == (1, 2048, 8, 4):   # gemma3-4b's training shape: ~67 and ~184 MB
+        assert (4 * fwd.numel(), 4 * bwd.numel()) == (67_108_864, 184_549_376)
 
 
 class _RecordingLib:
@@ -783,7 +847,8 @@ def test_swiglu_wrappers_launch_and_count_by_route(monkeypatch, dtype, d, f, off
                                                  (torch.bfloat16, 256, 1, "simt"),
                                                  (torch.float32, 96, 0, "tf32x3"),
                                                  (torch.float32, 96, 1, "simt"),
-                                                 (torch.float32, 256, 0, "simt")])
+                                                 (torch.float32, 256, 0, "tf32x3"),
+                                                 (torch.float32, 256, 1, "simt")])
 def test_flash_wrappers_launch_and_count_by_route(monkeypatch, dtype, hd, offset, way):
     # the CUDA checks and the library are stood in for, so the CPU can run
     # the wrappers' routing, argument lists and counting
@@ -806,12 +871,17 @@ def test_flash_wrappers_launch_and_count_by_route(monkeypatch, dtype, hd, offset
     for name, args in lib.calls:   # every call matches the arity it was bound with
         assert len(args) == len(lib.argtypes[name]), name
     # (B, S, Hq, Hkv, hd) follow the pointers; the tensor-core backwards also
-    # pass their D scratch, the simt kernels the dtype code
+    # pass their D scratch, the tf32x3 route its split planes' workspace
+    # (last of the pointers: at hd 256 an allocation of workspace()'s size,
+    # below it none), the simt kernels the dtype code
     n_ptrs = {"repro_flash_wgmma_fwd": 5, "repro_flash_wgmma_bwd": 10,
-              "repro_flash_tf32x3_fwd": 5, "repro_flash_tf32x3_bwd": 10,
+              "repro_flash_tf32x3_fwd": 6, "repro_flash_tf32x3_bwd": 11,
               "repro_flash_attention_fwd": 5, "repro_flash_attention_bwd": 9}
     for name, args in lib.calls:
         assert args[n_ptrs[name]:n_ptrs[name] + 5] == (2, 40, 8, 2, hd), name
+        if way == "tf32x3":
+            ws = args[n_ptrs[name] - 1]
+            assert (ws != 0 and ws % 16 == 0) if hd == 256 else ws == 0, (name, ws)
     assert lib.calls[0][1][-2] == pytest.approx(hd ** -0.5)
     counts = ops.launch_counts()
     assert (counts["flash_attention"], counts["flash_attention_bwd"]) == (2, 1)
@@ -910,8 +980,7 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, dtype):
         do = torch.randn(q.shape, generator=torch.Generator(cuda_device).manual_seed(1),
                          device=cuda_device).to(dtype)
         way = fa.route(dtype, hd, q.data_ptr(), k.data_ptr(), v.data_ptr())
-        assert way == ("wgmma" if dtype == torch.bfloat16 else
-                       "simt" if hd == 256 else "tf32x3")
+        assert way == ("wgmma" if dtype == torch.bfloat16 else "tf32x3")
         what = (f"B={B} S={S} Hq={Hq} Hkv={Hkv} hd={hd} causal={causal} window={window} "
                 f"{dtype} ({way})")
         ops.reset_launch_counts()
@@ -934,7 +1003,7 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, dtype):
     torch.cuda.synchronize()
 
 
-# gemma3-4b's attention (Hq 8, Hkv 4, hd 256) on the wgmma route: the
+# gemma3-4b's attention (Hq 8, Hkv 4, hd 256) on the wgmma designs: the
 # training shape's global and window-1024 layers, a ragged S, MQA, a window
 # that is no tile's multiple over a ragged S, and no mask
 FLASH_HD256 = [(1, 2048, 8, 4, 256, True, 0), (1, 2048, 8, 4, 256, True, 1024),
@@ -943,26 +1012,60 @@ FLASH_HD256 = [(1, 2048, 8, 4, 256, True, 0), (1, 2048, 8, 4, 256, True, 1024),
 
 
 @pytest.mark.cuda
-def test_cuda_flash_hd256_wgmma_matches_plain(cuda_device):
-    """bf16 at hd 256 on the wgmma route, forward and backward, against the
-    plain version at 2e-2 (outputs) and 2e-2 x max|ref| (gradients); two
-    backward calls give the same bits."""
+def test_cuda_flash_tf32x3_hd256_probe_matches_float64(cuda_device):
+    """The hd-256 tf32x3 design's building blocks on one tile, from its split
+    pass's planes: s = q k^T (both operands K-major in shared memory), o =
+    s v (s as the register A operand against the permuted V^T planes) and
+    z = s^T q (s written into shared memory as a B operand in the planes'
+    order, Q^T as A: the backward's transposed gradient products), each
+    against a float64 product of the kernel's own s at bars one TF32 product
+    misses."""
+    lib = fa.build()
+    rng = np.random.default_rng(24)
+    q, k, v = (torch.from_numpy(rng.standard_normal((rows, 256), dtype=np.float32))
+               .to(cuda_device) for rows in (64, 32, 32))
+    s = torch.full((64, 32), float("nan"), device=cuda_device)
+    o = torch.full((64, 256), float("nan"), device=cuda_device)
+    z = torch.full((32, 256), float("nan"), device=cuda_device)
+    ws = torch.empty(8 * 64 * 256, device=cuda_device)
+    err = lib.repro_flash_tf32x3_hd256_probe(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                             s.data_ptr(), o.data_ptr(), z.data_ptr(),
+                                             ws.data_ptr(), kernel_build.stream_of(q))
+    assert err == 0, f"launch failed: cudaError {err}"
+    torch.cuda.synchronize()
+    s64 = s.double()
+    torch.testing.assert_close(s64, q.double() @ k.double().T, rtol=1e-5, atol=1e-4, msg="S")
+    torch.testing.assert_close(o.double(), s64 @ v.double(), rtol=1e-5, atol=1e-3, msg="SV")
+    torch.testing.assert_close(z.double(), s64.T @ q.double(), rtol=1e-5, atol=1e-3,
+                               msg="S^T Q")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_hd256_wgmma_matches_plain(cuda_device, dtype):
+    """hd 256 on its wgmma designs, forward and backward, against the plain
+    version: bf16 on the wgmma route at 2e-2 (outputs) and 2e-2 x max|ref|
+    (gradients), fp32 on the tf32x3 route (wgmma on split planes) at 2e-5
+    and 1e-4; two backward calls give the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    way = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    tol = _tol(dtype)
     for B, S, Hq, Hkv, hd, causal, window in FLASH_HD256:
-        q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+        q, k, v = (torch.from_numpy(a).to(cuda_device, dtype)
                    for a in _qkv(B, S, Hq, Hkv, hd))
         do = torch.randn(q.shape, generator=torch.Generator(cuda_device).manual_seed(1),
-                         device=cuda_device).to(torch.bfloat16)
-        what = f"B={B} S={S} Hq={Hq} Hkv={Hkv} window={window}"
+                         device=cuda_device).to(dtype)
+        what = f"B={B} S={S} Hq={Hq} Hkv={Hkv} causal={causal} window={window} {dtype}"
         ops.reset_launch_counts()
         out, grads = _grads(lambda a, b, c: ops.flash_attention(
             a, b, c, causal=causal, window=window), (q, k, v), do)
         counts = ops.launch_counts()
-        assert (counts["flash_attention_wgmma"], counts["flash_attention_bwd_wgmma"]) == (1, 1), \
-            f"{what}: {counts}"
+        assert (counts[f"flash_attention_{way}"], counts[f"flash_attention_bwd_{way}"]) == \
+            (1, 1), f"{what}: {counts}"
         ref, ref_grads = _grads(lambda a, b, c: ops.flash_attention(
             a, b, c, causal=causal, window=window, impl="ref"), (q, k, v), do)
-        torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2, msg=what)
-        _assert_grads_close(grads, ref_grads, torch.bfloat16, what)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol, msg=what)
+        _assert_grads_close(grads, ref_grads, dtype, what)
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window)
         first = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
         second = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)

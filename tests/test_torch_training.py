@@ -327,6 +327,57 @@ def test_engine_gemma3_two_steps_match_jax_engine(two_steps_jax_gemma, use_kerne
     _assert_same_clock(res, jres)
 
 
+# tests/test_torch_models.py's heads of 256 at the reduced width
+HD256 = dict(d_model=512, n_heads=2, n_kv_heads=1, head_dim=256)
+
+
+@pytest.fixture(scope="module")
+def one_step_jax_gemma_hd256():
+    """gemma3-4b@reduced at heads of 256 (``HD256``), one period (five
+    window layers, window 64, and one global layer), fp32: one stage, d 1,
+    2 micro-batches of 2 x 96 tokens (the window binds), SGD(0.05), 1 step
+    on the JAX engine; the fp32 hd-256 path that train_gemma_fp32 runs on
+    the card at full width."""
+    jcfg, cfg = (dataclasses.replace(c, param_dtype="float32", **HD256)
+                 for c in _cfgs("gemma3-4b", n_layers=6))
+    B, S, mu = 4, 96, 2
+    L = cfg.n_layers + 2
+    x, z = (0,) * (L - 1), (0,) * L
+    params0 = jreg.init_params(jcfg, jax.random.PRNGKey(3))
+    batch = jax_make_batch(jcfg, JaxInputShape("hd256", S, B, "train"), seed=3, step=0)
+    jres = jax_run_plan(
+        jax_profile(jcfg, AWS_LAMBDA, seq=S, micro_batch=B // mu), AWS_LAMBDA,
+        JaxConfig(x=x, d=1, z=z), total_micro_batches=mu, exec_config=ExecutionConfig(steps=1),
+        execution=JaxExecution(cfg=jcfg, optimizer=JaxSGD(lr=0.05), init_params=params0,
+                               batch_fn=lambda k: batch))
+    return dict(cfg=cfg, S=S, B=B, mu=mu, x=x, z=z, jres=jres, batch=_torch_batch(batch),
+                params=params_from_jax(_np_tree(params0), device="cpu"))
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_engine_gemma3_hd256_fp32_sgd_matches_jax_engine(one_step_jax_gemma_hd256,
+                                                         use_kernels):
+    """The slice's fp32 hd-256 path end to end on the CPU (on the card,
+    ``use_kernels`` sends flash attention to the tf32x3 route at hd 256):
+    losses within 5e-5 and params within 1e-4 of the JAX engine's after one
+    SGD step (tests/test_runtime.py:286-288); the clock, cost and store
+    traffic exactly equal."""
+    r = one_step_jax_gemma_hd256
+    cfg = r["cfg"]
+    assert cfg.head_dim == 256 and [s.window for s in cfg.period] == [64] * 5 + [0]
+    res = run_plan(
+        arch_model_profile(cfg, AWS, seq=r["S"], micro_batch=r["B"] // r["mu"]), AWS,
+        Config(x=r["x"], d=1, z=r["z"]), total_micro_batches=r["mu"], steps=1,
+        execution=Execution(cfg=cfg, optimizer=SGD(lr=0.05), init_params=r["params"],
+                            batch_fn=lambda k: r["batch"], use_kernels=use_kernels,
+                            device="cpu"))
+    jres = r["jres"]
+    assert abs(res.losses[0] - jres.losses[0]) < 5e-5, (res.losses, jres.losses)
+    name, err = _param_err(res.params, jres.params)
+    assert err < 1e-4, (name, err)
+    _assert_same_clock(res, jres)
+
+
 @pytest.fixture(scope="module")
 def two_steps_jax_bf16():
     """The main path's types (bf16 params, fp32 masters) and the full-width
