@@ -101,11 +101,30 @@ and a non-zero exit:
    flash attention call held against ``impl="ref"`` at 2e-5 (output) and
    1e-4 (gradients); the kernel path within 5e-5 (loss) and 1e-4 (params)
    of the plain path; finite losses; peak memory; one profiled step.
+11. process serving (``serve_process``, run right after ``serve_full``) --
+   ``serve_full``'s request through ``run_serve_plan(...,
+   backend="process", use_kernels=True)``: each of the 4 stages a spawned
+   worker process with its own CUDA context, each stage's KV cache through
+   a file every round (payload-true bytes).  Tokens bit-identical to
+   ``serve_full``'s emulated run (which equal the monolithic loop's), the
+   children's (16 - 1) x 32 decode-attention launches, store drained;
+   request wall time and each child's peak memory.
+12. training on the wall-clock backends (``train_backends``, after
+   ``train_full``) -- ``train_full``'s plan on the emulated backend, on
+   ``local`` (a thread per worker) with eq (2) and eq (1) and on
+   ``process`` (a spawned process per worker over a file store) with eq
+   (2): losses equal and every param bit-identical to the emulated run's,
+   each step's launches exactly ``train_full``'s (summed from the children
+   on ``process``), store drained, puts, gets and modeled bytes equal to
+   the emulated run's; step wall times and each child's peak memory.  The
+   file store's root (a tmpfs with room if the run's temporary directory
+   is one, else a disk directory) is printed with its free space first.
 
 The last lines are the kernels' record (thirteen rows: decode attention,
 the bf16 main paths' training kernels on the wgmma route, hd 256's from
 train_gemma, the fp32 rows on the tf32x3 route, and fp32 hd 256's from
-train_gemma_fp32), the ``nvidia-smi`` name/power line and ``{"ok": true,
+train_gemma_fp32; ``launches`` includes the backend phases' launches, also
+given apart as ``launches_backend_phases``), the ``nvidia-smi`` name/power line and ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -115,6 +134,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1292,7 +1312,7 @@ def phase_serve_full(smi: str) -> int:
           "tokens_head": res.tokens[0].tolist()})
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, res.tokens
 
 
 def phase_serve_reduced(smi: str) -> None:
@@ -1313,6 +1333,200 @@ def phase_serve_reduced(smi: str) -> None:
           "dtype": cfg.param_dtype, "stages": plan.n_stages, **REDUCED,
           "kernel_launches": launches, "tokens_match_plain": True,
           "t_request_virtual_s": with_kernel.t_request})
+
+
+# ---------------------------------------------------------- process backends
+def _mount_of(path: Path) -> tuple:
+    """(mount point, filesystem type) that holds ``path``, from /proc/mounts."""
+    real, best = str(path.resolve()), ("/", "?")
+    for line in Path("/proc/mounts").read_text().splitlines():
+        _dev, mnt, fs = line.split()[:3]
+        if (real == mnt or real.startswith(mnt.rstrip("/") + "/")) and len(mnt) >= len(best[0]):
+            best = (mnt, fs)
+    return best
+
+
+def store_root(need_bytes: float) -> dict:
+    """Where a process backend's file store lives: of the run's temporary
+    directory and the checkout's ``build/`` (the run writes nowhere else), a
+    tmpfs with room for ``need_bytes`` twice over, else the one with the
+    most room.  Printed with its filesystem and ``shutil.disk_usage`` before
+    the phase that uses it."""
+    import tempfile
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    options = []
+    for base in (Path(tempfile.gettempdir()), build):
+        mnt, fs = _mount_of(base)
+        usage = shutil.disk_usage(base)
+        options.append((fs == "tmpfs" and usage.free >= 2 * need_bytes, usage.free, base, fs,
+                        mnt, usage))
+    tmpfs_ok, free, base, fs, mnt, usage = max(options, key=lambda o: o[:2])
+    if free < need_bytes:
+        raise RuntimeError(f"no room for the file store: {need_bytes:.3g} bytes needed, "
+                           f"{[(str(o[2]), o[1]) for o in options]} free")
+    doc = {"root": tempfile.mkdtemp(prefix="funcpipe-store-", dir=base), "fs": fs,
+           "mount": mnt, "tmpfs": fs == "tmpfs", "need_bytes": need_bytes,
+           "disk_usage": {"total": usage.total, "used": usage.used, "free": usage.free}}
+    emit({"store_root": doc})
+    return doc
+
+
+def phase_train_backends(smi: str) -> dict:
+    """``train_full``'s plan (phi3-mini-3.8b, full width, 4 layers, bf16,
+    seed 0, 2 stages x 2 replicas, 2 micro-batches of 2 x 1024 tokens,
+    AdamW(1e-4), 2 steps, ``use_kernels=True``) on the emulated backend, on
+    ``local`` (worker threads) with eq (2) and eq (1), and on ``process``
+    (spawned worker processes over a file store) with eq (2).  Each run's
+    losses equal the emulated run's and every param is bit-identical to it;
+    each step launches the wgmma kernels exactly as ``train_full`` does (on
+    ``process`` the children report their launches and the parent sums
+    them); the store drains, and its puts, gets and modeled bytes equal the
+    emulated run's.  Step wall times, each child's peak memory and the store
+    root are printed."""
+    from repro_torch.serverless.backends import ProcessBackend
+
+    spec = TRAIN
+    torch.use_deterministic_algorithms(True)
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), n_layers=spec["n_layers"])
+    torch.cuda.empty_cache()
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    prof, plat, config, M = train_setup(cfg, spec)
+    d, mu, steps = spec["d"], spec["mu"], spec["steps"]
+    batches = train_batches(cfg, spec, d, steps)
+    expect = _expected_launches(d * mu * cfg.n_layers, "wgmma", "wgmma")
+    # a step's sync objects: every stage's fp32 gradient, a part and a
+    # reduced chunk per replica
+    grad_bytes = 4.0 * sum(a.numel() for a in tree_leaves(params))
+    root = store_root(2 * grad_bytes)
+    runs = {}
+    for name, backend, pipelined in (
+            ("emulated", "emulated", True), ("local_eq2", "local", True),
+            ("local_eq1", "local", False),
+            ("process_eq2", ProcessBackend(root=root["root"]), True)):
+        marks, counts = [], []
+
+        def batch_fn(k):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            counts.append(ops.launch_counts())
+            return batches[k]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = run_plan(prof, plat, config, M, steps=steps, pipelined_sync=pipelined,
+                       backend=backend,
+                       execution=Execution(cfg=cfg, optimizer=AdamW(lr=1e-4),
+                                           init_params=params, batch_fn=batch_fn,
+                                           use_kernels=True, device="cuda"))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(ops.launch_counts())
+        rec = {"backend": res.backend, "wall_clock": res.wall_clock,
+               "pipelined_sync": pipelined, "losses": res.losses,
+               "step_wall_s": [b - a for a, b in zip(marks, marks[1:])],
+               "t_total_s": res.t_total, "breakdown": res.breakdown,
+               "store": res.store_stats.as_dict(),
+               "parent_max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        if isinstance(backend, ProcessBackend):
+            reports = backend.reports[:steps]
+            rec["launches_per_step"] = [
+                {k: sum(w["launches"][k] for w in step.values()) for k in expect}
+                for step in reports]
+            rec["child_max_memory_allocated_bytes"] = {
+                f"s{s}r{r}": w["max_memory_allocated"] for (s, r), w in reports[-1].items()}
+            rec["store_root"] = root["root"]
+            if any(counts[-1][k] for k in expect):
+                raise AssertionError(f"the parent launched kernels itself: {counts[-1]}")
+        else:
+            rec["launches_per_step"] = [{k: b[k] - a[k] for k in a}
+                                        for a, b in zip(counts, counts[1:])]
+        if any(c != expect for c in rec["launches_per_step"]) or \
+                len(rec["launches_per_step"]) != steps:
+            raise AssertionError(f"{name}: launches per step {rec['launches_per_step']}, "
+                                 f"expected {expect} in each of {steps}")
+        if not all(np.isfinite(res.losses)):
+            raise AssertionError(f"{name}: non-finite losses {res.losses}")
+        runs[name] = (rec, tree_map(lambda a: a.cpu(), res.params))
+        del res
+        torch.cuda.empty_cache()
+    ref, ref_params = runs["emulated"]
+    st0 = ref["store"]
+    for name, (rec, got) in runs.items():
+        if rec["losses"] != ref["losses"]:
+            raise AssertionError(f"{name}: losses {rec['losses']} != emulated {ref['losses']}")
+        same = [bool(torch.equal(a, b)) for a, b in zip(tree_leaves(got), tree_leaves(ref_params))]
+        if not all(same):
+            raise AssertionError(f"{name}: {same.count(False)} of {len(same)} params differ "
+                                 "from the emulated run's")
+        st = rec["store"]
+        if (st["puts"], st["gets"], st["deletes"]) != (st0["puts"], st0["gets"], st0["deletes"]) \
+                or abs(st["bytes_in"] - st0["bytes_in"]) > 1e-9 * st0["bytes_in"] \
+                or abs(st["bytes_out"] - st0["bytes_out"]) > 1e-9 * st0["bytes_out"]:
+            raise AssertionError(f"{name}: store traffic {st} != emulated {st0}")
+        rec["params_bit_identical_to_emulated"] = True
+    launches = {k: sum(step[k] for rec, _ in runs.values() for step in rec["launches_per_step"])
+                for k in expect}
+    emit({"phase": "train_backends", "card": smi, "model": "phi3-mini-3.8b",
+          "dtype": cfg.param_dtype, "n_layers": cfg.n_layers, "stages": 2, "d": d, "mu": mu,
+          "micro_batch": spec["micro_batch"], "seq": spec["seq"], "steps": steps,
+          "optimizer": "AdamW(lr=1e-4)", "store_root": root,
+          "runs": {name: rec for name, (rec, _) in runs.items()},
+          "store_drained": True, "kernel_launches": launches})
+    shutil.rmtree(root["root"])
+    del params, batches, runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_process(smi: str, tokens: np.ndarray) -> int:
+    """``serve_full``'s request (phi3-mini-3.8b at full width and depth, 32
+    layers, bf16, seed 0, batch 4, 1008 + 16 tokens, 4 stages of 8 layers)
+    through ``run_serve_plan(..., backend="process", use_kernels=True)``:
+    every stage a spawned worker process, each KV cache through a file
+    every round.  Tokens bit-identical to ``serve_full``'s emulated run,
+    which equal the monolithic ``reference_decode``; the children count
+    (16 - 1) x 32 decode-attention launches; the store drains.  Request wall
+    time, payload-true bytes and each child's peak memory are printed."""
+    torch.use_deterministic_algorithms(True)
+    model = "phi3-mini-3.8b"
+    cfg = arch_config_for_model(model)
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    plan = manual_serve_plan(model, cuts=SERVE_CUTS, **SERVE)
+    prompt = make_prompt(cfg, SERVE["batch"], SERVE["prefill_tokens"], seed=0)
+    rp = plan.resolve()
+    kv = sum(estimate_serving(rp.profile, rp.platform, rp.config, cfg,
+                              ServingSpec(slo_s=3600.0, **SERVE)).kv_bytes)
+    root = store_root(2 * kv)
+    ops.reset_launch_counts()
+    res = run_serve_plan(plan, backend="process", params=params, prompt=prompt,
+                         use_kernels=True, root=root["root"])
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"the parent launched kernels itself: {ops.launch_counts()}")
+    launches = sum(w["launches"]["decode_attention"] for w in res.worker_reports)
+    expect = (SERVE["new_tokens"] - 1) * cfg.n_layers
+    if launches != expect:
+        raise AssertionError(f"the stage processes launched decode_attention {launches} "
+                             f"times, expected (new_tokens - 1) x n_layers = {expect}")
+    if not np.array_equal(res.tokens, tokens):
+        raise AssertionError(f"process tokens differ from the emulated run's "
+                             f"(= reference_decode's):\n{res.tokens}\n{tokens}")
+    emit({"phase": "serve_process", "card": smi, "model": model, "dtype": cfg.param_dtype,
+          "n_layers": cfg.n_layers, "stages": plan.n_stages, **SERVE,
+          "kernel_launches": launches, "tokens_match_emulated_and_monolithic": True,
+          "store_drained": True, "store_root": root, "payload_true": True,
+          "store": res.store_stats.as_dict(), "request_wall_s": res.t_request,
+          "child_max_memory_allocated_bytes": [w["max_memory_allocated"]
+                                               for w in res.worker_reports],
+          "tokens_head": res.tokens[0].tolist()})
+    shutil.rmtree(root["root"])
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------- training
@@ -1876,9 +2090,12 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     recs = phase_kernel_parity(smi)
-    launches = {"decode_attention": phase_serve_full(smi)}
+    launches = {}
+    launches["decode_attention"], tokens = phase_serve_full(smi)
+    process_decode = phase_serve_process(smi, tokens)
     phase_serve_reduced(smi)
     train = phase_train_full(smi)
+    backends = phase_train_backends(smi)
     fp32 = phase_train_fp32(smi)
     # the bf16 main path's training launches all took the wgmma kernels, the
     # fp32 path's the tf32x3 kernels
@@ -1886,6 +2103,11 @@ def main() -> None:
         launches |= {name: train[f"{name}_wgmma"], f"{name}_bwd": train[f"{name}_bwd_wgmma"],
                      f"{name}_{way}": fp32[f"{name}_{way}"],
                      f"{name}_bwd_{way}": fp32[f"{name}_bwd_{way}"]}
+    # the backend phases' runs (train_backends: emulated, local, process;
+    # serve_process) launch them too
+    on_backends = {"decode_attention": process_decode,
+                   **{name: backends[f"{name}_wgmma"] for name in FP32_WAYS},
+                   **{f"{name}_bwd": backends[f"{name}_bwd_wgmma"] for name in FP32_WAYS}}
     phase_train_reduced(smi)
     # gemma3-4b's path: every flash launch at hd 256 on the wgmma route
     gemma = phase_train_gemma(smi)
@@ -1903,8 +2125,10 @@ def main() -> None:
     kernels = []
     for name, rec in recs.items():
         base = next(b for b in tpu if name.startswith(b))
+        extra = on_backends.get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": source.format(base),
-                        "replaces": tpu[base], "launches": launches[name], **rec})
+                        "replaces": tpu[base], "launches": launches[name] + extra,
+                        "launches_backend_phases": extra, **rec})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -32,6 +33,20 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
+
+#: guards the kernel modules' launch counters, which several threads of a
+#: process bump at once (the local backend's workers, autograd's device
+#: thread): ``LAUNCHES[way] += 1`` is a read-modify-write
+COUNT_LOCK = threading.Lock()
+
+
+def count_launch(counts: dict, way: str) -> None:
+    """One more launch on route ``way`` in a kernel module's counter."""
+    with COUNT_LOCK:
+        counts[way] += 1
+
+
 #: per source: library path, seconds, whether it was already built, and
 #: nvcc's report (ptxas -v)
 BUILD_INFO: Dict[str, dict] = {}
@@ -116,14 +131,16 @@ def load(name: str, functions: Dict[str, list],
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    build_all([name])
-    lib = ctypes.CDLL(BUILD_INFO[name]["path"])
-    for fn_name, argtypes in functions.items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-    _LIBS[name] = lib
-    return lib
+    with _LOAD_LOCK:    # worker threads may make a kernel's first call at once
+        if name not in _LIBS:
+            build_all([name])
+            lib = ctypes.CDLL(BUILD_INFO[name]["path"])
+            for fn_name, argtypes in functions.items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _LIBS[name] = lib
+        return _LIBS[name]
 
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -91,5 +91,6 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
             _DTYPES[q.dtype], chunk, hd ** -0.5, _build.stream_of(q))
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
-    LAUNCHES += 1
+    with _build.COUNT_LOCK:
+        LAUNCHES += 1
     return out

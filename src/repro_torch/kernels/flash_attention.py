@@ -132,7 +132,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                                 int(window), hd ** -0.5, _build.stream_of(q))
     if err != 0:
         raise RuntimeError(f"flash_attention forward launch ({way}) failed: cudaError {err}")
-    LAUNCHES[way] += 1
+    _build.count_launch(LAUNCHES, way)
     return o, lse
 
 
@@ -169,7 +169,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
                                                 _build.stream_of(q))
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch ({way}) failed: cudaError {err}")
-    BWD_LAUNCHES[way] += 1
+    _build.count_launch(BWD_LAUNCHES, way)
     return dq, dk, dv
 
 

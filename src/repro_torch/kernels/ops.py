@@ -6,6 +6,7 @@ the hand-written kernel, which launches or raises (there is no fallback).
 """
 from __future__ import annotations
 
+from repro_torch.kernels import build as _build
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
@@ -52,21 +53,23 @@ def launch_counts() -> dict:
     """Kernel launches since the last :func:`reset_launch_counts`, backward
     launches apart; flash attention's and swiglu's also by route
     (``flash_attention_wgmma``, ``swiglu_bwd_simt``, ...)."""
-    counts = {"decode_attention": _da.LAUNCHES}
-    for name, mod in (("flash_attention", _fa), ("swiglu", _sg)):
-        counts[name] = sum(mod.LAUNCHES.values())
-        counts[f"{name}_bwd"] = sum(mod.BWD_LAUNCHES.values())
-        for way in mod.ROUTES:
-            counts[f"{name}_{way}"] = mod.LAUNCHES[way]
-            counts[f"{name}_bwd_{way}"] = mod.BWD_LAUNCHES[way]
+    with _build.COUNT_LOCK:
+        counts = {"decode_attention": _da.LAUNCHES}
+        for name, mod in (("flash_attention", _fa), ("swiglu", _sg)):
+            counts[name] = sum(mod.LAUNCHES.values())
+            counts[f"{name}_bwd"] = sum(mod.BWD_LAUNCHES.values())
+            for way in mod.ROUTES:
+                counts[f"{name}_{way}"] = mod.LAUNCHES[way]
+                counts[f"{name}_bwd_{way}"] = mod.BWD_LAUNCHES[way]
     return counts
 
 
 def reset_launch_counts() -> None:
-    _da.LAUNCHES = 0
-    for mod in (_fa, _sg):
-        mod.LAUNCHES = dict.fromkeys(mod.ROUTES, 0)
-        mod.BWD_LAUNCHES = dict.fromkeys(mod.ROUTES, 0)
+    with _build.COUNT_LOCK:
+        _da.LAUNCHES = 0
+        for mod in (_fa, _sg):
+            mod.LAUNCHES = dict.fromkeys(mod.ROUTES, 0)
+            mod.BWD_LAUNCHES = dict.fromkeys(mod.ROUTES, 0)
 
 
 def decode_attention_capable(*, n_q_heads: int, n_kv_heads: int,

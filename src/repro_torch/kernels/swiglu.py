@@ -104,7 +104,7 @@ def swiglu_fwd(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor) -> tor
             err = lib.repro_swiglu_fwd(*ptrs, T, d, f, _DTYPES[x.dtype], _build.stream_of(x))
     if err != 0:
         raise RuntimeError(f"swiglu forward launch ({way}) failed: cudaError {err}")
-    LAUNCHES[way] += 1
+    _build.count_launch(LAUNCHES, way)
     return out
 
 
@@ -130,7 +130,7 @@ def swiglu_bwd(x, w_gate, w_up, dout):
             err = lib.repro_swiglu_bwd(*ptrs, T, d, f, _DTYPES[x.dtype], _build.stream_of(x))
     if err != 0:
         raise RuntimeError(f"swiglu backward launch ({way}) failed: cudaError {err}")
-    BWD_LAUNCHES[way] += 1
+    _build.count_launch(BWD_LAUNCHES, way)
     return dg, du
 
 

@@ -4,7 +4,8 @@ port): an object store plus a worker-invocation surface.
 The engines drive each stage worker as a generator program over its
 :class:`WorkerContext` (download, compute, upload and, training, a phase
 fence and a ``("sync", grad_vector)`` yield answered with the reduced
-gradient by :meth:`ExecutionBackend.run_step`).
+gradient by :meth:`ExecutionBackend.run_step`).  A backend whose workers
+live in other processes runs those programs itself (``hosts_programs``).
 """
 from __future__ import annotations
 
@@ -57,14 +58,56 @@ class WorkerContext(ABC):
         worker issues no backward download before its forward uploads are
         done."""
 
+    def wait(self, seconds: float, op: str = "retry") -> None:
+        """Charge ``seconds`` of idle occupancy on this worker (retry
+        backoff): virtual clocks stall its resources, wall-clock backends
+        sleep.  A no-op by default."""
+
+    def fetch(self, key: str, op: str = "download") -> Tuple[Any, Any]:
+        """Non-consuming ``download``: waits for visibility, charges the
+        downlink and leaves the object in the store (a checkpoint restore
+        reads one object once per stage worker).  Returns ``(value,
+        token)``; backends that restore from store checkpoints implement
+        it."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement fetch(); this "
+            "backend cannot restore from store-backed checkpoints")
+
 
 class ExecutionBackend(ABC):
     """One storage+invocation substrate a DeploymentPlan can execute on.
     ``open(agg)`` provisions the store and worker slots; ``context(s, r)``
     hands out worker handles; ``verify_drained()`` asserts byte
-    conservation after the run; ``close()`` tears down."""
+    conservation after the run; ``close()`` tears down.
 
+    Backends differ in their clock (``wall_clock``), never in numerics: a
+    plan replayed on any backend trains to bit-identical params."""
+
+    #: registry name (``repro_torch.serverless.backends.get_backend``)
     name: str = "?"
+    #: True when timings are host wall-clock, False on a modeled clock
+    wall_clock: bool = False
+    #: True when the backend runs the worker programs itself, each in its
+    #: own OS process: generators cannot cross a process boundary, so the
+    #: engine calls ``bind_run``/``stage_step``/``worker_handles`` instead
+    #: of building workers and handing out generators
+    hosts_programs: bool = False
+
+    def bind_run(self, **kw) -> None:
+        """Program-hosting hook: receive the run's execution spec
+        (``execution=``, ``config=``) before ``open()``."""
+
+    def stage_step(self, k: int, *, batch=None, losses=None) -> None:
+        """Program-hosting hook, called right before ``run_step(k, ...)``
+        with the step's evaluated batch (``Execution.batch_fn`` closures do
+        not pickle) and the ``losses`` dict the hosted programs fill."""
+
+    def worker_handles(self):
+        """Program-hosting hook: the ``S x d`` grid of stage-worker proxies
+        (``.params``/``.span`` like ``runtime.worker.StageWorker``) in place
+        of the engine's own workers."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not host worker programs")
 
     @abstractmethod
     def open(self, agg) -> None:
@@ -93,6 +136,18 @@ class ExecutionBackend(ABC):
     def delete(self, key: str) -> None:
         """Remove ``key`` from the run's store with counted accounting."""
         self._store_for_verification().delete(key)
+
+    def recover(self) -> int:
+        """Reset the substrate after a failed step so a replay can start:
+        purge every residual non-checkpoint object (counted deletes, so bytes
+        stay conserved).  Returns the number of purged objects."""
+        store = self._store_for_verification()
+        purged = 0
+        for key in list(store.keys()):
+            if not key.startswith("ckpt/"):
+                store.delete(key)
+                purged += 1
+        return purged
 
     def verify_drained(self) -> None:
         """Raise if the store holds residual objects or the put/delete byte

@@ -1,4 +1,4 @@
-"""Orchestrator: run a FuncPipe training plan end to end through the emulated
+"""Orchestrator: run a FuncPipe training plan end to end through an execution
 backend (``repro.serverless.runtime.engine`` for the port).
 
 Executes the GPipe schedule of the paper's Fig 3 for K steps on an
@@ -10,9 +10,10 @@ three-phase eq (1)) and update their fp32 masters.
 
 Two axes of use:
 
-  * timing-only (``execution=None``): objects carry sizes, not values; the
-    virtual clocks charge the paper's cost model, exactly as the JAX
-    package's engine does (same ``t_iter``, cost and ``StoreStats``);
+  * timing-only (``execution=None``): objects carry sizes, not values; on
+    the emulated backend the virtual clocks charge the paper's cost model,
+    exactly as the JAX package's engine does (same ``t_iter``, cost and
+    ``StoreStats``);
   * numeric (``execution=Execution(...)``): K training steps with real
     PyTorch stage workers on ``Execution.device``; ``use_kernels=True``
     runs every attention layer and FFN through the CUDA kernels there.
@@ -21,10 +22,14 @@ Not charged (matching the simulator): input-batch fetches, the optimizer
 update and cold starts.  After the last step the engine checks that the
 store drained: every put deleted, bytes conserved.
 
-Ported: the ``emulated`` backend and the legacy keywords ``steps``,
-``backend``, ``pipelined_sync`` and ``execution``.  Not yet: the ``local``
-and ``process`` backends (ROADMAP port queue item 2), tracing (item 3),
-fault injection and tolerance with ``ExecutionConfig`` (item 5).
+The engine talks only to the ``ExecutionBackend`` protocol
+(``serverless.backends``): ``emulated`` (virtual clocks, the default),
+``local`` (worker threads over a blocking store) and ``process`` (spawned
+worker processes over a file store, which run the programs themselves)
+train to bit-identical params.  Ported: those backends and the legacy
+keywords ``steps``, ``backend``, ``pipelined_sync`` and ``execution``.
+Not yet: tracing (ROADMAP port queue item 3), fault injection and tolerance
+with ``ExecutionConfig`` (item 5).
 """
 from __future__ import annotations
 
@@ -54,14 +59,14 @@ class Execution:
 
 @dataclass(frozen=True)
 class EngineResult:
-    t_iter: float                 # seconds per training iteration (virtual clock)
-    t_total: float                # seconds for all steps (virtual clock)
+    t_iter: float                 # seconds per training iteration (backend clock)
+    t_total: float                # seconds for all steps (backend clock)
     steps: int
     cost: float                   # $ per iteration (GB-s pricing, all workers)
     n_workers: int
     total_mem_gb: float
-    backend: str = "emulated"
-    wall_clock: bool = False      # the emulated clock is modeled, never measured
+    backend: str = "emulated"     # which ExecutionBackend executed the plan
+    wall_clock: bool = False      # True: t_* are host seconds, not modeled
     breakdown: Dict[str, float] = field(default_factory=dict)
     metrics: List[Dict[str, float]] = field(default_factory=list)  # per step
     params: Optional[dict] = None          # final assembled params (numeric mode)
@@ -148,16 +153,18 @@ def run_plan(
     pipelined_sync: Optional[bool] = None,
     contention: bool = False,
     execution: Optional[Execution] = None,
-    backend: Optional[str] = None,
+    backend: Any = None,
     trace: Optional[bool] = None,
     faults: Optional[Any] = None,
     tolerance: Optional[Any] = None,
 ) -> EngineResult:
-    """Execute training iterations of a plan on the emulated backend.
+    """Execute training iterations of a plan through a backend.
 
     Takes the explicit ``(profile, platform, config, M)`` tuple or one
     training :class:`repro_torch.api.plan.DeploymentPlan` as the first
-    argument.  ``steps`` defaults to 1, ``pipelined_sync`` to the plan's
+    argument.  ``backend`` is a registered name (``"emulated"`` when None,
+    ``"local"``, ``"process"``, ...) or an :class:`ExecutionBackend`
+    instance.  ``steps`` defaults to 1, ``pipelined_sync`` to the plan's
     (eq (2) without a plan)."""
     if trace:
         raise NotImplementedError(
@@ -167,10 +174,6 @@ def run_plan(
         raise NotImplementedError(
             "faults / tolerance: fault injection and recovery are not ported "
             "yet: ROADMAP port queue item 5 (fault tolerance)")
-    if backend not in (None, "emulated"):
-        raise NotImplementedError(
-            f"backend={backend!r}: only the emulated backend is ported; local "
-            "and process are ROADMAP port queue item 2")
     steps = 1 if steps is None else steps
     if not isinstance(steps, int) or steps < 1:
         raise ValueError(f"steps must be a positive int, got {steps!r}")
@@ -189,30 +192,40 @@ def run_plan(
                            contention=contention)
     S, mu, d = agg.S, agg.mu, agg.d
 
-    from repro_torch.serverless.backends.emulated import EmulatedBackend
+    from repro_torch.serverless.backends import get_backend
     from repro_torch.serverless.runtime.worker import (
         StageWorker,
         assemble_params,
         stage_instance_ranges,
     )
 
-    workers = None
-    if execution is not None:
-        spans = stage_instance_ranges(execution.cfg, config.x)
-        workers = [[StageWorker(execution.cfg, spans[s], execution.init_params, mu=mu,
-                                optimizer=execution.optimizer, remat=execution.remat,
-                                use_kernels=execution.use_kernels, device=execution.device)
-                    for r in range(d)] for s in range(S)]
-
-    be = EmulatedBackend()
-    be.open(agg)
+    be = get_backend("emulated" if backend is None else backend)
+    # a program-hosting backend (process) runs the worker programs in its
+    # own workers: it takes the execution spec before open() and hands back
+    # RPC proxies in place of StageWorkers
+    hosts = be.hosts_programs
+    if hosts:
+        be.bind_run(execution=execution, config=config)
     metrics: List[Dict[str, float]] = []
     iter_ends: List[float] = []
     sync_durations: List[float] = []
     try:
+        be.open(agg)
+        workers = None
+        if execution is not None and hosts:
+            workers = be.worker_handles()
+        elif execution is not None:
+            spans = stage_instance_ranges(execution.cfg, config.x)
+            workers = [[StageWorker(execution.cfg, spans[s], execution.init_params, mu=mu,
+                                    optimizer=execution.optimizer, remat=execution.remat,
+                                    use_kernels=execution.use_kernels,
+                                    device=execution.device)
+                        for r in range(d)] for s in range(S)]
         for k in range(steps):
             batch = execution.batch_fn(k) if execution is not None else None
             losses: Dict = {}
+            if hosts:
+                be.stage_step(k, batch=batch, losses=losses)
             programs = {
                 (s, r): _worker_step_program(
                     be.context(s, r), k=k, s=s, r=r, agg=agg,
@@ -229,6 +242,8 @@ def run_plan(
                 metrics.append({"ce": ce_sum, "aux": aux_sum, "loss": ce_sum + aux_sum})
         be.verify_drained()
         stats = be.store_stats
+        # assembled before close(): a program-hosting backend reads the
+        # final params out of its worker processes
         params = None
         if workers is not None:
             params = assemble_params(execution.cfg, [workers[s][0] for s in range(S)])
@@ -253,6 +268,8 @@ def run_plan(
             "pipeline_comm": float(max(0.0, t_iter - comp - sync_t)) if S > 1 else 0.0,
             "sync": sync_t,
         },
+        backend=be.name,
+        wall_clock=be.wall_clock,
         metrics=metrics,
         params=params,
         store_stats=stats,

@@ -14,6 +14,10 @@
     visible, reducing and re-uploading, then pulling the other reduced
     chunks; ``~2 s/w + O(n) t_lat``.
 
+``local_scatter_reduce``
+    One worker's share of either schedule on a wall-clock store, run by
+    ``n`` concurrent workers over blocking gets.
+
 Numerics: the per-worker gradient vectors are fp32 tensors that stay on
 their device.  ``torch.tensor_split`` cuts the same chunk sizes as
 ``np.array_split``, and :func:`ring_reduce` adds the partials in the JAX
@@ -120,6 +124,63 @@ def three_phase_scatter_reduce(
     _cleanup(store, key_prefix, n)
     reduced = None if chunks is None else torch.cat(reduced_chunks)
     return reduced, ends
+
+
+def local_scatter_reduce(
+    store,
+    index: int,
+    n: int,
+    nbytes: float,
+    value: Optional[torch.Tensor],
+    *,
+    key_prefix: str,
+    pipelined: bool = True,
+    barrier=None,
+) -> Optional[torch.Tensor]:
+    """One worker's share of the storage scatter-reduce on a wall-clock
+    store (``backends.local.LocalStore`` and its file and S3 kin): call from
+    ``n`` concurrent workers, each with its own ``index``.
+
+    It moves the same objects under the same keys as the emulated
+    collectives and reduces through :func:`ring_reduce` in the same ring
+    order, so the vector is bit-identical to theirs; here ``store.take`` and
+    ``store.get`` block until the producer's put lands.  ``pipelined=False``
+    adds the two phase barriers of the eq (1) collective (``barrier`` a
+    ``threading.Barrier(n)`` or a ``FileBarrier``); eq (2) needs none.
+    Either way a last barrier fences the cleanup: a worker frees its reduced
+    chunk only after every peer has pulled it."""
+    i = index
+    if n == 1:
+        return None if value is None else value.to(torch.float32)
+    chunk_b = nbytes / n
+    chunks = None if value is None else torch.tensor_split(value, n)
+
+    # scatter: upload my partials of everyone else's chunk, staggered order
+    for r in range(1, n):
+        j = (i + r) % n
+        store.put(f"{key_prefix}/part/{j}/{i}", chunk_b,
+                  value=None if chunks is None else chunks[j])
+    if not pipelined and barrier is not None:
+        barrier.wait()                    # eq (1) phase-1 barrier
+
+    # reduce: pull the n-1 partials of the owned chunk as they surface,
+    # reduce in ring order, publish the reduced chunk
+    parts = [store.take(f"{key_prefix}/part/{i}/{(i - r) % n}") for r in range(1, n)]
+    reduced_i = None if chunks is None else ring_reduce(chunks[i], parts)
+    store.put(f"{key_prefix}/red/{i}", chunk_b, value=reduced_i)
+    if not pipelined and barrier is not None:
+        barrier.wait()                    # eq (1) phase-2 barrier
+
+    # all-gather: pull the other reduced chunks
+    out: List[Optional[torch.Tensor]] = [None] * n
+    out[i] = reduced_i
+    for r in range(1, n):
+        src = (i + r) % n
+        out[src] = store.get(f"{key_prefix}/red/{src}")
+    if barrier is not None:
+        barrier.wait()                    # cleanup fence: every peer has read
+    store.delete(f"{key_prefix}/red/{i}")
+    return None if chunks is None else torch.cat(out)
 
 
 def pipelined_scatter_reduce(

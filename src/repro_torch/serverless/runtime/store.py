@@ -15,6 +15,10 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict
 
+import torch
+
+from repro_torch.models.common import tree_map
+
 
 @dataclass
 class StoredObject:
@@ -41,6 +45,136 @@ def classify_key(key: str) -> str:
     if base.startswith("grad"):
         return "grad"
     return "other"
+
+
+def producer_worker_of_key(key: str):
+    """The (stage, replica) that produces ``key`` under the engine's key
+    schema, or None outside it: the producer-lease rule of the wall-clock
+    stores' liveness checks (every engine key has one producer worker)."""
+    try:
+        parts = key.split("/")
+        base = parts[-1]
+        if key.startswith("ckpt/"):
+            return None
+        if len(parts) >= 4 and parts[1].startswith("sync"):
+            stage = int(parts[1][4:])
+            if parts[2] == "part":
+                # k{k}/sync{s}/part/{j}/{i}: uploaded by replica i
+                return (stage, int(parts[4]))
+            # k{k}/sync{s}/red/{j}: reduced by the owner replica of chunk j
+            return (stage, int(parts[3]))
+        replica = int(parts[1][1:])
+        if base.startswith("act"):
+            return (int(base[3:]), replica)
+        if base.startswith("grad"):
+            return (int(base[4:]) + 1, replica)
+    except (ValueError, IndexError):
+        pass
+    return None
+
+
+def producer_of_key(key: str) -> str:
+    """Which worker produces ``key``, in words, for store-timeout messages
+    when no lease was recorded."""
+    try:
+        parts = key.split("/")
+        base = parts[-1]
+        if key.startswith("ckpt/"):
+            return "the engine's checkpoint writer"
+        if "sync" in key and len(parts) >= 4:
+            stage = int(parts[1][4:])
+            if parts[2] == "part":
+                return (f"replica {int(parts[4])} of stage {stage} "
+                        "(scatter-reduce part)")
+            return (f"the owner replica of chunk {int(parts[3])} at stage "
+                    f"{stage} (scatter-reduce reduced chunk)")
+        replica = int(parts[1][1:])
+        if base.startswith("act"):
+            return f"worker (stage {int(base[3:])}, replica {replica})"
+        if base.startswith("grad"):
+            return f"worker (stage {int(base[4:]) + 1}, replica {replica})"
+    except (ValueError, IndexError):
+        pass
+    return "an unknown producer (key outside the engine schema)"
+
+
+class StoreAbortedError(RuntimeError):
+    """The store was poisoned because a worker died: every blocked consumer
+    is woken with this instead of waiting out its get timeout."""
+
+
+class ProducerDeadError(RuntimeError):
+    """A consumer's lease check found the producer of the awaited key dead
+    (marked dead, or no heartbeat within the lease timeout)."""
+
+
+def check_lease(key: str, producer, dead: bool, age, lease_timeout: float) -> None:
+    """Raise :class:`ProducerDeadError` when ``producer`` (the worker that
+    puts ``key``) is marked dead or its last heartbeat, ``age`` seconds ago
+    (None: never), is older than the lease."""
+    who = f"its producer worker (stage {producer[0]}, replica {producer[1]})"
+    if dead:
+        raise ProducerDeadError(f"object {key!r} will never arrive: {who} died")
+    if age is not None and age > lease_timeout:
+        raise ProducerDeadError(
+            f"object {key!r} will never arrive: {who} stopped heartbeating "
+            f"{age:.1f}s ago (lease timeout {lease_timeout:.0f}s)")
+
+
+def timeout_message(key: str, timeout: float, existing, dead: bool, age) -> str:
+    """A get timeout, stated: the missing key, which keys exist, who holds
+    the producer lease and how stale its heartbeat is (``dead``/``age`` as
+    for :func:`check_lease`)."""
+    producer = producer_worker_of_key(key)
+    existing = sorted(existing)
+    sample = ", ".join(existing[:8]) if existing else "none"
+    if producer is None:
+        lease = f"no producer lease on record ({producer_of_key(key)})"
+    else:
+        state = ("marked dead" if dead else f"last heartbeat {age:.1f}s ago"
+                 if age is not None else "never heartbeat")
+        lease = (f"producer lease held by worker (stage {producer[0]}, "
+                 f"replica {producer[1]}) — {state}")
+    return (f"object {key!r} never became visible within {timeout:.0f}s; "
+            f"{lease}; {len(existing)} keys present (e.g. [{sample}])")
+
+
+class WireTensor:
+    """A tensor in host memory for a trip through a file or a pipe: its
+    bytes, dtype and shape (numpy has no bfloat16, so the bytes travel
+    raw), and the device it left, where :func:`from_wire` puts it back."""
+
+    __slots__ = ("data", "dtype", "shape", "device")
+
+    def __init__(self, t: torch.Tensor):
+        host = t.detach().to("cpu", copy=True).reshape(-1)
+        self.data = host.view(torch.uint8).numpy()
+        self.dtype = str(t.dtype).removeprefix("torch.")
+        self.shape = tuple(t.shape)
+        self.device = str(t.device)
+
+    def __getstate__(self):
+        return (self.data, self.dtype, self.shape, self.device)
+
+    def __setstate__(self, state):
+        self.data, self.dtype, self.shape, self.device = state
+
+    def tensor(self, device=None) -> torch.Tensor:
+        data = self.data if self.data.flags.writeable else self.data.copy()
+        t = torch.from_numpy(data).view(getattr(torch, self.dtype)).reshape(self.shape)
+        return t.to(self.device if device is None else device)
+
+
+def to_wire(value: Any) -> Any:
+    """``value`` with every tensor leaf (dicts, tuples) copied to host
+    memory as a :class:`WireTensor`, ready to pickle."""
+    return tree_map(lambda a: WireTensor(a) if isinstance(a, torch.Tensor) else a, value)
+
+
+def from_wire(value: Any, device=None) -> Any:
+    """Inverse of :func:`to_wire`: each tensor back on the device it left,
+    or on ``device`` when given."""
+    return tree_map(lambda a: a.tensor(device) if isinstance(a, WireTensor) else a, value)
 
 
 @dataclass

@@ -89,6 +89,38 @@ def stage_instance_ranges(cfg: ArchConfig, x) -> List[StageSpan]:
     return spans
 
 
+def stage_layers(span: StageSpan, layers):
+    """Stage ``span``'s period instances of ``layers``: the whole model's
+    stacked layers (sliced here) or already the stage's own, as
+    :func:`stage_share` ships them to a worker process.  (A stack of the
+    stage's own instances is shorter than ``inst_hi`` unless the stage
+    starts at instance 0, where slicing leaves it whole.)"""
+    lead = tree_leaves(layers)[0].shape[0]
+    own = span.inst_hi - span.inst_lo
+    if lead >= span.inst_hi:
+        return tree_map(lambda a: a[span.inst_lo:span.inst_hi], layers)
+    if lead == own:
+        return layers
+    raise ValueError(f"layers stack {lead} instances: neither the model's "
+                     f"(at least {span.inst_hi}) nor stage {span.index}'s {own}")
+
+
+def stage_share(cfg: ArchConfig, span: StageSpan, full_params: dict) -> dict:
+    """The entries of ``full_params`` (``registry.init_params`` layout) that
+    a training or serving worker of stage ``span`` reads, its layers sliced:
+    what a worker in another process is shipped."""
+    out: Dict[str, Any] = {}
+    if span.owns_embed or cfg.tie_embeddings:
+        out["embed"] = full_params["embed"]
+    if span.owns_head:
+        out["final_norm"] = full_params["final_norm"]
+        if not cfg.tie_embeddings:
+            out["head"] = full_params["head"]
+    if span.inst_hi > span.inst_lo:
+        out["layers"] = stage_layers(span, full_params["layers"])
+    return out
+
+
 def _is_state(x) -> bool:
     return isinstance(x, dict) and "master" in x
 
@@ -126,8 +158,7 @@ class StageWorker:
             if not cfg.tie_embeddings:
                 p["head"] = full_params["head"]
         if span.inst_hi > span.inst_lo:
-            p["layers"] = tree_map(lambda a: a[span.inst_lo:span.inst_hi],
-                                   full_params["layers"])
+            p["layers"] = stage_layers(span, full_params["layers"])
             self.mask = registry.active_mask(cfg)[span.inst_lo:span.inst_hi]
         else:
             self.mask = None

@@ -1,5 +1,6 @@
 """Serverless inference serving on the port: pipelined prefill +
-token-by-token decode over the emulated object store (``repro.serving``).
+token-by-token decode over the emulated or the process backend's object
+store (``repro.serving``).
 The SLO planner and the autoscaler are not ported yet (ROADMAP port queue
 item 4)."""
 from repro_torch.serving.cost import (

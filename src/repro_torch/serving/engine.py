@@ -1,4 +1,4 @@
-"""Pipelined serving on the emulated backend: partitioned prefill +
+"""Pipelined serving on the execution backends: partitioned prefill +
 token-by-token decode as worker programs over the object store
 (``repro.serving.engine`` for the port).
 
@@ -16,10 +16,12 @@ Each stage runs one :func:`serve_worker_program` generator over its
 
 Serverless functions are stateless between invocations, so the KV cache is
 store traffic: every decode round round-trips it, which is what the cost
-model charges.  Values stay tensors on the device (the emulated backend is
-in-process); the store and the virtual clocks see their byte counts, which
-equal the JAX package's, so ``t_request``, the cost and ``StoreStats`` of a
-run match the JAX run's exactly.
+model charges.  On the emulated backend values stay tensors on the device
+and the store and the virtual clocks see their byte counts, which equal the
+JAX package's, so ``t_request``, the cost and ``StoreStats`` of a run match
+the JAX run's exactly.  On the process backend each stage is a spawned
+worker process and every value crosses a file as host bytes; the tokens
+are the same.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from repro_torch.models.common import nbytes, resolve_device, tree_leaves
 from repro_torch.serving.cost import ServingSpec, arch_config_for_model, estimate_serving
 from repro_torch.serving.worker import ServeStageWorker, greedy_token
 
-SERVE_BACKENDS = ("emulated",)
+SERVE_BACKENDS = ("emulated", "process")
 
 
 @dataclass(frozen=True)
@@ -42,14 +44,19 @@ class ServeResult:
     """One pipelined serving request, executed."""
 
     tokens: np.ndarray              # [B, new_tokens] int32 greedy tokens
-    t_request: float                # virtual-clock request latency (s)
+    t_request: float                # request latency (s): virtual clock on
+    #                                 emulated, host wall clock on process
     cost_per_request: float         # $ (stage memory occupied for t_request)
     cost_per_1k: float
     backend: str
     store_stats: Any                # runtime.store.StoreStats
     kv_bytes: Tuple[float, ...]     # [S] modeled per-stage KV-cache bytes
     round_wall_s: Tuple[float, ...]  # host wall time of each pipeline round
-    #                                  (prefill first), device synchronised
+    #                                  (prefill first), device synchronised;
+    #                                  emulated only (process: its stages
+    #                                  overlap, t_request is the wall time)
+    worker_reports: Tuple[dict, ...] = ()  # process: each stage worker's
+    #                                  kernel launches and peak device memory
 
 
 def serve_worker_program(ctx, *, s: int, S: int, worker: ServeStageWorker,
@@ -137,15 +144,20 @@ def _sync(dev: torch.device) -> None:
 def run_serve_plan(plan, *, backend: str = "emulated", seed: int = 0,
                    prompt: Optional[np.ndarray] = None,
                    use_kernels: bool = False, params: Optional[dict] = None,
-                   device="cuda") -> ServeResult:
-    """Execute a ``workload="serve"`` plan end to end on the emulated
-    backend: the cost model on per-stage virtual clocks, the numerics on
-    ``device``.  ``params`` is the port's parameter tree (e.g. from
-    ``registry.params_from_jax``); when None, weights are drawn from
-    ``seed``.  ``use_kernels`` routes each capable decode layer through the
-    CUDA decode-attention kernel (on a CPU device, its plain version).
-    Tokens are bit-identical to the monolithic :func:`reference_decode`
-    on the same device."""
+                   device="cuda", root: Optional[str] = None,
+                   payload_true: bool = True, throttle: bool = False) -> ServeResult:
+    """Execute a ``workload="serve"`` plan end to end on a backend, the
+    numerics on ``device``.  ``"emulated"`` charges the serving cost model on
+    per-stage virtual clocks; ``"process"`` runs each stage as a spawned
+    worker process over a file store under ``root`` (a temporary directory
+    when None) and reports the request's wall time, charging real payload
+    bytes when ``payload_true`` and sleeping each transfer to the plan's
+    bandwidth when ``throttle``.  ``params`` is the port's parameter tree
+    (e.g. from ``registry.params_from_jax``); when None, weights are drawn
+    from ``seed``.  ``use_kernels`` routes each capable decode layer through
+    the CUDA decode-attention kernel (on a CPU device, its plain version).
+    Tokens are bit-identical across backends and to the monolithic
+    :func:`reference_decode` on the same device."""
     from repro_torch.api.plan import PlanCompatibilityError
     from repro_torch.models import registry
     from repro_torch.serverless.backends.emulated import EmulatedBackend
@@ -157,10 +169,6 @@ def run_serve_plan(plan, *, backend: str = "emulated", seed: int = 0,
         raise PlanCompatibilityError(
             "run_serve_plan executes serving plans; this plan for "
             f"{plan.model!r} has workload={plan.workload!r}")
-    if backend == "process":
-        raise NotImplementedError(
-            "backend='process' is not ported yet: ROADMAP port queue item 2 "
-            "(serving on the process backend)")
     if backend not in SERVE_BACKENDS:
         raise ValueError(
             f"unknown serving backend {backend!r}; supported: {SERVE_BACKENDS}")
@@ -182,39 +190,61 @@ def run_serve_plan(plan, *, backend: str = "emulated", seed: int = 0,
         raise ValueError(
             f"prompt shape {toks.shape} != plan's request shape "
             f"({spec.batch}, {spec.prefill_tokens})")
-    toks_t = torch.tensor(toks, device=dev)
 
-    be = EmulatedBackend()
-    be.open(agg)
-    try:
-        workers = [ServeStageWorker(cfg, ranges[s], params, s_ctx=spec.s_ctx,
-                                    use_kernels=use_kernels)
-                   for s in range(S)]
-        sink: List[torch.Tensor] = []
-        programs = [serve_worker_program(
-            be.context(s, 0), s=s, S=S, worker=workers[s], toks=toks_t,
-            n_new=spec.new_tokens, t_prefill=est.t_prefill_stage,
-            t_decode=est.t_decode_stage,
-            sink=sink if s == S - 1 else None) for s in range(S)]
+    if backend == "emulated":
+        toks_t = torch.tensor(toks, device=dev)
+        be = EmulatedBackend()
+        be.open(agg)
+        try:
+            workers = [ServeStageWorker(cfg, ranges[s], params, s_ctx=spec.s_ctx,
+                                        use_kernels=use_kernels)
+                       for s in range(S)]
+            sink: List[torch.Tensor] = []
+            programs = [serve_worker_program(
+                be.context(s, 0), s=s, S=S, worker=workers[s], toks=toks_t,
+                n_new=spec.new_tokens, t_prefill=est.t_prefill_stage,
+                t_decode=est.t_decode_stage,
+                sink=sink if s == S - 1 else None) for s in range(S)]
+            walls = []
+            for _ in range(spec.new_tokens):   # prefill, then the decode rounds
+                _sync(dev)
+                t0 = time.perf_counter()
+                for s in range(S):             # producers before consumers
+                    next(programs[s])
+                _sync(dev)
+                walls.append(time.perf_counter() - t0)
+            for p in programs:
+                p.close()
+            tokens = torch.cat(sink, dim=1).cpu().numpy()
+            t_request = max(float(be.channels[s][0].now) for s in range(S))
+            _drain_kv(be, ranges)
+            stats = be.store_stats
+        finally:
+            be.close()
+        reports: Tuple[dict, ...] = ()
+    else:
+        from repro_torch.serverless.backends.process import ProcessBackend
+
+        if use_kernels and dev.type == "cuda":
+            # built once here: the stage processes load the finished libraries
+            from repro_torch.kernels import build as kernel_build
+
+            kernel_build.build_all()
+        be = ProcessBackend(root=root, payload_true=payload_true, throttle=throttle)
+        try:
+            be.open(agg)
+            wall0 = time.perf_counter()
+            tokens = be.serve({"cfg": cfg, "x": tuple(plan.x), "params": params,
+                               "toks": toks, "n_new": spec.new_tokens,
+                               "s_ctx": spec.s_ctx, "use_kernels": bool(use_kernels),
+                               "device": str(dev)}).numpy()
+            t_request = time.perf_counter() - wall0
+            _drain_kv(be, ranges)
+            stats = be.store_stats
+            reports = tuple(be.reports[-1][(s, 0)] for s in range(S))
+        finally:
+            be.close()
         walls = []
-        for _ in range(spec.new_tokens):   # prefill, then the decode rounds
-            _sync(dev)
-            t0 = time.perf_counter()
-            for s in range(S):             # producers before consumers
-                next(programs[s])
-            _sync(dev)
-            walls.append(time.perf_counter() - t0)
-        for p in programs:
-            p.close()
-        tokens = torch.cat(sink, dim=1).cpu().numpy()
-        t_request = max(float(be.channels[s][0].now) for s in range(S))
-        for s in range(S):
-            if workers[s].has_layers:
-                be.delete(f"kv/s{s}")
-        be.verify_drained()
-        stats = be.store_stats
-    finally:
-        be.close()
 
     price = rp.platform.price_per_gb_s
     cost = float(price * (np.sum(agg.mem) / GB) * t_request)
@@ -222,7 +252,15 @@ def run_serve_plan(plan, *, backend: str = "emulated", seed: int = 0,
         tokens=tokens, t_request=float(t_request),
         cost_per_request=cost, cost_per_1k=1000.0 * cost,
         backend=backend, store_stats=stats, kv_bytes=est.kv_bytes,
-        round_wall_s=tuple(walls))
+        round_wall_s=tuple(walls), worker_reports=reports)
+
+
+def _drain_kv(be, ranges) -> None:
+    """Free each stage's last KV-cache object, then check the store drained."""
+    for span in ranges:
+        if span.inst_hi > span.inst_lo:
+            be.delete(f"kv/s{span.index}")
+    be.verify_drained()
 
 
 def reference_decode(cfg, params, toks: np.ndarray, n_new: int, *,

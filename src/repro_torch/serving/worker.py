@@ -17,9 +17,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import registry
-from repro_torch.models.common import rms_norm, tree_map
+from repro_torch.models.common import rms_norm
 from repro_torch.models.transformer import scan_decode, scan_prefill
-from repro_torch.serverless.runtime.worker import StageSpan
+from repro_torch.serverless.runtime.worker import StageSpan, stage_layers
 
 
 def greedy_token(logits: torch.Tensor) -> torch.Tensor:
@@ -64,8 +64,7 @@ class ServeStageWorker:
             if not cfg.tie_embeddings:
                 p["head"] = full_params["head"]
         if self.has_layers:
-            p["layers"] = tree_map(lambda a: a[span.inst_lo:span.inst_hi],
-                                   full_params["layers"])
+            p["layers"] = stage_layers(span, full_params["layers"])
         self.params = p
         self.mask = (registry.active_mask(cfg)[span.inst_lo:span.inst_hi]
                      if self.has_layers else None)

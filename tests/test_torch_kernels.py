@@ -186,6 +186,53 @@ def test_launch_counter_reset():
     assert sg.LAUNCHES == sg.BWD_LAUNCHES == {"wgmma": 0, "tf32x3": 0, "simt": 0}
 
 
+def test_launch_counters_keep_every_count_across_threads():
+    """The local backend's worker threads (and autograd's device thread)
+    count launches at once: 8 threads x 2000 counts each through the
+    wrappers' counting helper, with the interpreter switching threads as
+    often as it can, lose none, and ``ops.launch_counts()`` read meanwhile
+    never goes backwards."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import build as kbuild
+
+    ops.reset_launch_counts()
+    n_threads, per = 8, 2000
+    interval = sys.getswitchinterval()
+    seen, done = [], threading.Event()
+
+    def count():
+        for _ in range(per):
+            kbuild.count_launch(fa.LAUNCHES, "wgmma")
+            kbuild.count_launch(sg.BWD_LAUNCHES, "tf32x3")
+
+    def read():
+        while not done.is_set():
+            seen.append(ops.launch_counts()["flash_attention_wgmma"])
+
+    sys.setswitchinterval(1e-6)
+    try:
+        reader = threading.Thread(target=read)
+        threads = [threading.Thread(target=count) for _ in range(n_threads)]
+        reader.start()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        done.set()
+        reader.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not reader.is_alive()
+    counts = ops.launch_counts()
+    assert counts["flash_attention_wgmma"] == counts["flash_attention"] == n_threads * per
+    assert counts["swiglu_bwd_tf32x3"] == counts["swiglu_bwd"] == n_threads * per
+    assert seen == sorted(seen)
+    ops.reset_launch_counts()
+    assert set(ops.launch_counts().values()) == {0}
+
+
 @pytest.mark.parametrize("bad", ["cpu", "dtype", "head_dim", "groups", "length"])
 def test_cuda_wrapper_rejects_before_building(bad):
     # the checks run before nvcc is looked for, so they hold on any machine

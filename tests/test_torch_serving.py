@@ -172,8 +172,8 @@ def test_entry_point_guard_rails(served):
     plan = _port_plan(served, "planned")
     with pytest.raises(ValueError, match="serving backend"):
         run_serve_plan(plan, backend="warp-drive", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_serve_plan(plan, backend="process", device="cpu")
+    with pytest.raises(ValueError, match="serving backend"):
+        run_serve_plan(plan, backend="local", device="cpu")   # JAX serves on two
     with pytest.raises(PlanCompatibilityError, match="workload"):
         run_serve_plan(dataclasses.replace(plan, workload="train", serving=None),
                        device="cpu")

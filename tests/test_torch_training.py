@@ -491,9 +491,10 @@ def test_run_plan_guard_rails():
         run_plan(*args, faults={"seed": 0})
     with pytest.raises(NotImplementedError, match="item 5"):
         run_plan(*args, tolerance=object())
-    for backend in ("local", "process"):
-        with pytest.raises(NotImplementedError, match="item 2"):
-            run_plan(*args, backend=backend)
+    for backend in ("local", "process"):     # ported: timing-only runs drain
+        assert run_plan(*args, backend=backend).backend == backend
+    with pytest.raises(KeyError, match="unknown execution backend"):
+        run_plan(*args, backend="warp-drive")
     with pytest.raises(ValueError, match="steps"):
         run_plan(*args, steps=0)
 
