@@ -105,20 +105,34 @@ and a non-zero exit:
    ``serve_full``'s request through ``run_serve_plan(...,
    backend="process", use_kernels=True)``: each of the 4 stages a spawned
    worker process with its own CUDA context, each stage's KV cache through
-   a file every round (payload-true bytes).  Tokens bit-identical to
-   ``serve_full``'s emulated run (which equal the monolithic loop's), the
-   children's (16 - 1) x 32 decode-attention launches, store drained;
-   request wall time and each child's peak memory.
+   a file every round (payload-true bytes), traced (``trace=True``).
+   Tokens bit-identical to ``serve_full``'s emulated run (which equal the
+   monolithic loop's), the children's (16 - 1) x 32 decode-attention
+   launches, store drained; the trace validates, has exactly the phases
+   prefill and decode and reconciles its span bytes with ``StoreStats``;
+   request wall time, each child's peak memory and each stage's compute,
+   upload and download seconds in prefill and in decode.
 12. training on the wall-clock backends (``train_backends``, after
    ``train_full``) -- ``train_full``'s plan on the emulated backend, on
    ``local`` (a thread per worker) with eq (2) and eq (1) and on
    ``process`` (a spawned process per worker over a file store) with eq
-   (2): losses equal and every param bit-identical to the emulated run's,
-   each step's launches exactly ``train_full``'s (summed from the children
-   on ``process``), store drained, puts, gets and modeled bytes equal to
-   the emulated run's; step wall times and each child's peak memory.  The
-   file store's root (a tmpfs with room if the run's temporary directory
-   is one, else a disk directory) is printed with its free space first.
+   (2), each untraced and then traced (``trace=True``): losses equal and
+   every param bit-identical to the untraced emulated run's, each step's
+   launches exactly ``train_full``'s (summed from the children on
+   ``process``), store drained, puts, gets and modeled bytes equal to the
+   emulated run's; every trace validates, covers the 2 x 2 workers and
+   reconciles its span bytes with ``StoreStats`` (1e-6 relative), and on
+   ``emulated`` each step's last span ends at its ``step_ends``.  Step
+   wall times traced and untraced (on ``local`` and ``process`` a traced
+   compute span waits for the device work it launched), per stage the
+   compute, bubble, upload and download fractions, per worker and step the
+   busy seconds of each phase/op, the straggler ratio, and each child's
+   peak memory.  Each process run's file store root (a tmpfs with room if
+   the run's temporary directory is one, else a disk directory) is printed
+   with its free space first.
+
+The traced runs' Chrome traces (``Trace.save``; Perfetto loads them, and
+``Trace.load`` in either package) are written to ``chiprun_out/traces/``.
 
 The last lines are the kernels' record (thirteen rows: decode attention,
 the bf16 main paths' training kernels on the wgmma route, hd 256's from
@@ -165,10 +179,12 @@ from repro_torch.kernels import ref as kernel_ref  # noqa: E402
 from repro_torch.kernels import swiglu as sg_kernel  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
+from repro_torch.obs import pipeline_health, validate_trace  # noqa: E402
 from repro_torch.optim import SGD, AdamW  # noqa: E402
 from repro_torch.serverless.platform import get_platform  # noqa: E402
 from repro_torch.serverless.runtime import Execution, run_plan  # noqa: E402
 from repro_torch.serverless.runtime import worker as worker_mod  # noqa: E402
+from repro_torch.serverless.runtime.store import classify_key  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     ServingSpec,
     arch_config_for_model,
@@ -1373,18 +1389,65 @@ def store_root(need_bytes: float) -> dict:
     return doc
 
 
+TRACE_DIR = Path(__file__).resolve().parent / "chiprun_out" / "traces"
+
+
+def trace_summary(trace, name: str) -> dict:
+    """Check a traced run's spans and reduce them to what the smoke line
+    prints: the span count, per stage the compute, bubble, upload and
+    download fractions of ``pipeline_health``, per worker the busy seconds
+    of each phase/op in each step (``step`` = the span's), each step's span
+    window (first start, last end) beside its ``step_ends`` entry (time
+    after a step's last span is in no span: the update, the replies), the
+    straggler ratio, and where the Chrome trace was saved (``Trace.save``).  Raises
+    unless the trace validates, covers every worker of its S x d grid and
+    its span bytes reconcile with ``StoreStats`` (1e-6 relative)."""
+    validate_trace(trace)
+    meta = trace.meta
+    workers = {f"s{s}r{r}" for s in range(meta["S"]) for r in range(meta["d"])}
+    if {sp.worker for sp in trace.spans} != workers:
+        raise AssertionError(f"{name}: spans of {sorted({sp.worker for sp in trace.spans})}, "
+                             f"expected {sorted(workers)}")
+    health = pipeline_health(trace)
+    if not health["reconciliation"]["ok"]:
+        raise AssertionError(f"{name}: span bytes do not reconcile: {health['reconciliation']}")
+    busy: dict = {}
+    for sp in trace.spans:
+        steps = busy.setdefault(sp.worker, [dict() for _ in range(meta["steps"])])
+        cell = f"{sp.phase}/{sp.op}"
+        steps[sp.step][cell] = steps[sp.step].get(cell, 0.0) + sp.duration
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / f"{name}.json"
+    trace.save(path)
+    windows = [[min(sp.start for sp in trace.spans if sp.step == k),
+                max(sp.end for sp in trace.spans if sp.step == k)] for k in range(meta["steps"])]
+    return {"spans": len(trace.spans), "clock": meta["clock"], "path": str(path),
+            "t_total": meta["t_total"], "step_ends": meta.get("step_ends"),
+            "step_span_windows": windows,
+            "stages": [{k: row[k] for k in ("stage", "compute_frac", "bubble_frac", "up_frac",
+                                            "dn_frac")} for row in health["stages"]],
+            "straggler_ratio": health["straggler_ratio"],
+            "busy_s_by_worker_step": {w: busy[w] for w in sorted(busy)},
+            "reconciliation": health["reconciliation"]}
+
+
 def phase_train_backends(smi: str) -> dict:
     """``train_full``'s plan (phi3-mini-3.8b, full width, 4 layers, bf16,
     seed 0, 2 stages x 2 replicas, 2 micro-batches of 2 x 1024 tokens,
     AdamW(1e-4), 2 steps, ``use_kernels=True``) on the emulated backend, on
     ``local`` (worker threads) with eq (2) and eq (1), and on ``process``
-    (spawned worker processes over a file store) with eq (2).  Each run's
-    losses equal the emulated run's and every param is bit-identical to it;
-    each step launches the wgmma kernels exactly as ``train_full`` does (on
+    (spawned worker processes over a file store) with eq (2), each untraced
+    and then traced (``trace=True``).  Each run's losses equal the untraced
+    emulated run's and every param is bit-identical to it; each step
+    launches the wgmma kernels exactly as ``train_full`` does (on
     ``process`` the children report their launches and the parent sums
     them); the store drains, and its puts, gets and modeled bytes equal the
-    emulated run's.  Step wall times, each child's peak memory and the store
-    root are printed."""
+    emulated run's.  An untraced run carries no trace; a traced one must
+    validate, cover all S x d workers and reconcile its span bytes, and on
+    ``emulated`` each step's last span ends at its ``step_ends`` entry.
+    Step wall times traced and untraced, each traced run's split of the
+    step by worker and phase/op, each child's peak memory and the store
+    roots are printed; the traces are saved under ``chiprun_out/traces``."""
     from repro_torch.serverless.backends import ProcessBackend
 
     spec = TRAIN
@@ -1400,59 +1463,76 @@ def phase_train_backends(smi: str) -> dict:
     # a step's sync objects: every stage's fp32 gradient, a part and a
     # reduced chunk per replica
     grad_bytes = 4.0 * sum(a.numel() for a in tree_leaves(params))
-    root = store_root(2 * grad_bytes)
+    roots = []
     runs = {}
     for name, backend, pipelined in (
             ("emulated", "emulated", True), ("local_eq2", "local", True),
-            ("local_eq1", "local", False),
-            ("process_eq2", ProcessBackend(root=root["root"]), True)):
-        marks, counts = [], []
+            ("local_eq1", "local", False), ("process_eq2", "process", True)):
+        for traced in (False, True):
+            run_name = f"{name}_traced" if traced else name
+            if backend == "process":     # a fresh store (and its counters) a run
+                roots.append(store_root(2 * grad_bytes))
+                be = ProcessBackend(root=roots[-1]["root"])
+            else:
+                be = backend
+            marks, counts = [], []
 
-        def batch_fn(k):
+            def batch_fn(k):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+                counts.append(ops.launch_counts())
+                return batches[k]
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            res = run_plan(prof, plat, config, M, steps=steps, pipelined_sync=pipelined,
+                           backend=be, trace=traced,
+                           execution=Execution(cfg=cfg, optimizer=AdamW(lr=1e-4),
+                                               init_params=params, batch_fn=batch_fn,
+                                               use_kernels=True, device="cuda"))
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
             counts.append(ops.launch_counts())
-            return batches[k]
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        res = run_plan(prof, plat, config, M, steps=steps, pipelined_sync=pipelined,
-                       backend=backend,
-                       execution=Execution(cfg=cfg, optimizer=AdamW(lr=1e-4),
-                                           init_params=params, batch_fn=batch_fn,
-                                           use_kernels=True, device="cuda"))
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        counts.append(ops.launch_counts())
-        rec = {"backend": res.backend, "wall_clock": res.wall_clock,
-               "pipelined_sync": pipelined, "losses": res.losses,
-               "step_wall_s": [b - a for a, b in zip(marks, marks[1:])],
-               "t_total_s": res.t_total, "breakdown": res.breakdown,
-               "store": res.store_stats.as_dict(),
-               "parent_max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
-        if isinstance(backend, ProcessBackend):
-            reports = backend.reports[:steps]
-            rec["launches_per_step"] = [
-                {k: sum(w["launches"][k] for w in step.values()) for k in expect}
-                for step in reports]
-            rec["child_max_memory_allocated_bytes"] = {
-                f"s{s}r{r}": w["max_memory_allocated"] for (s, r), w in reports[-1].items()}
-            rec["store_root"] = root["root"]
-            if any(counts[-1][k] for k in expect):
-                raise AssertionError(f"the parent launched kernels itself: {counts[-1]}")
-        else:
-            rec["launches_per_step"] = [{k: b[k] - a[k] for k in a}
-                                        for a, b in zip(counts, counts[1:])]
-        if any(c != expect for c in rec["launches_per_step"]) or \
-                len(rec["launches_per_step"]) != steps:
-            raise AssertionError(f"{name}: launches per step {rec['launches_per_step']}, "
-                                 f"expected {expect} in each of {steps}")
-        if not all(np.isfinite(res.losses)):
-            raise AssertionError(f"{name}: non-finite losses {res.losses}")
-        runs[name] = (rec, tree_map(lambda a: a.cpu(), res.params))
-        del res
-        torch.cuda.empty_cache()
+            rec = {"backend": res.backend, "wall_clock": res.wall_clock, "traced": traced,
+                   "pipelined_sync": pipelined, "losses": res.losses,
+                   "step_wall_s": [b - a for a, b in zip(marks, marks[1:])],
+                   "t_total_s": res.t_total, "breakdown": res.breakdown,
+                   "store": res.store_stats.as_dict(),
+                   "parent_max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+            if isinstance(be, ProcessBackend):
+                reports = be.reports[:steps]
+                rec["launches_per_step"] = [
+                    {k: sum(w["launches"][k] for w in step.values()) for k in expect}
+                    for step in reports]
+                rec["child_max_memory_allocated_bytes"] = {
+                    f"s{s}r{r}": w["max_memory_allocated"] for (s, r), w in reports[-1].items()}
+                rec["store_root"] = roots[-1]["root"]
+                if any(counts[-1][k] for k in expect):
+                    raise AssertionError(f"the parent launched kernels itself: {counts[-1]}")
+            else:
+                rec["launches_per_step"] = [{k: b[k] - a[k] for k in a}
+                                            for a, b in zip(counts, counts[1:])]
+            if any(c != expect for c in rec["launches_per_step"]) or \
+                    len(rec["launches_per_step"]) != steps:
+                raise AssertionError(f"{run_name}: launches per step "
+                                     f"{rec['launches_per_step']}, expected {expect} in each "
+                                     f"of {steps}")
+            if not all(np.isfinite(res.losses)):
+                raise AssertionError(f"{run_name}: non-finite losses {res.losses}")
+            if not traced and res.trace is not None:
+                raise AssertionError(f"{run_name}: an untraced run returned a trace")
+            if traced:
+                rec["trace"] = trace_summary(res.trace, f"train_backends_{run_name}")
+                if backend == "emulated":
+                    ends = [max(sp.end for sp in res.trace.spans if sp.step == k)
+                            for k in range(steps)]
+                    if ends != res.trace.meta["step_ends"]:
+                        raise AssertionError(f"{run_name}: last span ends {ends} != "
+                                             f"step_ends {res.trace.meta['step_ends']}")
+            runs[run_name] = (rec, tree_map(lambda a: a.cpu(), res.params))
+            del res
+            torch.cuda.empty_cache()
     ref, ref_params = runs["emulated"]
     st0 = ref["store"]
     for name, (rec, got) in runs.items():
@@ -1470,13 +1550,18 @@ def phase_train_backends(smi: str) -> dict:
         rec["params_bit_identical_to_emulated"] = True
     launches = {k: sum(step[k] for rec, _ in runs.values() for step in rec["launches_per_step"])
                 for k in expect}
+    overhead = {name: {"untraced_step_wall_s": runs[name][0]["step_wall_s"],
+                       "traced_step_wall_s": runs[f"{name}_traced"][0]["step_wall_s"]}
+                for name in ("emulated", "local_eq2", "local_eq1", "process_eq2")}
     emit({"phase": "train_backends", "card": smi, "model": "phi3-mini-3.8b",
           "dtype": cfg.param_dtype, "n_layers": cfg.n_layers, "stages": 2, "d": d, "mu": mu,
           "micro_batch": spec["micro_batch"], "seq": spec["seq"], "steps": steps,
-          "optimizer": "AdamW(lr=1e-4)", "store_root": root,
+          "optimizer": "AdamW(lr=1e-4)", "store_roots": roots,
           "runs": {name: rec for name, (rec, _) in runs.items()},
+          "tracing_overhead": overhead, "traces_validated": True,
           "store_drained": True, "kernel_launches": launches})
-    shutil.rmtree(root["root"])
+    for root in roots:
+        shutil.rmtree(root["root"])
     del params, batches, runs
     torch.cuda.empty_cache()
     return launches
@@ -1485,12 +1570,16 @@ def phase_train_backends(smi: str) -> dict:
 def phase_serve_process(smi: str, tokens: np.ndarray) -> int:
     """``serve_full``'s request (phi3-mini-3.8b at full width and depth, 32
     layers, bf16, seed 0, batch 4, 1008 + 16 tokens, 4 stages of 8 layers)
-    through ``run_serve_plan(..., backend="process", use_kernels=True)``:
-    every stage a spawned worker process, each KV cache through a file
-    every round.  Tokens bit-identical to ``serve_full``'s emulated run,
-    which equal the monolithic ``reference_decode``; the children count
-    (16 - 1) x 32 decode-attention launches; the store drains.  Request wall
-    time, payload-true bytes and each child's peak memory are printed."""
+    through ``run_serve_plan(..., backend="process", use_kernels=True,
+    trace=True)``: every stage a spawned worker process, each KV cache
+    through a file every round.  Tokens bit-identical to ``serve_full``'s
+    emulated run, which equal the monolithic ``reference_decode``; the
+    children count (16 - 1) x 32 decode-attention launches; the store
+    drains; the trace validates, has exactly the phases prefill and decode
+    and reconciles its span bytes.  Request wall time, payload-true bytes,
+    each child's peak memory and each stage's compute, upload and download
+    seconds in prefill and in decode are printed; the trace is saved under
+    ``chiprun_out/traces``."""
     torch.use_deterministic_algorithms(True)
     model = "phi3-mini-3.8b"
     cfg = arch_config_for_model(model)
@@ -1504,7 +1593,7 @@ def phase_serve_process(smi: str, tokens: np.ndarray) -> int:
     root = store_root(2 * kv)
     ops.reset_launch_counts()
     res = run_serve_plan(plan, backend="process", params=params, prompt=prompt,
-                         use_kernels=True, root=root["root"])
+                         use_kernels=True, root=root["root"], trace=True)
     if any(ops.launch_counts().values()):
         raise AssertionError(f"the parent launched kernels itself: {ops.launch_counts()}")
     launches = sum(w["launches"]["decode_attention"] for w in res.worker_reports)
@@ -1515,6 +1604,21 @@ def phase_serve_process(smi: str, tokens: np.ndarray) -> int:
     if not np.array_equal(res.tokens, tokens):
         raise AssertionError(f"process tokens differ from the emulated run's "
                              f"(= reference_decode's):\n{res.tokens}\n{tokens}")
+    phases = {sp.phase for sp in res.trace.spans}
+    if phases != {"prefill", "decode"}:
+        raise AssertionError(f"serve trace phases {sorted(phases)}, expected prefill and decode")
+    summary = trace_summary(res.trace, "serve_process")
+    # by key class too: the KV caches ("kv") apart from the boundaries and
+    # tokens ("act", "other")
+    by_stage = [{phase: {} for phase in ("prefill", "decode")} for _ in range(plan.n_stages)]
+    for sp in res.trace.spans:
+        cell = by_stage[sp.stage][sp.phase]
+        if sp.op == "compute":
+            cell["compute"] = cell.get("compute", 0.0) + sp.duration
+        else:
+            by_key = cell.setdefault(sp.op, {})
+            cls = classify_key(sp.key)
+            by_key[cls] = by_key.get(cls, 0.0) + sp.duration
     emit({"phase": "serve_process", "card": smi, "model": model, "dtype": cfg.param_dtype,
           "n_layers": cfg.n_layers, "stages": plan.n_stages, **SERVE,
           "kernel_launches": launches, "tokens_match_emulated_and_monolithic": True,
@@ -1522,7 +1626,8 @@ def phase_serve_process(smi: str, tokens: np.ndarray) -> int:
           "store": res.store_stats.as_dict(), "request_wall_s": res.t_request,
           "child_max_memory_allocated_bytes": [w["max_memory_allocated"]
                                                for w in res.worker_reports],
-          "tokens_head": res.tokens[0].tolist()})
+          "trace": {k: v for k, v in summary.items() if k != "busy_s_by_worker_step"},
+          "seconds_by_stage_phase_op": by_stage, "tokens_head": res.tokens[0].tolist()})
     shutil.rmtree(root["root"])
     del params
     torch.cuda.empty_cache()

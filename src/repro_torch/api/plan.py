@@ -162,7 +162,7 @@ class DeploymentPlan:
             raise NotImplementedError(
                 f"plan for {self.model!r} was solved against a "
                 f"{self.profile_source} profile; calibration is not ported "
-                "yet: ROADMAP port queue item 3 (tracing and calibration)")
+                "yet: ROADMAP port queue item 3b (calibration)")
         if self.merge_to is not None:
             raise NotImplementedError(
                 "merged profiles (merge_to, core.partition.merge_layers) are "

@@ -92,6 +92,9 @@ class ExecutionBackend(ABC):
     #: engine calls ``bind_run``/``stage_step``/``worker_handles`` instead
     #: of building workers and handing out generators
     hosts_programs: bool = False
+    #: optional ``repro_torch.obs.SpanRecorder`` installed before ``open()``;
+    #: the backends emit one span per resource task into it
+    recorder = None
 
     def bind_run(self, **kw) -> None:
         """Program-hosting hook: receive the run's execution spec
@@ -108,6 +111,12 @@ class ExecutionBackend(ABC):
         of the engine's own workers."""
         raise NotImplementedError(
             f"{type(self).__name__} does not host worker programs")
+
+    def attach_recorder(self, recorder) -> None:
+        """Install a span recorder (``repro_torch.obs.SpanRecorder``) for the
+        next ``open()``/run: the emulated backend emits virtual-clock spans,
+        ``local`` and ``process`` wall-clock spans."""
+        self.recorder = recorder
 
     @abstractmethod
     def open(self, agg) -> None:

@@ -187,7 +187,8 @@ class S3ObjectStore:
             self._heartbeats.clear()
 
     # -------------------------------------------------------------- store API
-    def put(self, key: str, nbytes: float, value: Any = None) -> None:
+    def put(self, key: str, nbytes: float, value: Any = None) -> float:
+        """Publish ``value`` under ``key``; returns the bytes charged."""
         blob = pickle.dumps((float(nbytes), to_wire(value)),
                             protocol=pickle.HIGHEST_PROTOCOL)
         self._s3("put_object", Bucket=self.bucket, Key=self._skey(key), Body=blob)
@@ -200,6 +201,7 @@ class S3ObjectStore:
             self._sizes[key] = float(nbytes)
             self._live_bytes += float(nbytes)
             self.stats.count_put(key, float(nbytes), self._live_bytes)
+        return float(nbytes)
 
     def _check_liveness(self, key: str) -> None:
         producer = producer_worker_of_key(key)

@@ -63,6 +63,11 @@ class EmulatedBackend(ExecutionBackend):
              for r in range(agg.d)]
             for s in range(agg.S)
         ]
+        if self.recorder is not None:
+            # every charged channel task emits one virtual-clock span
+            for s in range(agg.S):
+                for r in range(agg.d):
+                    self.channels[s][r].tracer = self.recorder.tracer(s, r)
 
     def context(self, s: int, r: int) -> EmulatedWorkerContext:
         return EmulatedWorkerContext(self.channels[s][r], self.store)
@@ -83,17 +88,25 @@ class EmulatedBackend(ExecutionBackend):
         S, mu, d = agg.S, agg.mu, agg.d
         sync_fn = (pipelined_scatter_reduce if pipelined_sync
                    else three_phase_scatter_reduce)
+        rec = self.recorder
+        if rec is not None:
+            rec.set_step(k)
+            rec.set_phase("fwd")
         # forward: one (download, compute, upload) group per advance
         for r in range(d):
             for _ in range(mu):
                 for s in range(S):
                     next(programs[(s, r)])
         # backward (the first advance also runs the worker's phase fence)
+        if rec is not None:
+            rec.set_phase("bwd")
         for r in range(d):
             for _ in range(mu):
                 for s in range(S - 1, -1, -1):
                     next(programs[(s, r)])
         # every program now flattens its gradient and requests the sync
+        if rec is not None:
+            rec.set_phase("sync")
         values: Dict[Tuple[int, int], Any] = {}
         for s in range(S):
             for r in range(d):

@@ -164,7 +164,8 @@ class LocalStore:
                 pass
 
     # ------------------------------------------------------------ store API
-    def put(self, key: str, nbytes: float, value: Any = None) -> None:
+    def put(self, key: str, nbytes: float, value: Any = None) -> float:
+        """Publish ``value`` under ``key``; returns the bytes charged."""
         path = self._spill(value)
         with self._cv:
             prev = self._objects.get(key)
@@ -180,6 +181,7 @@ class LocalStore:
             self._live_bytes += obj.nbytes
             self.stats.count_put(key, obj.nbytes, self._live_bytes)
             self._cv.notify_all()
+        return obj.nbytes
 
     def _wait_for(self, key: str) -> _Stored:
         deadline = time.monotonic() + self.timeout
@@ -256,36 +258,82 @@ class LocalStore:
         return self._live_bytes
 
 
+def device_wait() -> None:
+    """Block until the work enqueued so far on this thread's current CUDA
+    stream has finished on the device (an event recorded there, then
+    synchronised).  A no-op in a process without a CUDA context."""
+    if torch.cuda.is_initialized():
+        event = torch.cuda.Event()
+        event.record()
+        event.synchronize()
+
+
 class LocalWorkerContext(WorkerContext):
     """A stage worker on a real thread: blocking store, no modeled clock.
-    ``worker`` is its (stage, replica), whose lease every op renews."""
+    ``worker`` is its (stage, replica), whose lease every op renews.
 
-    def __init__(self, store, worker: Optional[Tuple[int, int]] = None):
+    With ``tracer``/``clock`` set (a ``repro_torch.obs.WorkerTracer`` and
+    seconds since the run began), every store op and compute emits one
+    wall-clock span; a blocking download's visibility wait is part of its
+    span.  A compute span ends after :func:`device_wait`: PyTorch returns
+    before the device finishes, so the span runs from the launch to the end
+    of the work it enqueued (on ``local`` every worker launches on one
+    stream, so that includes other workers' kernels queued before it).
+    Untraced, nothing waits.  An upload span carries the bytes the store
+    charged (``put`` returns them): with ``payload_true`` on ``process`` the
+    payload's real size, so the spans reconcile with ``StoreStats``."""
+
+    def __init__(self, store, worker: Optional[Tuple[int, int]] = None,
+                 tracer=None, clock=None):
         self.store = store
         self.worker = worker
+        self.tracer = tracer
+        self.clock = clock
 
     def _beat(self) -> None:
         if self.worker is not None:
             self.store.heartbeat(self.worker)
 
+    def _fetch(self, fetch, key: str, op: str):
+        if self.tracer is None:
+            return fetch(key), None
+        t0 = self.clock()
+        value, nb = fetch(key, return_nbytes=True)
+        self.tracer.emit(op, t0, self.clock(), nbytes=nb, key=key)
+        return value, None
+
     def download(self, key: str):
         self._beat()
-        return self.store.take(key), None
+        return self._fetch(self.store.take, key, "download")
 
     def compute(self, cost_s: float, fn: Optional[Callable[[], Any]] = None,
                 after: Any = None) -> Any:
         # the modeled cost is the virtual clock's business; here compute is real
         self._beat()
-        return fn() if fn is not None else None
+        if self.tracer is None:
+            return fn() if fn is not None else None
+        t0 = self.clock()
+        out = fn() if fn is not None else None
+        device_wait()
+        self.tracer.emit("compute", t0, self.clock())
+        return out
 
     def upload(self, key: str, nbytes: float, value: Any = None) -> Any:
         self._beat()
-        self.store.put(key, nbytes, value=value)
+        if self.tracer is None:
+            self.store.put(key, nbytes, value=value)
+            return None
+        t0 = self.clock()
+        charged = self.store.put(key, nbytes, value=value)
+        self.tracer.emit("upload", t0, self.clock(), nbytes=charged, key=key)
         return None
 
     def phase_barrier(self) -> None:
-        # a serial worker's forward uploads are done before it goes on
+        # a serial worker's forward uploads are done before it goes on; for
+        # tracing this is also the worker's fwd -> bwd phase flip
         self._beat()
+        if self.tracer is not None:
+            self.tracer.phase = "bwd"
 
     def wait(self, seconds: float, op: str = "retry") -> None:
         self._beat()
@@ -293,7 +341,7 @@ class LocalWorkerContext(WorkerContext):
 
     def fetch(self, key: str, op: str = "download"):
         self._beat()
-        return self.store.get(key), None
+        return self._fetch(self.store.get, key, op)
 
 
 def _primary_error(errors: List[BaseException]) -> BaseException:
@@ -320,6 +368,11 @@ class LocalBackend(ExecutionBackend):
         self.agg = None
         self.store: Optional[LocalStore] = None
         self._t0 = 0.0
+        # per-(stage, replica) tracers when a recorder is attached; the
+        # engine asks for step k's contexts after run_step(k - 1) returned,
+        # so _steps_done is the step a new tracer starts in
+        self._tracers: Dict[Tuple[int, int], Any] = {}
+        self._steps_done = 0
 
     def open(self, agg) -> None:
         if agg.S * agg.d > MAX_WORKERS:
@@ -329,6 +382,8 @@ class LocalBackend(ExecutionBackend):
                 "— replay this plan on the emulated backend instead")
         self.agg = agg
         self.store = self._make_store()
+        self._tracers = {}
+        self._steps_done = 0
         self._t0 = time.perf_counter()
 
     def _make_store(self):
@@ -342,8 +397,17 @@ class LocalBackend(ExecutionBackend):
         self.store.revive()
         return super().recover()
 
+    def _clock(self) -> float:
+        """Seconds since the run began: the trace's time base."""
+        return time.perf_counter() - self._t0
+
     def context(self, s: int, r: int) -> LocalWorkerContext:
-        return LocalWorkerContext(self.store, worker=(s, r))
+        if self.recorder is None:
+            return LocalWorkerContext(self.store, worker=(s, r))
+        tr = self.recorder.tracer(s, r)
+        tr.step = self._steps_done
+        self._tracers[(s, r)] = tr
+        return LocalWorkerContext(self.store, worker=(s, r), tracer=tr, clock=self._clock)
 
     @property
     def store_stats(self) -> StoreStats:
@@ -371,11 +435,14 @@ class LocalBackend(ExecutionBackend):
                     y = next(gen)
                     while True:
                         if isinstance(y, tuple) and y[0] == "sync":
+                            tr = self._tracers.get((s, r))
+                            if tr is not None:
+                                tr.phase = "sync"     # this worker's own tracer
                             t0 = time.perf_counter()
                             reduced = local_scatter_reduce(
                                 self.store, r, d, agg.s_stage[s], y[1],
                                 key_prefix=f"k{k}/sync{s}", pipelined=pipelined_sync,
-                                barrier=barriers.get(s))
+                                barrier=barriers.get(s), tracer=tr, clock=self._clock)
                             sync_secs[(s, r)] = time.perf_counter() - t0
                             y = gen.send(reduced)
                         else:
@@ -404,4 +471,5 @@ class LocalBackend(ExecutionBackend):
             raise _primary_error(errors)
         sync = max((sync_secs.get((s, r), 0.0) for s in range(S) for r in range(d)),
                    default=0.0)
+        self._steps_done += 1
         return StepTiming(end=time.perf_counter() - self._t0, sync=sync)

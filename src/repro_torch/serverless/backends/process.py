@@ -18,7 +18,8 @@ Children are spawned, never forked (the parent may hold a CUDA context and
 threads).  A child asked for ``cuda`` where there is none raises; a child
 whose kernel fails to build or launch reports the error and the run
 raises.  Each step's reply carries the child's kernel launches and peak
-device memory (:attr:`ProcessBackend.reports`).
+device memory (:attr:`ProcessBackend.reports`) and, with a recorder
+attached, the child's wall-clock spans, which the parent appends to it.
 """
 from __future__ import annotations
 
@@ -368,14 +369,30 @@ class ProcessBackend(ExecutionBackend):
             raise _primary_error(errors)
         return replies
 
+    def _trace_fields(self, step: int) -> dict:
+        """What a child needs to trace a command: the flag, the step its
+        spans carry and the parent's ``t0`` (a clock shared by the
+        processes: ``time.monotonic``)."""
+        return {"trace": self.recorder is not None, "trace_step": step, "t0": self._t0}
+
+    def _record(self, replies: dict) -> None:
+        """Append the children's spans to the recorder, worker by worker."""
+        if self.recorder is not None:
+            from repro_torch.obs.schema import Span
+
+            for w in sorted(replies):
+                self.recorder.spans.extend(Span.from_dict(d) for d in replies[w]["spans"])
+
     def run_step(self, k: int, programs: Dict[Tuple[int, int], WorkerProgram],
                  *, pipelined_sync: bool = True) -> StepTiming:
         # the engine's generators cannot cross the process boundary: each
         # child runs the same program locally, so these never start
         for gen in programs.values():
             gen.close()
-        cmd = {"op": "step", "k": k, "pipelined": bool(pipelined_sync), "batch": self._batch}
+        cmd = {"op": "step", "k": k, "pipelined": bool(pipelined_sync), "batch": self._batch,
+               **self._trace_fields(k)}
         replies = self._broadcast(dict.fromkeys(self._conns, cmd), f"step {k}")
+        self._record(replies)
         for (s, r), msg in replies.items():
             if msg["loss"] is not None and self._losses is not None:
                 self._losses[(s, r)] = tuple(msg["loss"])
@@ -399,11 +416,13 @@ class ProcessBackend(ExecutionBackend):
                  for s in {s for s, _ in self._conns}}
         try:
             replies = self._broadcast(
-                {(s, r): {"op": "serve", "spec": paths[s], "device": spec["device"]}
+                {(s, r): {"op": "serve", "spec": paths[s], "device": spec["device"],
+                          **self._trace_fields(0)}
                  for s, r in self._conns}, "serve request")
         finally:
             for path in paths.values():
                 os.remove(path)
+        self._record(replies)
         tokens = [m["tokens"] for m in replies.values() if m["tokens"] is not None]
         if len(tokens) != 1:
             raise RuntimeError(f"serve request produced {len(tokens)} token sinks, not 1")

@@ -17,9 +17,11 @@ spawned worker processes, and the storage they share.
 * :func:`worker_main` — the child process: it applies the parent's global
   torch settings (deterministic algorithms, TF32, thread count; a spawned
   child inherits none of them), builds its stage worker from the spec the
-  parent stashed in a file (the pipe carries only control messages), heartbeats from a daemon thread, and serves step, serve and params
-  commands over a pipe, running the engine's own worker program locally
-  (a generator cannot cross a process boundary).  A command that fails
+  parent stashed in a file (the pipe carries only control messages and,
+  when the command is traced, the child's spans), heartbeats from a daemon
+  thread, and serves step, serve and params commands over a pipe, running
+  the engine's own worker program locally (a generator cannot cross a
+  process boundary).  A command that fails
   poisons the store, is reported to the parent with its traceback, and the
   child stays up.
 
@@ -245,7 +247,9 @@ class FileStore:
             time.sleep(nbytes / self.bandwidth + self.t_lat)
 
     # -------------------------------------------------------------- store API
-    def put(self, key: str, nbytes: float, value: Any = None) -> None:
+    def put(self, key: str, nbytes: float, value: Any = None) -> float:
+        """Publish ``value`` under ``key``; returns the bytes charged (with
+        ``payload_true`` the payload's real size, else ``nbytes``)."""
         # the payload streams into a private file (pickle writes a tensor's
         # bytes straight from its host copy) and is published by a rename
         # under the lock: the lock is held for metadata only
@@ -276,6 +280,7 @@ class FileStore:
             live += nbytes
             stats.count_put(key, nbytes, live)
             self._dump_acct(stats, live)
+        return nbytes
 
     def _wait_for(self, key: str) -> str:
         deadline = time.monotonic() + self.timeout
@@ -454,6 +459,21 @@ def _error_reply(store: FileStore, s: int, r: int, e: Exception) -> dict:
                       "traceback": traceback.format_exc()}}
 
 
+def _tracer(cmd: dict, s: int, r: int, phase: str, spans: list):
+    """The command's wall-clock tracer, appending to ``spans``, and its clock
+    (``time.monotonic()`` less the parent's ``t0``: one clock across the
+    processes); (None, None) when the command is untraced."""
+    if not cmd["trace"]:
+        return None, None
+    from repro_torch.obs.schema import WorkerTracer
+
+    tracer = WorkerTracer(spans, s, r)
+    tracer.step = cmd["trace_step"]
+    tracer.phase = phase
+    t0 = cmd["t0"]
+    return tracer, lambda: time.monotonic() - t0
+
+
 def _drive(gen, sync) -> None:
     """Run a worker program to its end, answering each ``("sync", vector)``
     yield with ``sync(vector)``."""
@@ -476,25 +496,30 @@ def _run_step(conn, store: FileStore, s: int, r: int, agg, worker, cmd) -> None:
     barrier = FileBarrier(store, f"k{k}-s{s}", d, r, store.timeout) if d > 1 else None
     losses: dict = {}
     sync_s = []
+    spans: list = []
+    tracer, clock = _tracer(cmd, s, r, "fwd", spans)
 
     def sync(vec):
+        if tracer is not None:
+            tracer.phase = "sync"
         t0 = time.monotonic()
         reduced = local_scatter_reduce(store, r, d, agg.s_stage[s], vec,
                                        key_prefix=f"k{k}/sync{s}",
-                                       pipelined=cmd["pipelined"], barrier=barrier)
+                                       pipelined=cmd["pipelined"], barrier=barrier,
+                                       tracer=tracer, clock=clock)
         sync_s.append(time.monotonic() - t0)
         return reduced
 
     ops.reset_launch_counts()
     device = None if worker is None else worker.device
     try:
-        _drive(_worker_step_program(
-            LocalWorkerContext(store, worker=(s, r)), k=k, s=s, r=r, agg=agg,
-            worker=worker, batch=from_wire(cmd["batch"]), losses=losses), sync)
+        ctx = LocalWorkerContext(store, worker=(s, r), tracer=tracer, clock=clock)
+        _drive(_worker_step_program(ctx, k=k, s=s, r=r, agg=agg, worker=worker,
+                                    batch=from_wire(cmd["batch"]), losses=losses), sync)
         if device is not None and device.type == "cuda":
             torch.cuda.synchronize(device)   # a launch's fault surfaces here
         reply = {"ok": True, "sync_s": sum(sync_s), "loss": losses.get((s, r)),
-                 **_device_report(device)}
+                 "spans": [sp.to_dict() for sp in spans], **_device_report(device)}
     except Exception as e:  # noqa: BLE001 - shipped to the parent
         reply = _error_reply(store, s, r, e)
     conn.send(reply)
@@ -511,6 +536,13 @@ def _run_serve(conn, store: FileStore, s: int, r: int, cmd) -> None:
     from repro_torch.serving.worker import ServeStageWorker
 
     ops.reset_launch_counts()
+    spans: list = []
+    tracer, clock = _tracer(cmd, s, r, "prefill", spans)
+
+    def on_decode() -> None:
+        if tracer is not None:
+            tracer.phase = "decode"
+
     try:
         dev = resolve_device(cmd["device"])      # no card: raise, never the CPU
         spec = store.unstash(cmd["spec"], dev)
@@ -520,13 +552,14 @@ def _run_serve(conn, store: FileStore, s: int, r: int, cmd) -> None:
         head = span.index == span.n_stages - 1
         sink: list = []
         _drive(serve_worker_program(
-            LocalWorkerContext(store, worker=(s, r)), s=s, S=span.n_stages,
-            worker=sworker, toks=torch.tensor(spec["toks"], device=dev),
-            n_new=spec["n_new"], sink=sink if head else None), sync=None)
+            LocalWorkerContext(store, worker=(s, r), tracer=tracer, clock=clock),
+            s=s, S=span.n_stages, worker=sworker,
+            toks=torch.tensor(spec["toks"], device=dev), n_new=spec["n_new"],
+            sink=sink if head else None, on_decode=on_decode), sync=None)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         reply = {"ok": True, "tokens": to_wire(torch.cat(sink, dim=1)) if head else None,
-                 **_device_report(dev)}
+                 "spans": [sp.to_dict() for sp in spans], **_device_report(dev)}
     except Exception as e:  # noqa: BLE001 - shipped to the parent
         reply = _error_reply(store, s, r, e)
     conn.send(reply)

@@ -26,10 +26,11 @@ The engine talks only to the ``ExecutionBackend`` protocol
 (``serverless.backends``): ``emulated`` (virtual clocks, the default),
 ``local`` (worker threads over a blocking store) and ``process`` (spawned
 worker processes over a file store, which run the programs themselves)
-train to bit-identical params.  Ported: those backends and the legacy
-keywords ``steps``, ``backend``, ``pipelined_sync`` and ``execution``.
-Not yet: tracing (ROADMAP port queue item 3), fault injection and tolerance
-with ``ExecutionConfig`` (item 5).
+train to bit-identical params.  Ported: those backends, tracing
+(``trace=True``: ``EngineResult.trace``, a ``repro_torch.obs.Trace``) and
+the legacy keywords ``steps``, ``backend``, ``pipelined_sync`` and
+``execution``.  Not yet: fault injection and tolerance with
+``ExecutionConfig`` (ROADMAP port queue item 5).
 """
 from __future__ import annotations
 
@@ -71,6 +72,7 @@ class EngineResult:
     metrics: List[Dict[str, float]] = field(default_factory=list)  # per step
     params: Optional[dict] = None          # final assembled params (numeric mode)
     store_stats: Optional[StoreStats] = None
+    trace: Optional[Any] = None            # repro_torch.obs.Trace (trace=True runs)
 
     @property
     def losses(self) -> List[float]:
@@ -165,11 +167,10 @@ def run_plan(
     argument.  ``backend`` is a registered name (``"emulated"`` when None,
     ``"local"``, ``"process"``, ...) or an :class:`ExecutionBackend`
     instance.  ``steps`` defaults to 1, ``pipelined_sync`` to the plan's
-    (eq (2) without a plan)."""
-    if trace:
-        raise NotImplementedError(
-            "trace=True: tracing is not ported yet: ROADMAP port queue item 3 "
-            "(tracing and calibration)")
+    (eq (2) without a plan).  ``trace=True`` records one span per worker
+    resource task (download, compute, upload, barrier, and each
+    scatter-reduce chunk's transfers) on the backend's clock and returns
+    them as ``EngineResult.trace``."""
     if faults is not None or tolerance is not None:
         raise NotImplementedError(
             "faults / tolerance: fault injection and recovery are not ported "
@@ -185,6 +186,8 @@ def run_plan(
             f"run_plan executes training plans; this plan for {profile.model!r} has "
             f"workload={profile.workload!r}: serve it with "
             "repro_torch.serving.run_serve_plan")
+    # a plan given as such rides along in a traced run's meta
+    plan_doc = profile._as_dict() if hasattr(profile, "_as_dict") else None
     profile, platform, config, total_micro_batches, pipelined_sync = \
         unpack_plan_args("run_plan", profile, platform, config, total_micro_batches,
                          pipelined_sync)
@@ -200,6 +203,12 @@ def run_plan(
     )
 
     be = get_backend("emulated" if backend is None else backend)
+    recorder = None
+    if trace:
+        from repro_torch.obs.schema import SpanRecorder
+
+        recorder = SpanRecorder()
+        be.attach_recorder(recorder)
     # a program-hosting backend (process) runs the worker programs in its
     # own workers: it takes the execution spec before open() and hands back
     # RPC proxies in place of StageWorkers
@@ -256,6 +265,30 @@ def run_plan(
     cost = platform.price_per_gb_s * (mem_total / GB) * t_iter
     comp = float(agg.t_fc.sum() + agg.t_bc.sum())
     sync_t = float(np.mean(sync_durations))
+    trace_obj = None
+    if recorder is not None:
+        from repro_torch.obs.schema import Trace
+
+        trace_obj = Trace(spans=recorder.spans, meta={
+            "model": profile.name,
+            "backend": be.name,
+            "clock": "wall" if be.wall_clock else "virtual",
+            "S": S, "d": d, "mu": mu, "steps": steps,
+            "n_workers": agg.n_workers,
+            "t_total": float(t_total),
+            "t_iter": float(t_iter),
+            "step_ends": [float(t) for t in iter_ends],
+            "step_syncs": [float(t) for t in sync_durations],
+            "bandwidth": [float(w) for w in agg.w],
+            "t_lat": float(agg.t_lat),
+            "pipelined_sync": bool(pipelined_sync),
+            "contention": bool(contention),
+            "payload_true": bool(getattr(be, "payload_true", False)),
+            "throttle": bool(getattr(be, "throttle", False)),
+            "store": stats.as_dict(),
+        })
+        if plan_doc is not None:
+            trace_obj.meta["plan"] = plan_doc
     return EngineResult(
         t_iter=float(t_iter),
         t_total=float(t_total),
@@ -273,4 +306,5 @@ def run_plan(
         metrics=metrics,
         params=params,
         store_stats=stats,
+        trace=trace_obj,
     )

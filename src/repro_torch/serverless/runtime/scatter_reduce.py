@@ -136,6 +136,8 @@ def local_scatter_reduce(
     key_prefix: str,
     pipelined: bool = True,
     barrier=None,
+    tracer=None,
+    clock=None,
 ) -> Optional[torch.Tensor]:
     """One worker's share of the storage scatter-reduce on a wall-clock
     store (``backends.local.LocalStore`` and its file and S3 kin): call from
@@ -148,37 +150,65 @@ def local_scatter_reduce(
     adds the two phase barriers of the eq (1) collective (``barrier`` a
     ``threading.Barrier(n)`` or a ``FileBarrier``); eq (2) needs none.
     Either way a last barrier fences the cleanup: a worker frees its reduced
-    chunk only after every peer has pulled it."""
+    chunk only after every peer has pulled it.
+
+    With ``tracer`` set (a ``repro_torch.obs.WorkerTracer``, its times read
+    from ``clock``, seconds), every chunk put, take or get and every barrier wait
+    emits one wall-clock span; a fetch's span covers its visibility wait."""
     i = index
     if n == 1:
         return None if value is None else value.to(torch.float32)
+
+    def put(key, val):
+        if tracer is None:
+            store.put(key, chunk_b, value=val)
+            return
+        t0 = clock()
+        charged = store.put(key, chunk_b, value=val)
+        tracer.emit("upload", t0, clock(), nbytes=charged, key=key)
+
+    def fetch(op, key):
+        if tracer is None:
+            return op(key)
+        t0 = clock()
+        val, nb = op(key, True)
+        tracer.emit("download", t0, clock(), nbytes=nb, key=key)
+        return val
+
+    def wait(b):
+        if tracer is None:
+            b.wait()
+            return
+        t0 = clock()
+        b.wait()
+        tracer.emit("barrier", t0, clock())
+
     chunk_b = nbytes / n
     chunks = None if value is None else torch.tensor_split(value, n)
 
     # scatter: upload my partials of everyone else's chunk, staggered order
     for r in range(1, n):
         j = (i + r) % n
-        store.put(f"{key_prefix}/part/{j}/{i}", chunk_b,
-                  value=None if chunks is None else chunks[j])
+        put(f"{key_prefix}/part/{j}/{i}", None if chunks is None else chunks[j])
     if not pipelined and barrier is not None:
-        barrier.wait()                    # eq (1) phase-1 barrier
+        wait(barrier)                     # eq (1) phase-1 barrier
 
     # reduce: pull the n-1 partials of the owned chunk as they surface,
     # reduce in ring order, publish the reduced chunk
-    parts = [store.take(f"{key_prefix}/part/{i}/{(i - r) % n}") for r in range(1, n)]
+    parts = [fetch(store.take, f"{key_prefix}/part/{i}/{(i - r) % n}") for r in range(1, n)]
     reduced_i = None if chunks is None else ring_reduce(chunks[i], parts)
-    store.put(f"{key_prefix}/red/{i}", chunk_b, value=reduced_i)
+    put(f"{key_prefix}/red/{i}", reduced_i)
     if not pipelined and barrier is not None:
-        barrier.wait()                    # eq (1) phase-2 barrier
+        wait(barrier)                     # eq (1) phase-2 barrier
 
     # all-gather: pull the other reduced chunks
     out: List[Optional[torch.Tensor]] = [None] * n
     out[i] = reduced_i
     for r in range(1, n):
         src = (i + r) % n
-        out[src] = store.get(f"{key_prefix}/red/{src}")
+        out[src] = fetch(store.get, f"{key_prefix}/red/{src}")
     if barrier is not None:
-        barrier.wait()                    # cleanup fence: every peer has read
+        wait(barrier)                     # cleanup fence: every peer has read
     store.delete(f"{key_prefix}/red/{i}")
     return None if chunks is None else torch.cat(out)
 

@@ -301,10 +301,15 @@ class StageChannel:
         self.cpu_free = 0.0
         self.up_free = 0.0
         self.dn_free = 0.0
+        # optional repro_torch.obs.WorkerTracer: when set, every charged
+        # resource task (each scatter-reduce chunk too) emits one span
+        self.tracer = None
 
     def compute(self, duration: float, ready: float = 0.0) -> float:
         start = max(ready, self.cpu_free)
         self.cpu_free = start + duration
+        if self.tracer is not None:
+            self.tracer.emit("compute", start, self.cpu_free)
         return self.cpu_free
 
     def upload(self, key: str, nbytes: float, ready: float = 0.0,
@@ -316,18 +321,27 @@ class StageChannel:
         end = start + nbytes / self.bandwidth + (self.latency if new_request else 0.0)
         self.up_free = end
         self.store.put(key, nbytes, value=value, visible_at=end)
+        if self.tracer is not None:
+            self.tracer.emit("upload", start, end, nbytes=nbytes, key=key)
         return end
 
     def download(self, key: str, ready: float = 0.0, new_request: bool = True):
         obj = self.store.get(key)
+        # the span starts when the transfer does: the visibility wait shows
+        # as a gap (bubble), not as link occupancy
         start = max(ready, self.dn_free, obj.visible_at)
         end = start + obj.nbytes / self.bandwidth + (self.latency if new_request else 0.0)
         self.dn_free = end
+        if self.tracer is not None:
+            self.tracer.emit("download", start, end, nbytes=obj.nbytes, key=key)
         return obj.value, end
 
     def join_uplink_into_downlink(self) -> None:
         """Program-order fence between the forward and backward phases: no
         backward download before the forward uploads are done."""
+        if self.tracer is not None and self.up_free > self.dn_free:
+            # the fence's wait (the downlink held back by the uplink)
+            self.tracer.emit("barrier", self.dn_free, self.up_free)
         self.dn_free = max(self.dn_free, self.up_free)
 
     def release_at(self, t: float) -> None:

@@ -57,17 +57,21 @@ class ServeResult:
     #                                  overlap, t_request is the wall time)
     worker_reports: Tuple[dict, ...] = ()  # process: each stage worker's
     #                                  kernel launches and peak device memory
+    trace: Optional[Any] = None     # repro_torch.obs.Trace when tracing
 
 
 def serve_worker_program(ctx, *, s: int, S: int, worker: ServeStageWorker,
                          toks: torch.Tensor, n_new: int,
                          t_prefill=None, t_decode=None,
-                         sink: Optional[List[torch.Tensor]] = None):
+                         sink: Optional[List[torch.Tensor]] = None,
+                         on_decode=None):
     """Stage ``s``'s serving program; yields once per pipeline round.
 
     ``t_prefill``/``t_decode`` are per-stage compute costs charged on the
     virtual clock.  The head stage appends each greedy token ([B, 1] int32)
-    to ``sink``."""
+    to ``sink``.  ``on_decode`` fires once when the program leaves prefill
+    (a wall-clock tracer flips its phase there; the emulated driver sets
+    the recorder's phase instead)."""
     tp = 0.0 if t_prefill is None else float(t_prefill[s])
     td = 0.0 if t_decode is None else float(t_decode[s])
 
@@ -93,6 +97,8 @@ def serve_worker_program(ctx, *, s: int, S: int, worker: ServeStageWorker,
     yield
 
     # -------------------------------------------------------- decode rounds
+    if on_decode is not None and n_new > 1:
+        on_decode()
     for t in range(1, n_new):
         if worker.has_layers:
             caches, dep_kv = ctx.download(f"kv/s{s}")
@@ -145,7 +151,8 @@ def run_serve_plan(plan, *, backend: str = "emulated", seed: int = 0,
                    prompt: Optional[np.ndarray] = None,
                    use_kernels: bool = False, params: Optional[dict] = None,
                    device="cuda", root: Optional[str] = None,
-                   payload_true: bool = True, throttle: bool = False) -> ServeResult:
+                   payload_true: bool = True, throttle: bool = False,
+                   trace: bool = False) -> ServeResult:
     """Execute a ``workload="serve"`` plan end to end on a backend, the
     numerics on ``device``.  ``"emulated"`` charges the serving cost model on
     per-stage virtual clocks; ``"process"`` runs each stage as a spawned
@@ -157,7 +164,9 @@ def run_serve_plan(plan, *, backend: str = "emulated", seed: int = 0,
     from ``seed``.  ``use_kernels`` routes each capable decode layer through
     the CUDA decode-attention kernel (on a CPU device, its plain version).
     Tokens are bit-identical across backends and to the monolithic
-    :func:`reference_decode` on the same device."""
+    :func:`reference_decode` on the same device.  ``trace=True`` records
+    the stages' spans (phases ``prefill`` and ``decode``) on the backend's
+    clock as ``ServeResult.trace``."""
     from repro_torch.api.plan import PlanCompatibilityError
     from repro_torch.models import registry
     from repro_torch.serverless.backends.emulated import EmulatedBackend
@@ -190,10 +199,17 @@ def run_serve_plan(plan, *, backend: str = "emulated", seed: int = 0,
         raise ValueError(
             f"prompt shape {toks.shape} != plan's request shape "
             f"({spec.batch}, {spec.prefill_tokens})")
+    rec = None
+    if trace:
+        from repro_torch.obs.schema import SpanRecorder
+
+        rec = SpanRecorder()
 
     if backend == "emulated":
         toks_t = torch.tensor(toks, device=dev)
         be = EmulatedBackend()
+        if rec is not None:
+            be.attach_recorder(rec)
         be.open(agg)
         try:
             workers = [ServeStageWorker(cfg, ranges[s], params, s_ctx=spec.s_ctx,
@@ -206,7 +222,9 @@ def run_serve_plan(plan, *, backend: str = "emulated", seed: int = 0,
                 t_decode=est.t_decode_stage,
                 sink=sink if s == S - 1 else None) for s in range(S)]
             walls = []
-            for _ in range(spec.new_tokens):   # prefill, then the decode rounds
+            for t in range(spec.new_tokens):   # prefill, then the decode rounds
+                if rec is not None:
+                    rec.set_phase("prefill" if t == 0 else "decode")
                 _sync(dev)
                 t0 = time.perf_counter()
                 for s in range(S):             # producers before consumers
@@ -231,6 +249,8 @@ def run_serve_plan(plan, *, backend: str = "emulated", seed: int = 0,
 
             kernel_build.build_all()
         be = ProcessBackend(root=root, payload_true=payload_true, throttle=throttle)
+        if rec is not None:
+            be.attach_recorder(rec)
         try:
             be.open(agg)
             wall0 = time.perf_counter()
@@ -248,11 +268,20 @@ def run_serve_plan(plan, *, backend: str = "emulated", seed: int = 0,
 
     price = rp.platform.price_per_gb_s
     cost = float(price * (np.sum(agg.mem) / GB) * t_request)
+    tr = None
+    if rec is not None:
+        from repro_torch.obs.schema import Trace
+
+        tr = Trace(spans=rec.spans, meta={
+            "plan": plan._as_dict(), "backend": backend, "workload": "serve",
+            "model": plan.model, "clock": "wall" if backend == "process" else "virtual",
+            "t_request": t_request, "t_total": t_request, "steps": 1, "d": 1, "S": S,
+            "store": stats.as_dict()})
     return ServeResult(
         tokens=tokens, t_request=float(t_request),
         cost_per_request=cost, cost_per_1k=1000.0 * cost,
         backend=backend, store_stats=stats, kv_bytes=est.kv_bytes,
-        round_wall_s=tuple(walls), worker_reports=reports)
+        round_wall_s=tuple(walls), worker_reports=reports, trace=tr)
 
 
 def _drain_kv(be, ranges) -> None:

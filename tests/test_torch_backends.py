@@ -12,7 +12,12 @@ liveness cases wait on events and generous timeouts, not on sleeps.  Then
 chunks, ``run_plan`` bit-identical across the port's ``emulated``,
 ``local`` and ``process`` backends and within the reference tolerances of
 the JAX engine on ``local``, and ``run_serve_plan`` on ``process`` emitting
-the JAX package's tokens.  The spawned children never import jax.
+the JAX package's tokens.  Traced runs on ``local`` and ``process``
+(``trace=True``) validate on the wall clock, cover every worker, reconcile
+their span bytes with ``StoreStats`` within 1e-9 relative, and leave params
+and tokens bit-identical to the untraced runs'; a traced compute span ends
+after its device wait, and an untraced run never waits.  The spawned
+children never import jax.
 """
 import dataclasses
 import io
@@ -53,6 +58,7 @@ from repro_torch.core.perfmodel import Config
 from repro_torch.core.profiler import arch_model_profile
 from repro_torch.models import registry
 from repro_torch.models.common import tree_leaves
+from repro_torch.obs import pipeline_health, validate_trace
 from repro_torch.optim import AdamW
 from repro_torch.serverless.backends import (
     AwsS3Backend,
@@ -66,11 +72,13 @@ from repro_torch.serverless.backends import (
     get_backend,
     register_backend,
 )
+from repro_torch.serverless.backends import local as local_mod
 from repro_torch.serverless.backends.cloud import (
     BackendUnavailableError,
     CloudConfig,
     S3ObjectStore,
 )
+from repro_torch.serverless.backends.local import LocalWorkerContext
 from repro_torch.serverless.backends.process_worker import FileBarrier, FileStore
 from repro_torch.serverless.platform import get_platform
 from repro_torch.serverless.retry import RetryPolicy
@@ -603,10 +611,11 @@ def _plan_inputs():
         batches=[{k: torch.from_numpy(np.array(v)) for k, v in b.items()} for b in jbatches])
 
 
-def _port_run(p, backend, pipelined, steps=None):
+def _port_run(p, backend, pipelined, steps=None, trace=False):
     prof = arch_model_profile(p.cfg, AWS, seq=p.seq, micro_batch=p.B // (p.d * p.mu))
     return run_plan(prof, AWS, Config(x=p.x, d=p.d, z=(0,) * p.L), p.d * p.mu,
                     steps=steps or p.steps, pipelined_sync=pipelined, backend=backend,
+                    trace=trace,
                     execution=Execution(cfg=p.cfg, optimizer=AdamW(lr=1e-2),
                                         init_params=p.params,
                                         batch_fn=lambda k: p.batches[k], device="cpu"))
@@ -614,13 +623,17 @@ def _port_run(p, backend, pipelined, steps=None):
 
 @pytest.fixture(scope="module", params=[True, False], ids=["eq2", "eq1"])
 def trained(request):
-    """The plan trained on the port's three backends and on the JAX engine's
-    local backend, for one sync schedule."""
+    """The plan trained on the port's three backends, traced on ``local`` and
+    ``process`` too, and on the JAX engine's local backend, for one sync
+    schedule."""
     pipelined = request.param
     p = _plan_inputs()
-    runs = {name: _port_run(p, be, pipelined) for name, be in (
-        ("emulated", "emulated"), ("local", LocalBackend(lease_timeout=WAIT)),
-        ("process", ProcessBackend(lease_timeout=WAIT)))}
+    runs = {name: _port_run(p, be, pipelined, trace=name.endswith("traced"))
+            for name, be in (
+                ("emulated", "emulated"), ("local", LocalBackend(lease_timeout=WAIT)),
+                ("process", ProcessBackend(lease_timeout=WAIT)),
+                ("local_traced", LocalBackend(lease_timeout=WAIT)),
+                ("process_traced", ProcessBackend(lease_timeout=WAIT)))}
     jres = jax_run_plan(
         jax_profile(p.jcfg, AWS_LAMBDA, seq=p.seq, micro_batch=p.B // (p.d * p.mu)),
         AWS_LAMBDA, JaxConfig(x=p.x, d=p.d, z=(0,) * p.L), total_micro_batches=p.d * p.mu,
@@ -674,19 +687,108 @@ def test_run_plan_local_matches_jax_engine(trained):
     assert st.class_bytes_in == pytest.approx(jst.class_bytes_in, rel=1e-12)
 
 
+@pytest.mark.parametrize("name", ["local", "process"])
+def test_traced_wall_clock_run_validates_and_keeps_the_bits(trained, name):
+    """A traced run on ``local`` or ``process``: a wall-clock trace that
+    validates, covers every worker in every step and phase, and whose span
+    bytes equal ``StoreStats`` within 1e-9 relative (summed in another
+    order); losses equal and params bit-identical to the untraced run's.
+    Wall-clock traces carry no bandwidth-utilization column."""
+    p, traced, plain = trained.inputs, trained.runs[f"{name}_traced"], trained.runs[name]
+    tr = traced.trace
+    assert plain.trace is None and trained.runs["emulated"].trace is None
+    assert tr.meta["clock"] == "wall" and tr.meta["backend"] == name
+    validate_trace(tr)
+    S = sum(p.x) + 1
+    workers = {f"s{s}r{r}" for s in range(S) for r in range(p.d)}
+    for k in range(p.steps):
+        for phase in ("fwd", "bwd", "sync"):
+            assert {sp.worker for sp in tr.spans if sp.step == k and sp.phase == phase} \
+                == workers, (k, phase)
+    assert {sp.op for sp in tr.spans} >= {"download", "compute", "upload"}
+    st = traced.store_stats
+    up = sum(sp.nbytes for sp in tr.spans if sp.op == "upload")
+    dn = sum(sp.nbytes for sp in tr.spans if sp.op == "download")
+    assert up == pytest.approx(st.bytes_in, rel=1e-9)
+    assert dn == pytest.approx(st.bytes_out, rel=1e-9)
+    h = pipeline_health(tr)
+    assert h["reconciliation"]["ok"]
+    assert all("up_bw_util" not in row and 0.0 <= row["compute_frac"] <= 1.0
+               for row in h["stages"])
+    assert len(tr.meta["step_ends"]) == p.steps and tr.meta["t_total"] == traced.t_total
+    assert traced.losses == plain.losses
+    assert _bits_equal(traced.params, plain.params)
+
+
+class _FakeTracer:
+    phase = "fwd"
+
+    def __init__(self):
+        self.spans = []
+
+    def emit(self, op, start, end, **kw):
+        self.spans.append((op, start, end, kw))
+
+
+def test_traced_compute_span_ends_after_the_device_wait(monkeypatch):
+    """The span starts before ``fn``, and its end is read from the clock
+    after ``device_wait`` returned; ``fn``'s result comes back."""
+    log, ticks = [], iter(range(100))
+
+    def clock():
+        log.append("clock")
+        return float(next(ticks))
+
+    monkeypatch.setattr(local_mod, "device_wait", lambda: log.append("wait"))
+    tracer = _FakeTracer()
+    ctx = LocalWorkerContext(LocalStore(timeout=WAIT), worker=(0, 0), tracer=tracer,
+                             clock=clock)
+    assert ctx.compute(1.0, lambda: log.append("fn") or 7) == 7
+    assert log == ["clock", "fn", "wait", "clock"]
+    assert tracer.spans == [("compute", 0.0, 1.0, {})]
+    ctx.upload("k0/r0/m0/act0", 8.0, value=1)
+    assert ctx.download("k0/r0/m0/act0") == (1, None)
+    assert log.count("wait") == 1          # transfers wait on nothing
+    assert [sp[0] for sp in tracer.spans] == ["compute", "upload", "download"]
+    assert tracer.spans[2][3] == {"nbytes": 8.0, "key": "k0/r0/m0/act0"}
+
+
+def test_untraced_runs_never_wait(monkeypatch):
+    """No tracer, no wait: a context's compute and a whole untraced ``local``
+    run never call ``device_wait``; a traced run calls it once per compute
+    span."""
+    calls = []
+    monkeypatch.setattr(local_mod, "device_wait", lambda: calls.append(1))
+    ctx = LocalWorkerContext(LocalStore(timeout=WAIT), worker=(0, 0))
+    assert ctx.compute(1.0, lambda: 3) == 3 and calls == []
+    p = _plan_inputs()
+    res = _port_run(p, LocalBackend(lease_timeout=WAIT), True, steps=1)
+    assert calls == [] and res.trace is None
+    traced = _port_run(p, LocalBackend(lease_timeout=WAIT), True, steps=1, trace=True)
+    assert len(calls) == sum(sp.op == "compute" for sp in traced.trace.spans) > 0
+    assert _bits_equal(traced.params, res.params)
+
+
 @pytest.mark.parametrize("store", ["local-fs", "aws-fake-s3"])
 def test_run_plan_through_files_and_a_bucket_is_bit_identical(store, tmp_path):
     """Every payload pickled through files (``LocalBackend(fs_root=...)``)
     or a fake S3 bucket (``AwsS3Backend``) trains one step to the emulated
-    run's params."""
+    run's params, untraced and traced (a wall-clock trace that validates)."""
     p = _plan_inputs()
-    be = (LocalBackend(fs_root=str(tmp_path / "spill"), lease_timeout=WAIT)
-          if store == "local-fs"
-          else AwsS3Backend(_s3_config(), client=FakeS3Client(), lease_timeout=WAIT))
+
+    def backend():
+        return (LocalBackend(fs_root=str(tmp_path / "spill"), lease_timeout=WAIT)
+                if store == "local-fs"
+                else AwsS3Backend(_s3_config(), client=FakeS3Client(), lease_timeout=WAIT))
+
     em = _port_run(p, "emulated", True, steps=1)
-    res = _port_run(p, be, True, steps=1)
-    assert res.losses == em.losses and _bits_equal(res.params, em.params)
-    assert res.store_stats.puts == em.store_stats.puts
+    for trace in (False, True):
+        res = _port_run(p, backend(), True, steps=1, trace=trace)
+        assert res.losses == em.losses and _bits_equal(res.params, em.params)
+        assert res.store_stats.puts == em.store_stats.puts
+        assert (res.trace is not None) == trace
+    validate_trace(res.trace)
+    assert res.trace.meta["clock"] == "wall" and pipeline_health(res.trace)["reconciliation"]["ok"]
 
 
 def test_process_child_without_cuda_raises():
@@ -738,10 +840,39 @@ def test_serve_on_process_matches_emulated_and_jax(served, split):
     assert st.class_bytes_in["kv"] > 0 and st.bytes_in != em.store_stats.bytes_in
 
 
+def test_traced_serve_on_process_gives_the_untraced_tokens(served):
+    """A traced request on ``process``: the untraced run's tokens (which
+    are JAX's), a wall-clock trace that validates with exactly the phases
+    prefill and decode on every stage, span bytes equal to ``StoreStats``
+    within 1e-9 relative."""
+    plan = DeploymentPlan.load(served.path)
+    params = registry.params_from_jax(served.params_np, device="cpu")
+    kw = dict(backend="process", device="cpu", params=params, prompt=served.prompt,
+              use_kernels=True)
+    plain = run_serve_plan(plan, **kw)
+    res = run_serve_plan(plan, trace=True, **kw)
+    assert plain.trace is None
+    assert np.array_equal(res.tokens, plain.tokens)
+    assert np.array_equal(res.tokens, served.jax_tokens)
+    tr = res.trace
+    validate_trace(tr)
+    assert tr.meta["clock"] == "wall" and tr.meta["workload"] == "serve"
+    assert tr.meta["S"] == plan.n_stages and tr.meta["t_request"] == res.t_request
+    assert {sp.phase for sp in tr.spans} == {"prefill", "decode"}
+    for phase in ("prefill", "decode"):
+        assert {sp.stage for sp in tr.spans if sp.phase == phase} == set(range(plan.n_stages))
+    st = res.store_stats
+    assert sum(sp.nbytes for sp in tr.spans if sp.op == "upload") == \
+        pytest.approx(st.bytes_in, rel=1e-9)
+    assert sum(sp.nbytes for sp in tr.spans if sp.op == "download") == \
+        pytest.approx(st.bytes_out, rel=1e-9)
+    assert pipeline_health(tr)["reconciliation"]["ok"]
+
+
 def test_process_children_never_import_jax(served, tmp_path):
-    """A process-backend training step and serve request on the CPU, with
-    ``jax`` and ``repro`` shadowed by packages that refuse to import: the
-    parent and every spawned child run without them."""
+    """A traced process-backend training step and serve request on the CPU,
+    with ``jax`` and ``repro`` shadowed by packages that refuse to import:
+    the parent and every spawned child run without them."""
     for name in ("jax", "repro"):
         (tmp_path / name).mkdir()
         (tmp_path / name / "__init__.py").write_text(
@@ -767,14 +898,17 @@ def main():
     batch = make_batch(cfg, InputShape("p", 8, 2, "train"), seed=0, device="cpu")
     params = registry.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     res = run_plan(prof, aws, Config(x=(0, 1, 0), d=1, z=(0,) * 4), 1, backend="process",
+                   trace=True,
                    execution=Execution(cfg=cfg, optimizer=SGD(), init_params=params,
                                        batch_fn=lambda k: batch, device="cpu"))
     assert res.backend == "process" and np.isfinite(res.losses).all()
+    assert len(res.trace.spans) > 0
     from repro_torch.api.plan import DeploymentPlan
     from repro_torch.serving import run_serve_plan
 
-    served = run_serve_plan(DeploymentPlan.load(sys.argv[1]), backend="process", device="cpu")
-    assert served.tokens.shape == (2, 3)
+    served = run_serve_plan(DeploymentPlan.load(sys.argv[1]), backend="process", device="cpu",
+                            trace=True)
+    assert served.tokens.shape == (2, 3) and len(served.trace.spans) > 0
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "repro"))
     print("LEAKED", bad)
 

@@ -6,7 +6,9 @@ port with the same fingerprint; the cost model (``estimate_serving``,
 ``run_serve_plan`` fed the JAX package's weights and prompt emits the JAX
 ``reference_decode`` tokens with a bit-equal emulated clock, cost and store
 traffic — as planned and forced to two stages, as ``tests/test_serving.py``
-runs the JAX engine.  The port itself never imports jax.
+runs the JAX engine.  Traced (``trace=True``), the emulated run's spans and
+meta equal the JAX engine's traced run's exactly.  The port itself never
+imports jax.
 """
 import dataclasses
 import os
@@ -36,6 +38,7 @@ from repro.serving import (
 
 from repro_torch.api.plan import DeploymentPlan, PlanCompatibilityError, profile_fingerprint
 from repro_torch.models import registry
+from repro_torch.obs import validate_trace
 from repro_torch.serverless.simulator import stage_aggregates
 from repro_torch.serving import (
     ServingSpec,
@@ -151,6 +154,28 @@ def test_serve_matches_jax_engine(served, split, use_kernels):
     assert len(res.round_wall_s) == NEW
 
 
+@pytest.mark.parametrize("split", SPLITS)
+def test_traced_serve_spans_equal_jax(served, split):
+    """The emulated request traced in both packages: the same spans in the
+    same order with equal floats, phases prefill then decode, and the same
+    meta (the plan's record, the clock, ``t_request``, ``S``, the store's
+    counters); the tokens stay the untraced run's."""
+    plan = _port_plan(served, split)
+    params = registry.params_from_jax(served.params_np, device="cpu")
+    res = run_serve_plan(plan, device="cpu", params=params, prompt=served.prompt, trace=True)
+    jres = jax_run_serve_plan(served.jplans[split], backend="emulated", seed=0, trace=True)
+    rows = [(sp.stage, sp.replica, sp.step, sp.phase, sp.op, sp.start, sp.end, sp.nbytes,
+             sp.key) for sp in res.trace.spans]
+    jrows = [(sp.stage, sp.replica, sp.step, sp.phase, sp.op, sp.start, sp.end, sp.nbytes,
+              sp.key) for sp in jres.trace.spans]
+    assert len(rows) > 0 and rows == jrows
+    assert res.trace.meta == jres.trace.meta
+    assert {sp.phase for sp in res.trace.spans} == {"prefill", "decode"}
+    validate_trace(res.trace)
+    assert np.array_equal(res.tokens, served.ref)
+    assert run_serve_plan(plan, device="cpu", params=params, prompt=served.prompt).trace is None
+
+
 def test_monolithic_loop_matches_jax_oracle(served):
     cfg = arch_config_for_model(served.model)
     params = registry.params_from_jax(served.params_np, device="cpu")
@@ -196,8 +221,9 @@ def test_greedy_token_rule():
 
 
 def test_port_never_imports_jax(tmp_path):
-    """A CPU serve through the port leaves jax out of sys.modules, and no
-    module of the port has an import of the JAX package."""
+    """A traced CPU serve through the port, with ``repro_torch.obs``'s
+    metrics, leaves jax and repro out of sys.modules, and no module of the
+    port has an import of the JAX package."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\s|\.|$)", re.M)
     offenders = [str(p) for p in (REPO / "src" / "repro_torch").rglob("*.py")
                  if pat.search(p.read_text())]
@@ -210,8 +236,11 @@ def test_port_never_imports_jax(tmp_path):
         "import numpy as np\n"
         "from repro_torch.api.plan import DeploymentPlan\n"
         "from repro_torch.serving import run_serve_plan\n"
-        f"res = run_serve_plan(DeploymentPlan.load({str(path)!r}), device='cpu')\n"
+        "from repro_torch.obs import pipeline_health, validate_trace\n"
+        f"res = run_serve_plan(DeploymentPlan.load({str(path)!r}), device='cpu', trace=True)\n"
         "assert res.tokens.shape == (%d, %d)\n"
+        "validate_trace(res.trace)\n"
+        "assert pipeline_health(res.trace)['reconciliation']['ok']\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'repro.')) or m == 'repro')\n"
         "print('LEAKED', bad)\n"
         "assert not bad, bad\n" % (BATCH, NEW))

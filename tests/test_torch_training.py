@@ -46,6 +46,7 @@ from repro_torch.core.profiler import arch_model_profile
 from repro_torch.data.synthetic import make_batch
 from repro_torch.models.common import tree_leaves
 from repro_torch.models.registry import params_from_jax
+from repro_torch.obs import Trace
 from repro_torch.optim import SGD, AdamW
 from repro_torch.serverless.platform import get_platform
 from repro_torch.serverless.runtime import Execution, run_plan
@@ -485,8 +486,18 @@ def test_run_plan_guard_rails():
     L = cfg.n_layers + 2
     args = (arch_model_profile(cfg, AWS, seq=16, micro_batch=2), AWS,
             Config(x=(0,) * (L - 1), d=1, z=(0,) * L), 2)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        run_plan(*args, trace=True)
+    traced = run_plan(*args, trace=True)     # ported (item 3a): a timing-only trace
+    assert isinstance(traced.trace, Trace) and traced.trace.meta["clock"] == "virtual"
+    assert len(traced.trace.spans) > 0 and run_plan(*args).trace is None
+    from repro_torch.api.plan import DeploymentPlan
+
+    measured = DeploymentPlan(
+        model="phi3-mini-3.8b@reduced", platform="aws", x=(0,) * (L - 1), z=(0,) * L, d=1,
+        total_micro_batches=2, alpha=(1.0, 0.0), pipelined_sync=True, merge_to=None, seq=16,
+        micro_batch=2, profile_fingerprint="0" * 16, t_iter=0.0, c_iter=0.0, objective=0.0,
+        solver="manual", engine="-", solve_seconds=0.0, profile_source="measured")
+    with pytest.raises(NotImplementedError, match="item 3b"):
+        run_plan(measured)
     with pytest.raises(NotImplementedError, match="item 5"):
         run_plan(*args, faults={"seed": 0})
     with pytest.raises(NotImplementedError, match="item 5"):
