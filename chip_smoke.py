@@ -166,8 +166,10 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.api.plan import DeploymentPlan, profile_fingerprint  # noqa: E402
+from repro_torch.api.session import DEFAULT_ALPHA  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.core import planner  # noqa: E402
 from repro_torch.core.perfmodel import Config  # noqa: E402
 from repro_torch.core.profiler import arch_model_profile, resolve_profile  # noqa: E402
 from repro_torch.data.synthetic import make_batch  # noqa: E402
@@ -185,6 +187,7 @@ from repro_torch.serverless.platform import get_platform  # noqa: E402
 from repro_torch.serverless.runtime import Execution, run_plan  # noqa: E402
 from repro_torch.serverless.runtime import worker as worker_mod  # noqa: E402
 from repro_torch.serverless.runtime.store import classify_key  # noqa: E402
+from repro_torch.serverless.simulator import simulate_funcpipe  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
     ServingSpec,
     arch_config_for_model,
@@ -248,6 +251,11 @@ SWIGLU_TRAIN = (2048, 3072, 8192)
 TRAIN = dict(n_layers=4, seq=1024, micro_batch=2, d=2, mu=2, steps=2, cut=2)
 TRAIN_REDUCED = dict(n_layers=4, seq=16, micro_batch=2, d=2, mu=2, steps=2, cut=2)
 # gemma3-4b: two periods of six layers, a stage each (cuts are period-aligned)
+# train_planned: train_full's model, depth, sequence and micro-batch, with the
+# stage cut, memory and d chosen by the port's planner (d <= 2 keeps the
+# emulated replicas on one card, as train_full's d = 2 does)
+TRAIN_PLANNED = dict(n_layers=4, seq=1024, micro_batch=2, total_micro_batches=4,
+                     d_options=(1, 2), steps=2)
 TRAIN_GEMMA = dict(n_layers=12, seq=2048, micro_batch=1, d=1, mu=2, steps=2, cut=6)
 # gemma3-4b in fp32: one period, one stage (no cut)
 TRAIN_GEMMA_FP32 = dict(n_layers=6, seq=2048, micro_batch=1, d=1, mu=2, steps=1, cut=-1)
@@ -1431,6 +1439,46 @@ def trace_summary(trace, name: str) -> dict:
             "reconciliation": health["reconciliation"]}
 
 
+def device_profiler():
+    """A ``torch.profiler`` that records the card's kernels only (every
+    stream), for :func:`device_busy`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def device_busy(prof) -> dict:
+    """The device work a profiler window saw: its kernels' summed durations
+    and the union of their intervals (kernels of concurrent streams
+    overlap, so the union is the time the card was busy), in seconds."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    union, lo, hi = 0.0, None, None
+    for a, b in spans:
+        if hi is None or a > hi:
+            union += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    union += 0.0 if hi is None else hi - lo
+    return {"kernels": len(spans), "kernel_sum_s": sum(b - a for a, b in spans) / 1e6,
+            "kernel_union_s": union / 1e6}
+
+
+def compute_vs_device(trace, busy: dict, step: int) -> dict:
+    """Each worker's compute-span seconds in ``step`` and their sum, beside
+    the device work of that step (from the step's start to the run's end:
+    the step's stage math, its update and ``assemble_params``'s copies)."""
+    by_worker: dict = {}
+    for sp in trace.spans:
+        if sp.step == step and sp.op == "compute":
+            by_worker[sp.worker] = by_worker.get(sp.worker, 0.0) + sp.duration
+    total = sum(by_worker.values())
+    return {"compute_s_by_worker": dict(sorted(by_worker.items())), "compute_s_sum": total,
+            "device": busy, "compute_sum_over_device_union": total / busy["kernel_union_s"]
+            if busy["kernel_union_s"] else None}
+
+
 def phase_train_backends(smi: str) -> dict:
     """``train_full``'s plan (phi3-mini-3.8b, full width, 4 layers, bf16,
     seed 0, 2 stages x 2 replicas, 2 micro-batches of 2 x 1024 tokens,
@@ -1476,11 +1524,17 @@ def phase_train_backends(smi: str) -> dict:
             else:
                 be = backend
             marks, counts = [], []
+            # a traced local run's step 1 is profiled: the device work its
+            # compute spans are read against
+            profiled = {} if traced and backend == "local" else None
 
             def batch_fn(k):
                 torch.cuda.synchronize()
                 marks.append(time.perf_counter())
                 counts.append(ops.launch_counts())
+                if profiled is not None and k == 1:
+                    profiled["prof"] = device_profiler()
+                    profiled["prof"].start()
                 return batches[k]
 
             torch.cuda.synchronize()
@@ -1494,6 +1548,8 @@ def phase_train_backends(smi: str) -> dict:
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
             counts.append(ops.launch_counts())
+            if profiled is not None:
+                profiled["prof"].stop()
             rec = {"backend": res.backend, "wall_clock": res.wall_clock, "traced": traced,
                    "pipelined_sync": pipelined, "losses": res.losses,
                    "step_wall_s": [b - a for a, b in zip(marks, marks[1:])],
@@ -1524,6 +1580,9 @@ def phase_train_backends(smi: str) -> dict:
                 raise AssertionError(f"{run_name}: an untraced run returned a trace")
             if traced:
                 rec["trace"] = trace_summary(res.trace, f"train_backends_{run_name}")
+            if profiled is not None:
+                rec["step1_compute_vs_device"] = compute_vs_device(
+                    res.trace, device_busy(profiled.pop("prof")), step=1)
                 if backend == "emulated":
                     ends = [max(sp.end for sp in res.trace.spans if sp.step == k)
                             for k in range(steps)]
@@ -1868,6 +1927,136 @@ def phase_train_full(smi: str) -> dict:
     return launches
 
 
+def phase_train_planned(smi: str) -> dict:
+    """The first plan the port's own planner solves, trained on the card.
+
+    ``arch_model_profile`` of phi3-mini-3.8b at full width and
+    ``train_full``'s depth (4 layers: L = 6 profile layers), sequence and
+    micro-batch on ``aws``, solved by ``planner.solve`` (batch engine) with
+    the paper's default weights, 4 micro-batches and d in (1, 2), and by
+    ``planner.dp_solve``, which must be no worse.  The plan goes
+    ``DeploymentPlan.from_result`` -> ``to_json`` -> ``from_json`` ->
+    ``resolve`` (the profile passed in, since the model id alone rebuilds
+    all 32 layers, and fingerprint-checked), is evaluated and simulated,
+    then trained for 2 steps on ``emulated`` in bf16 with AdamW(1e-4) and
+    the kernels.  Exact launches per step, all on the wgmma route;
+    replicas bit-identical after each step; finite losses, the first
+    within 2e-2 of the same plan with the kernels' plain versions; the
+    emulated clock's ``t_iter`` within 5% of ``simulate_funcpipe``'s.
+    Second-step wall time and peak memory."""
+    spec = TRAIN_PLANNED
+    torch.use_deterministic_algorithms(True)
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), n_layers=spec["n_layers"])
+    plat = get_platform("aws")
+    prof = arch_model_profile(cfg, plat, seq=spec["seq"], micro_batch=spec["micro_batch"])
+    M = spec["total_micro_batches"]
+    kw = dict(alpha=DEFAULT_ALPHA, total_micro_batches=M, d_options=spec["d_options"])
+    t0 = time.perf_counter()
+    solved = planner.solve(prof, plat, **kw)
+    t1 = time.perf_counter()
+    dp = planner.dp_solve(prof, plat, **kw)
+    t2 = time.perf_counter()
+    if solved is None or dp is None:
+        raise AssertionError(f"no feasible plan: batch {solved}, dp {dp}")
+    if dp.objective > solved.objective * (1 + 1e-9):
+        raise AssertionError(f"dp objective {dp.objective} worse than batch {solved.objective}")
+    plan = DeploymentPlan.from_result(solved, platform=plat, alpha=DEFAULT_ALPHA,
+                                      total_micro_batches=M, seq=spec["seq"],
+                                      micro_batch=spec["micro_batch"])
+    back = DeploymentPlan.from_json(plan.to_json())
+    if back.to_json() != plan.to_json():
+        raise AssertionError("plan JSON does not round-trip")
+    rp = back.resolve(profile=prof)
+    ev = back.evaluate(profile=prof)
+    sim = back.simulate(profile=prof)
+    d = rp.config.d
+    mu = M // d
+    run_spec = dict(spec, d=d, mu=mu)
+
+    torch.cuda.empty_cache()
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    batches = train_batches(cfg, run_spec, d, spec["steps"])
+    per_step = d * mu * cfg.n_layers
+    marks, counts, replicas_ok = [], [], []
+
+    def batch_fn(k):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(ops.launch_counts())
+        if k > 0:
+            replicas_ok.append(replicas_identical(workers))
+        return batches[k]
+
+    execution = Execution(cfg=cfg, optimizer=AdamW(lr=1e-4), init_params=params,
+                          batch_fn=batch_fn, use_kernels=True, device="cuda")
+    run_args = (rp.profile, rp.platform, rp.config, rp.total_micro_batches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with tracked_workers() as workers:
+        res = run_plan(*run_args, steps=spec["steps"], pipelined_sync=rp.pipelined_sync,
+                       execution=execution)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(ops.launch_counts())
+        replicas_ok.append(replicas_identical(workers))
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts[-1]
+    step_counts = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
+    expect = _expected_launches(per_step, "wgmma", "wgmma")
+    if any(c != expect for c in step_counts) or len(step_counts) != spec["steps"]:
+        raise AssertionError(f"launches per step {step_counts}, expected {expect}")
+    if not all(replicas_ok) or len(replicas_ok) != spec["steps"]:
+        raise AssertionError(f"replicas differ after a step: {replicas_ok}")
+    if not all(np.isfinite(res.losses)):
+        raise AssertionError(f"non-finite losses {res.losses}")
+    rel = abs(res.t_iter - sim.t_iter) / sim.t_iter
+    if rel > 0.05:
+        raise AssertionError(f"emulated t_iter {res.t_iter} is {rel:.2%} from the "
+                             f"simulator's {sim.t_iter}")
+    losses, t_iter = res.losses, res.t_iter
+    del res
+    with training_kernels_as_plain():
+        plain = run_plan(*run_args, steps=1, pipelined_sync=rp.pipelined_sync,
+                         execution=dataclasses.replace(execution,
+                                                       batch_fn=lambda k: batches[k]))
+    losses_plain = plain.losses
+    del plain
+    if abs(losses[0] - losses_plain[0]) > 2e-2:
+        raise AssertionError(f"first loss {losses[0]} with the kernels, {losses_plain[0]} "
+                             "with their plain versions")
+
+    def described(r):
+        return {"x": list(r.config.x), "d": r.config.d, "z": list(r.config.z),
+                "objective": r.objective, "t_iter": r.evaluation.t_iter,
+                "c_iter": r.evaluation.c_iter, "stats": dataclasses.asdict(r.stats)}
+
+    emit({"phase": "train_planned", "card": smi, "model": "phi3-mini-3.8b",
+          "dtype": cfg.param_dtype, "n_layers": cfg.n_layers, "profile_L": prof.L,
+          "seq": spec["seq"], "micro_batch": spec["micro_batch"], "platform": plat.name,
+          "alpha": list(DEFAULT_ALPHA), "total_micro_batches": M,
+          "d_options": list(spec["d_options"]),
+          "plan_batch": described(solved), "plan_dp": described(dp),
+          "solve_s": {"batch": t1 - t0, "dp": t2 - t1},
+          "plan": back.describe(), "plan_hash": back.content_hash,
+          "profile_fingerprint": back.profile_fingerprint,
+          "evaluate": {"t_iter": ev.t_iter, "c_iter": ev.c_iter},
+          "simulate": {"t_iter": sim.t_iter, "cost": sim.cost,
+                       "breakdown": sim.breakdown},
+          "stages": back.n_stages, "d": d, "mu": mu, "steps": spec["steps"],
+          "optimizer": "AdamW(lr=1e-4)", "losses": losses,
+          "losses_kernels_as_plain": losses_plain, "t_iter_emulated_s": t_iter,
+          "t_iter_emulated_vs_simulated_rel_err": rel,
+          "launches_per_step": step_counts, "kernel_launches": launches,
+          "replicas_bit_identical": replicas_ok,
+          "step_wall_s": [b - a for a, b in zip(marks, marks[1:])],
+          "max_memory_allocated_bytes": peak})
+    del params, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_train_step(cfg, prof, plat, config, M, params, batches, optimizer) -> dict:
     """Where a training step's time goes: a second run of the same plan,
     with ``torch.profiler`` over its second step only."""
@@ -2201,6 +2390,7 @@ def main() -> None:
     phase_serve_reduced(smi)
     train = phase_train_full(smi)
     backends = phase_train_backends(smi)
+    planned = phase_train_planned(smi)
     fp32 = phase_train_fp32(smi)
     # the bf16 main path's training launches all took the wgmma kernels, the
     # fp32 path's the tf32x3 kernels
@@ -2213,6 +2403,9 @@ def main() -> None:
     on_backends = {"decode_attention": process_decode,
                    **{name: backends[f"{name}_wgmma"] for name in FP32_WAYS},
                    **{f"{name}_bwd": backends[f"{name}_bwd_wgmma"] for name in FP32_WAYS}}
+    # and the planned plan's run (train_planned), on the wgmma route too
+    on_planned = {**{name: planned[f"{name}_wgmma"] for name in FP32_WAYS},
+                  **{f"{name}_bwd": planned[f"{name}_bwd_wgmma"] for name in FP32_WAYS}}
     phase_train_reduced(smi)
     # gemma3-4b's path: every flash launch at hd 256 on the wgmma route
     gemma = phase_train_gemma(smi)
@@ -2230,10 +2423,11 @@ def main() -> None:
     kernels = []
     for name, rec in recs.items():
         base = next(b for b in tpu if name.startswith(b))
-        extra = on_backends.get(name, 0)
+        extra, more = on_backends.get(name, 0), on_planned.get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": source.format(base),
-                        "replaces": tpu[base], "launches": launches[name] + extra,
-                        "launches_backend_phases": extra, **rec})
+                        "replaces": tpu[base], "launches": launches[name] + extra + more,
+                        "launches_backend_phases": extra, "launches_train_planned": more,
+                        **rec})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

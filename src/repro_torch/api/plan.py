@@ -1,12 +1,17 @@
 """The serializable deployment artifact (``repro.api.plan`` for the port).
 
-A :class:`DeploymentPlan` saved by the JAX package (``repro serve ... -o
-plan.json``, ``DeploymentPlan.save``) loads here field for field and
-resolves against the port's own profiler, checked by the same profile
-fingerprint, so one JSON drives both packages.  The port executes serve
-plans (``repro_torch.serving.run_serve_plan``) and training plans
-(``repro_torch.serverless.runtime.engine.run_plan``); merged and measured
-profiles are not ported yet.
+A :class:`DeploymentPlan` freezes one co-optimization decision — model,
+platform, partition ``x``, per-layer memory ``z``, DP degree ``d``, the
+micro-batch budget, the objective weights and the solver's predicted
+time/cost — together with a fingerprint of the (merged) layer profile the
+decision indexes into.  A plan saved by either package loads in the other
+field for field and resolves against that package's own profiler (merged
+with ``merge_layers`` where ``merge_to`` is set), checked by the same
+fingerprint, so one JSON drives both.  The port evaluates and simulates
+training plans here, executes them with
+``repro_torch.serverless.runtime.run_plan`` and serve plans with
+``repro_torch.serving.run_serve_plan``.  Measured (calibrated) profiles
+wait for ROADMAP port queue item 3b, ``emulate`` for item 5.
 """
 from __future__ import annotations
 
@@ -18,9 +23,9 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.partition import ModelProfile
-from repro_torch.core.perfmodel import Config
-from repro_torch.serverless.platform import Platform, get_platform
+from repro_torch.core.partition import ModelProfile, merge_layers, stages_of
+from repro_torch.core.perfmodel import Config, Evaluation, evaluate
+from repro_torch.serverless.platform import MB, Platform, get_platform
 
 SCHEMA_VERSION = 1
 
@@ -33,8 +38,9 @@ class PlanCompatibilityError(RuntimeError):
 def profile_fingerprint(profile: ModelProfile,
                         platform: Optional[Platform] = None) -> str:
     """Stable 16-hex digest of a layer profile's quantitative content, with
-    the platform's own parameters folded in when given — byte for byte the
-    JAX package's digest for analytic profiles."""
+    the platform's own parameters folded in when given, and the profile's
+    provenance for non-analytic sources — byte for byte the JAX package's
+    digest."""
     arr = profile.arrays()
     h = hashlib.sha256()
     h.update(f"{profile.name}:{profile.L}".encode())
@@ -44,6 +50,11 @@ def profile_fingerprint(profile: ModelProfile,
     if platform is not None:
         h.update(json.dumps(dataclasses.asdict(platform),
                             sort_keys=True).encode())
+    if profile.source != "analytic":
+        h.update(f"source={profile.source}".encode())
+        if profile.calibration is not None:
+            h.update(json.dumps(dataclasses.asdict(profile.calibration),
+                                sort_keys=True).encode())
     return h.hexdigest()[:16]
 
 
@@ -51,7 +62,7 @@ def profile_fingerprint(profile: ModelProfile,
 class ResolvedPlan:
     """A DeploymentPlan bound back to live objects, ready to execute."""
 
-    profile: ModelProfile
+    profile: ModelProfile         # merged profile the config indexes into
     platform: Platform
     config: Config
     total_micro_batches: int
@@ -96,6 +107,10 @@ class DeploymentPlan:
         return sum(self.x) + 1
 
     @property
+    def n_workers(self) -> int:
+        return self.n_stages * self.d
+
+    @property
     def content_hash(self) -> str:
         """Stable digest of the plan's content (solver provenance excluded)."""
         d = self._as_dict()
@@ -103,6 +118,57 @@ class DeploymentPlan:
             d.pop(prov)
         blob = json.dumps(d, sort_keys=True, separators=(",", ":"))
         return hashlib.sha256(blob.encode()).hexdigest()[:16]
+
+    # ---------------------------------------------------------- construction
+    @classmethod
+    def from_result(cls, result, *, platform: Platform,
+                    alpha: Tuple[float, float], total_micro_batches: int,
+                    model: Optional[str] = None, pipelined_sync: bool = True,
+                    solver: str = "cd", engine: str = "batch",
+                    merge_to: Optional[int] = None, seq: Optional[int] = None,
+                    micro_batch: Optional[int] = None) -> "DeploymentPlan":
+        """Freeze a ``planner.PlanResult`` (any solver path) into a plan."""
+        cfg, ev = result.config, result.evaluation
+        return cls(
+            model=model if model is not None else result.profile.name,
+            platform=platform.name,
+            x=tuple(int(v) for v in cfg.x), z=tuple(int(v) for v in cfg.z),
+            d=int(cfg.d), total_micro_batches=int(total_micro_batches),
+            alpha=(float(alpha[0]), float(alpha[1])),
+            pipelined_sync=bool(pipelined_sync), merge_to=merge_to,
+            seq=seq, micro_batch=micro_batch,
+            profile_fingerprint=profile_fingerprint(result.profile, platform),
+            t_iter=float(ev.t_iter), c_iter=float(ev.c_iter),
+            objective=float(result.objective), solver=solver, engine=engine,
+            solve_seconds=float(result.solve_seconds),
+            profile_source=result.profile.source,
+        )
+
+    @classmethod
+    def from_config(cls, profile: ModelProfile, platform: Platform,
+                    config: Config, total_micro_batches: int, *,
+                    model: Optional[str] = None, pipelined_sync: bool = True,
+                    merge_to: Optional[int] = None, seq: Optional[int] = None,
+                    micro_batch: Optional[int] = None,
+                    solver: str = "manual") -> "DeploymentPlan":
+        """Freeze a hand-built configuration; predictions come from the
+        closed-form model."""
+        ev: Evaluation = evaluate(profile, platform, config,
+                                  total_micro_batches,
+                                  pipelined_sync=pipelined_sync)
+        return cls(
+            model=model if model is not None else profile.name,
+            platform=platform.name,
+            x=tuple(int(v) for v in config.x),
+            z=tuple(int(v) for v in config.z), d=int(config.d),
+            total_micro_batches=int(total_micro_batches),
+            alpha=(1.0, 0.0), pipelined_sync=bool(pipelined_sync),
+            merge_to=merge_to, seq=seq, micro_batch=micro_batch,
+            profile_fingerprint=profile_fingerprint(profile, platform),
+            t_iter=float(ev.t_iter), c_iter=float(ev.c_iter),
+            objective=float(ev.c_iter), solver=solver, engine="-",
+            solve_seconds=0.0, profile_source=profile.source,
+        )
 
     # --------------------------------------------------------- serialization
     def _as_dict(self) -> dict:
@@ -149,39 +215,50 @@ class DeploymentPlan:
             return cls.from_json(f.read())
 
     # -------------------------------------------------------------- resolve
-    def resolve(self, *, check: bool = True) -> ResolvedPlan:
-        """Rebuild the plan's profile with the port's profiler and verify it
-        against the recorded fingerprint."""
+    def resolve(self, *, profile: Optional[ModelProfile] = None,
+                platform: Optional[Platform] = None,
+                check: bool = True) -> ResolvedPlan:
+        """Bind the plan back to live objects, verifying compatibility.
+
+        The profile is rebuilt with the port's profiler from the recorded
+        ``(model, seq, micro_batch)`` and merged to ``merge_to``, unless
+        ``profile`` (already merged) is given; ``platform`` overrides the
+        recorded one.  Either way the profile is fingerprint-checked, so one
+        that drifted from the one the plan was solved against raises
+        :class:`PlanCompatibilityError`."""
         from repro_torch.core.profiler import resolve_profile
 
-        try:
-            platform = get_platform(self.platform)
-        except KeyError as e:
-            raise PlanCompatibilityError(str(e)) from None
-        if self.profile_source != "analytic":
-            raise NotImplementedError(
-                f"plan for {self.model!r} was solved against a "
-                f"{self.profile_source} profile; calibration is not ported "
-                "yet: ROADMAP port queue item 3b (calibration)")
-        if self.merge_to is not None:
-            raise NotImplementedError(
-                "merged profiles (merge_to, core.partition.merge_layers) are "
-                "not ported yet: ROADMAP port queue item 4 (planners and "
-                "simulator)")
-        try:
-            profile = resolve_profile(self.model, platform, seq=self.seq,
-                                      micro_batch=self.micro_batch)
-        except KeyError as e:
-            raise PlanCompatibilityError(str(e)) from None
+        if platform is None:
+            try:
+                platform = get_platform(self.platform)
+            except KeyError as e:
+                raise PlanCompatibilityError(str(e)) from None
+        if profile is None:
+            if self.profile_source != "analytic":
+                raise NotImplementedError(
+                    f"plan for {self.model!r} was solved against a "
+                    f"{self.profile_source} profile, which the profiler cannot "
+                    "rebuild; pass it as profile=, or wait for calibration: "
+                    "ROADMAP port queue item 3b (calibration)")
+            try:
+                full = resolve_profile(self.model, platform, seq=self.seq,
+                                       micro_batch=self.micro_batch)
+            except KeyError as e:
+                raise PlanCompatibilityError(str(e)) from None
+            profile = (merge_layers(full, self.merge_to)
+                       if self.merge_to is not None else full)
         if check:
             got = profile_fingerprint(profile, platform)
             if got != self.profile_fingerprint:
                 raise PlanCompatibilityError(
                     f"profile/platform fingerprint mismatch for model "
                     f"{self.model!r} on {platform.name}: plan was solved "
-                    f"against {self.profile_fingerprint}, freshly built state "
-                    f"is {got} (L={profile.L}).  The profiler or platform "
-                    "model changed since the plan was saved — re-plan.")
+                    f"against {self.profile_fingerprint} "
+                    f"({self.profile_source}), freshly built state is {got} "
+                    f"({profile.source}; L={profile.L}, "
+                    f"merge_to={self.merge_to}).  The profiler or platform "
+                    "model changed since the plan was saved — re-plan, or "
+                    "pass the original profile explicitly.")
         L = profile.L
         if len(self.x) != L - 1 or len(self.z) != L:
             raise PlanCompatibilityError(
@@ -196,3 +273,70 @@ class DeploymentPlan:
                             config=self.config,
                             total_micro_batches=self.total_micro_batches,
                             pipelined_sync=self.pipelined_sync)
+
+    def _require_train(self, what: str) -> None:
+        """Training-only entry points reject serve plans instead of
+        mis-executing them as a 1-step training run."""
+        if self.workload != "train":
+            raise PlanCompatibilityError(
+                f"{what} executes *training* plans; this plan for "
+                f"{self.model!r} has workload={self.workload!r}. Serve it "
+                "through repro_torch.serving.run_serve_plan(plan) instead.")
+
+    # ------------------------------------------------------------- execution
+    def evaluate(self, **resolve_kw) -> Evaluation:
+        """Closed-form performance model prediction (eq 6/7)."""
+        self._require_train("DeploymentPlan.evaluate")
+        rp = self.resolve(**resolve_kw)
+        return evaluate(rp.profile, rp.platform, rp.config,
+                        rp.total_micro_batches,
+                        pipelined_sync=rp.pipelined_sync)
+
+    def simulate(self, *, contention: bool = False, trace: bool = False,
+                 **resolve_kw):
+        """Replay through the analytic discrete-event simulator.
+        ``trace=True`` materializes the DP's predicted spans as
+        ``SimResult.trace`` (``repro_torch.obs.Trace``)."""
+        from repro_torch.serverless.simulator import simulate_funcpipe
+
+        self._require_train("DeploymentPlan.simulate")
+        rp = self.resolve(**resolve_kw)
+        return simulate_funcpipe(rp.profile, rp.platform, rp.config,
+                                 rp.total_micro_batches,
+                                 pipelined_sync=rp.pipelined_sync,
+                                 contention=contention, trace=trace)
+
+    def emulate(self, *args, **kwargs):
+        raise NotImplementedError(
+            "DeploymentPlan.emulate runs through ExecutionConfig, which is not "
+            "ported yet: ROADMAP port queue item 5 (fault tolerance and the "
+            "front door); run a plan with repro_torch.serverless.runtime."
+            "run_plan(plan, ...)")
+
+    # ------------------------------------------------------------ describing
+    def describe(self) -> str:
+        try:
+            platform = get_platform(self.platform)
+        except KeyError as e:
+            raise PlanCompatibilityError(str(e)) from None
+        st = stages_of(self.x)
+        mems = [platform.memory_options[self.z[lo]] // MB for lo, _ in st]
+        if self.workload == "serve":
+            sv = self.serving or {}
+            return (f"{self.model} on {self.platform} [serve]: {len(st)} "
+                    f"stages, mem={mems}MB, batch={sv.get('batch')}, "
+                    f"prefill={sv.get('prefill_tokens')} "
+                    f"new={sv.get('new_tokens')} tokens, "
+                    f"SLO={sv.get('slo_s')}s, predicted "
+                    f"t_request={self.t_iter:.3f}s "
+                    f"cost=${sv.get('cost_per_1k', 1000 * self.c_iter):.4f}"
+                    f"/1k-req [{self.solver}/{self.engine}, "
+                    f"hash {self.content_hash}]")
+        mu = max(1, self.total_micro_batches // self.d)
+        return (f"{self.model} on {self.platform}: {len(st)} stages x "
+                f"d={self.d} ({self.n_workers} workers), mem={mems}MB, "
+                f"M={self.total_micro_batches} (mu={mu}/worker), "
+                f"sync={'eq(2)' if self.pipelined_sync else 'eq(1)'}, "
+                f"predicted t_iter={self.t_iter:.3f}s "
+                f"cost=${self.c_iter:.6f}/iter "
+                f"[{self.solver}/{self.engine}, hash {self.content_hash}]")

@@ -4,12 +4,13 @@ the port).
 One schema, two timelines here: the emulated backend's virtual-clock spans
 and the ``local``/``process`` backends' wall-clock spans, exported as a
 Perfetto-loadable Chrome trace, summarized into pipeline-health metrics and,
-against the simulator's predicted spans read from a JAX-saved trace,
-differenced into a gap attribution.  Front doors:
-``run_plan(..., trace=True)`` and ``run_serve_plan(..., trace=True)``.
+against the port's own simulator's predicted spans
+(``serverless.simulator.simulate_funcpipe(..., trace=True)``), differenced
+into a gap attribution.  Front doors: ``run_plan(..., trace=True)`` and
+``run_serve_plan(..., trace=True)``.
 
-Calibration (``repro.obs.calibrate``) is not ported yet: it needs the
-planner (ROADMAP port queue item 4), and its names raise here.
+Calibration (``repro.obs.calibrate``) is not ported yet: ROADMAP port queue
+item 3b, and its names raise here.
 """
 from repro_torch.obs.attribution import ELAPSED, GapRow, gap_attribution
 from repro_torch.obs.metrics import pipeline_health
@@ -41,5 +42,5 @@ def __getattr__(name: str):
     if name in _CALIBRATE:
         raise NotImplementedError(
             f"repro_torch.obs.{name}: calibration is not ported yet: ROADMAP port "
-            "queue item 3b (it needs the planner, item 4)")
+            "queue item 3b (calibration)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -3,10 +3,9 @@ port).
 
 The ROADMAP's accuracy targets (the ~4% engine-vs-simulator gap, the 31%
 ``max_model_rel_err``) are single scalars; this module localizes them.  Both
-the engine trace (observed) and the JAX package's
-``simulate_funcpipe(trace=True)`` (predicted; the port's simulator is not
-there yet) speak the same span schema, so the per-(stage, phase, op) busy totals can be
-differenced directly:
+the engine trace (observed) and ``serverless.simulator.simulate_funcpipe(
+trace=True)`` (predicted) speak the same span schema, so the per-(stage,
+phase, op) busy totals can be differenced directly:
 
 * **op cells** — observed busy seconds summed per (stage, phase, op) and
   normalized per replica-step (the predicted timeline is one step of one

@@ -13,12 +13,22 @@ Time is host wall-clock (``wall_clock=True``): modeled compute costs are
 not slept, and ``StoreStats`` records the modeled byte sizes, so the byte
 accounting matches the emulated backend object for object.
 
-On a card every worker thread launches on the stream current in the thread
-that called :meth:`LocalBackend.run_step`, so a tensor one worker puts is
-ordered before the kernels of the worker that takes it.  The store keeps
-tensors by reference; with ``fs_root`` every payload goes through a file
-(host bytes, :func:`~repro_torch.serverless.runtime.store.to_wire`) and
-comes back on the device it left.
+On a card every (stage, replica) worker launches on a CUDA stream of its
+own, made once when the backend opens for the plan, so one worker's
+kernels never queue behind another's.  The store orders what crosses
+streams: a ``put`` of CUDA tensors records an event on the putter's stream,
+and a ``get``/``take`` makes the taker's stream wait on it and marks each
+tensor it hands out as used there (``record_stream``), so the caching
+allocator does not reuse a buffer the taker still reads.  The
+scatter-reduce's chunks go through the same ``put``/``take``/``get``.
+Each step's worker streams first wait on the caller's stream (the batch,
+the params as the caller left them), and the caller's stream waits on
+every worker stream before :meth:`LocalBackend.run_step` returns.  The
+store keeps tensors by reference; with ``fs_root`` every payload goes
+through a file instead (host bytes,
+:func:`~repro_torch.serverless.runtime.store.to_wire`): the device-to-host
+copy waits for the putter's work, and the taker's copy back to the device
+runs on its own stream, so no event is needed there.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ from repro_torch.serverless.backends.base import (
     WorkerContext,
     WorkerProgram,
 )
+from repro_torch.models.common import tree_leaves
 from repro_torch.serverless.runtime.scatter_reduce import local_scatter_reduce
 from repro_torch.serverless.runtime.store import (
     ProducerDeadError,
@@ -67,6 +78,32 @@ class _Stored:
     nbytes: float
     value: Any = None
     path: Optional[str] = None
+    ready: Any = None          # torch.cuda.Event after the putter's writes
+
+
+def _cuda_leaves(value: Any) -> list:
+    return [a for a in tree_leaves(value) if isinstance(a, torch.Tensor) and a.is_cuda]
+
+
+def _put_event(value: Any):
+    """An event recorded on the current stream when ``value`` holds CUDA
+    tensors (the work that wrote them is queued there), else None."""
+    if not _cuda_leaves(value):
+        return None
+    event = torch.cuda.Event()
+    event.record()
+    return event
+
+
+def _hand_out(obj: "_Stored", value: Any) -> Any:
+    """Order the current stream after the putter's writes, and keep each
+    CUDA tensor's memory from reuse until this stream's work on it is done."""
+    if obj.ready is not None:
+        stream = torch.cuda.current_stream()
+        stream.wait_event(obj.ready)
+        for a in _cuda_leaves(value):
+            a.record_stream(stream)
+    return value
 
 
 class LocalStore:
@@ -176,7 +213,8 @@ class LocalStore:
                 self.stats.count_delete(key, prev.nbytes)
                 self._unlink(prev)
             obj = _Stored(nbytes=float(nbytes),
-                          value=None if path is not None else value, path=path)
+                          value=None if path is not None else value, path=path,
+                          ready=None if path is not None else _put_event(value))
             self._objects[key] = obj
             self._live_bytes += obj.nbytes
             self.stats.count_put(key, obj.nbytes, self._live_bytes)
@@ -218,7 +256,7 @@ class LocalStore:
         with self._cv:
             obj = self._wait_for(key)
             self.stats.count_get(key, obj.nbytes)
-        value = self._load(obj)
+        value = _hand_out(obj, self._load(obj))
         return (value, obj.nbytes) if return_nbytes else value
 
     def take(self, key: str, return_nbytes: bool = False) -> Any:
@@ -228,6 +266,7 @@ class LocalStore:
             self.stats.count_get(key, obj.nbytes)
             value = self._load(obj)   # before the delete unlinks its file
             self._delete_locked(key)
+        value = _hand_out(obj, value)
         return (value, obj.nbytes) if return_nbytes else value
 
     def delete(self, key: str) -> None:
@@ -260,8 +299,9 @@ class LocalStore:
 
 def device_wait() -> None:
     """Block until the work enqueued so far on this thread's current CUDA
-    stream has finished on the device (an event recorded there, then
-    synchronised).  A no-op in a process without a CUDA context."""
+    stream (on ``local``, the worker's own) has finished on the device (an
+    event recorded there, then synchronised).  A no-op in a process without
+    a CUDA context."""
     if torch.cuda.is_initialized():
         event = torch.cuda.Event()
         event.record()
@@ -277,8 +317,9 @@ class LocalWorkerContext(WorkerContext):
     wall-clock span; a blocking download's visibility wait is part of its
     span.  A compute span ends after :func:`device_wait`: PyTorch returns
     before the device finishes, so the span runs from the launch to the end
-    of the work it enqueued (on ``local`` every worker launches on one
-    stream, so that includes other workers' kernels queued before it).
+    of the work it enqueued on the worker's own stream (and of the waits on
+    its inputs' producers that precede it there; kernels of other workers
+    running at the same time share the device and stretch it).
     Untraced, nothing waits.  An upload span carries the bytes the store
     charged (``put`` returns them): with ``payload_true`` on ``process`` the
     payload's real size, so the spans reconcile with ``StoreStats``."""
@@ -373,6 +414,15 @@ class LocalBackend(ExecutionBackend):
         # so _steps_done is the step a new tracer starts in
         self._tracers: Dict[Tuple[int, int], Any] = {}
         self._steps_done = 0
+        self._streams: Dict[Tuple[int, int], Any] = {}
+
+    def _worker_streams(self) -> Dict[Tuple[int, int], Any]:
+        """One CUDA stream per (stage, replica), made once for the plan, or
+        none where this process has no CUDA context (a CPU run)."""
+        if not self._streams and torch.cuda.is_initialized():
+            self._streams = {(s, r): torch.cuda.Stream()
+                             for s in range(self.agg.S) for r in range(self.agg.d)}
+        return self._streams
 
     def open(self, agg) -> None:
         if agg.S * agg.d > MAX_WORKERS:
@@ -384,6 +434,8 @@ class LocalBackend(ExecutionBackend):
         self.store = self._make_store()
         self._tracers = {}
         self._steps_done = 0
+        self._streams = {}
+        self._worker_streams()
         self._t0 = time.perf_counter()
 
     def _make_store(self):
@@ -424,14 +476,17 @@ class LocalBackend(ExecutionBackend):
         # the store's timeout instead of hanging the run
         barriers = ({s: threading.Barrier(d, timeout=self.get_timeout)
                      for s in range(S)} if d > 1 else {})
-        stream = torch.cuda.current_stream() if torch.cuda.is_initialized() else None
+        streams = self._worker_streams()
+        caller = torch.cuda.current_stream() if streams else None
+        for ws in streams.values():
+            ws.wait_stream(caller)     # the batch and the params as the caller left them
         sync_secs: Dict[Tuple[int, int], float] = {}
         errors: List[BaseException] = []
         err_lock = threading.Lock()
 
         def drive(s: int, r: int, gen: WorkerProgram) -> None:
             try:
-                with torch.cuda.stream(stream):
+                with torch.cuda.stream(streams.get((s, r))):
                     y = next(gen)
                     while True:
                         if isinstance(y, tuple) and y[0] == "sync":
@@ -467,6 +522,8 @@ class LocalBackend(ExecutionBackend):
             t.start()
         for t in threads:
             t.join()
+        for ws in streams.values():
+            caller.wait_stream(ws)     # the step's end, the params, the next step
         if errors:
             raise _primary_error(errors)
         sync = max((sync_secs.get((s, r), 0.0) for s in range(S) for r in range(d)),

@@ -30,7 +30,7 @@ from repro.serverless.execution import ExecutionConfig
 from repro.serverless.platform import AWS_LAMBDA
 from repro.serverless.runtime import Execution as JaxExecution
 from repro.serverless.runtime import run_plan as jax_run_plan
-from repro.serverless.simulator import simulate_funcpipe
+from repro.serverless.simulator import simulate_funcpipe as jax_simulate_funcpipe
 
 import repro_torch.obs as obs
 from repro_torch.configs import get_config
@@ -41,6 +41,7 @@ from repro_torch.models.registry import params_from_jax
 from repro_torch.optim import AdamW
 from repro_torch.serverless.platform import get_platform
 from repro_torch.serverless.runtime import Execution, run_plan
+from repro_torch.serverless.simulator import simulate_funcpipe
 
 torch.backends.cuda.matmul.allow_tf32 = False
 AWS = get_platform("aws")
@@ -83,13 +84,15 @@ def _timing_runs(d, pipelined, steps=3):
 
 @pytest.fixture(scope="module")
 def timing_d2():
-    """The d 2, eq (2) timing-only run in both packages, with the JAX
-    simulator's predicted spans of the same plan."""
+    """The d 2, eq (2) timing-only run in both packages, with each package's
+    simulator's predicted spans of the same plan (JAX's, then the port's)."""
     res, jres = _timing_runs(2, True)
-    jcfg, _ = _cfgs()
-    sim = simulate_funcpipe(jax_profile(jcfg, AWS_LAMBDA, seq=64, micro_batch=4), AWS_LAMBDA,
-                            JaxConfig(x=_X, d=2, z=_Z), 8, trace=True)
-    return res, jres, sim.trace.spans
+    jcfg, cfg = _cfgs()
+    jsim = jax_simulate_funcpipe(jax_profile(jcfg, AWS_LAMBDA, seq=64, micro_batch=4),
+                                 AWS_LAMBDA, JaxConfig(x=_X, d=2, z=_Z), 8, trace=True)
+    sim = simulate_funcpipe(arch_model_profile(cfg, AWS, seq=64, micro_batch=4), AWS,
+                            Config(x=_X, d=2, z=_Z), 8, trace=True)
+    return res, jres, jsim.trace.spans, sim.trace.spans
 
 
 # ------------------------------------------------------------------ schema
@@ -125,9 +128,8 @@ def test_recorder_stamps_step_and_phase():
 
 
 def test_trace_payload_round_trips(timing_d2):
-    res, _, predicted = timing_d2
-    tr = obs.Trace(spans=res.trace.spans, meta=res.trace.meta,
-                   predicted=[obs.Span.from_dict(s.to_dict()) for s in predicted])
+    res, _, _, predicted = timing_d2
+    tr = obs.Trace(spans=res.trace.spans, meta=res.trace.meta, predicted=predicted)
     back = obs.Trace.from_payload(json.loads(json.dumps(tr.to_payload())))
     assert back.spans == tr.spans and back.predicted == tr.predicted and back.meta == tr.meta
     with pytest.raises(obs.TraceValidationError, match="schema version"):
@@ -138,7 +140,7 @@ def test_chrome_trace_crosses_packages(timing_d2, tmp_path):
     """A JAX-saved Chrome trace (with predicted spans) loads in the port with
     equal spans, predicted spans and meta, and the port writes the same
     file; a port-saved trace loads and validates in JAX."""
-    res, jres, predicted = timing_d2
+    res, jres, predicted, _ = timing_d2
     jtr = jobs.Trace(spans=jres.trace.spans, meta=jres.trace.meta, predicted=predicted)
     jtr.save(tmp_path / "jax.json")
     tr = obs.Trace.load(tmp_path / "jax.json")
@@ -281,7 +283,7 @@ def test_tracing_changes_no_numerics(numeric_runs):
 
 # ---------------------------------------------------------------- metrics
 def test_pipeline_health_equals_jax(timing_d2):
-    res, jres, _ = timing_d2
+    res, jres, _, _ = timing_d2
     assert obs.pipeline_health(res.trace) == jobs.pipeline_health(jres.trace)
     h = obs.pipeline_health(_to_port(jres.trace))
     assert h == jobs.pipeline_health(jres.trace)
@@ -289,12 +291,13 @@ def test_pipeline_health_equals_jax(timing_d2):
 
 
 def test_gap_attribution_equals_jax(timing_d2):
-    """Against the JAX simulator's predicted spans (the port's simulator is
-    item 4): the same rows in the same order, exactly."""
-    res, jres, predicted = timing_d2
-    pred = [obs.Span.from_dict(s.to_dict()) for s in predicted]
-    rows = obs.gap_attribution(res.trace, predicted=pred)
-    jrows = jobs.gap_attribution(jres.trace, predicted=predicted)
+    """The port's trace against the port's own simulator's predicted spans,
+    JAX's against JAX's: equal predicted spans, and the same rows in the
+    same order, exactly."""
+    res, jres, jpredicted, predicted = timing_d2
+    assert [s.to_dict() for s in predicted] == [s.to_dict() for s in jpredicted]
+    rows = obs.gap_attribution(res.trace, predicted=predicted)
+    jrows = jobs.gap_attribution(jres.trace, predicted=jpredicted)
     assert [dataclasses.astuple(r) for r in rows] == [dataclasses.astuple(r) for r in jrows]
     assert [(r.gap_s, r.rel_err) for r in rows] == [(r.gap_s, r.rel_err) for r in jrows]
     assert any(r.op == obs.ELAPSED for r in rows)
