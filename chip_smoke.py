@@ -131,6 +131,26 @@ and a non-zero exit:
    the run's temporary directory is one, else a disk directory) is printed
    with its free space first.
 
+13. fault recovery (``train_chaos``, after ``train_planned``) --
+   ``train_full``'s plan for 3 steps through ``tests/test_faults.py``'s
+   chaos schedule (a transient put, a transient get, a crash in a
+   backward, a 2-step function lifetime) with its recovery policy (retry
+   from a 10 ms base, a checkpoint into the object store after every
+   step, restarts from the newest): on ``emulated`` and ``local`` at full
+   width, and on ``process`` at one layer a stage, where the crash SIGKILLs
+   a child.  Each recovered run's params bit-identical to the fault-free
+   run's (the same backend's; the emulated run's on ``process``), losses
+   equal, at least one retry, restart, planned restart and checkpoint, all
+   launches on wgmma; reports, checkpoint bytes, step and run wall times,
+   peak memory and the device's free memory before and after.
+14. calibration (``calibrate_replan``) -- ``train_full``'s plan traced for
+   3 steps on ``process`` with payload-true bytes; ``calibrate_profile``
+   folds the trace into a measured profile (scales, warnings, the max
+   per-stage error before and after), ``replan`` re-solves on it (paper
+   weights, d in (1, 2), M 4), and the re-planned plan trains 2 steps on
+   ``emulated`` with the kernels, its first loss within 2e-2 of its
+   plain-version run; old and new plans, step times beside train_full's.
+
 The traced runs' Chrome traces (``Trace.save``; Perfetto loads them, and
 ``Trace.load`` in either package) are written to ``chiprun_out/traces/``.
 
@@ -138,7 +158,9 @@ The last lines are the kernels' record (thirteen rows: decode attention,
 the bf16 main paths' training kernels on the wgmma route, hd 256's from
 train_gemma, the fp32 rows on the tf32x3 route, and fp32 hd 256's from
 train_gemma_fp32; ``launches`` includes the backend phases' launches, also
-given apart as ``launches_backend_phases``), the ``nvidia-smi`` name/power line and ``{"ok": true,
+given apart as ``launches_backend_phases``, and those of ``train_planned``,
+``train_chaos`` and ``calibrate_replan`` apart too), the ``nvidia-smi``
+name/power line and ``{"ok": true,
 "device": {...}}``.
 """
 from __future__ import annotations
@@ -256,6 +278,15 @@ TRAIN_REDUCED = dict(n_layers=4, seq=16, micro_batch=2, d=2, mu=2, steps=2, cut=
 # emulated replicas on one card, as train_full's d = 2 does)
 TRAIN_PLANNED = dict(n_layers=4, seq=1024, micro_batch=2, total_micro_batches=4,
                      d_options=(1, 2), steps=2)
+# train_chaos: train_full's plan for 3 steps (the chaos schedule's crash
+# falls in step 1 and its lifetime cap needs a third), and on process the
+# same plan cut to one layer a stage
+CHAOS_STEPS = 3
+TRAIN_CHAOS_CUT = dict(TRAIN, n_layers=2, cut=1)
+# calibrate_replan: 3 traced steps (step 0, the warm-up, is dropped)
+CALIBRATE_STEPS = 3
+# numbers one phase passes to a later one
+RESULTS: dict = {}
 TRAIN_GEMMA = dict(n_layers=12, seq=2048, micro_batch=1, d=1, mu=2, steps=2, cut=6)
 # gemma3-4b in fp32: one period, one stage (no cut)
 TRAIN_GEMMA_FP32 = dict(n_layers=6, seq=2048, micro_batch=1, d=1, mu=2, steps=1, cut=-1)
@@ -1909,6 +1940,7 @@ def phase_train_full(smi: str) -> dict:
         raise AssertionError(f"first loss {losses[0]} on the kernel path, "
                              f"{losses_plain[0]} on the plain path")
     profile = profile_train_step(cfg, prof, plat, config, M, params, batches, AdamW(lr=1e-4))
+    RESULTS["train_full_step_wall_s"] = [b - a for a, b in zip(marks, marks[1:])]
     emit({"phase": "train_full", "card": smi, "model": "phi3-mini-3.8b",
           "dtype": cfg.param_dtype, "n_layers": cfg.n_layers, "params": n_params,
           "stages": 2, "d": d, "mu": mu, "micro_batch": spec["micro_batch"],
@@ -2053,6 +2085,314 @@ def phase_train_planned(smi: str) -> dict:
           "step_wall_s": [b - a for a, b in zip(marks, marks[1:])],
           "max_memory_allocated_bytes": peak})
     del params, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _launches_by_route(counts: dict) -> dict:
+    """The training kernels' launches of ``ops.launch_counts()``-shaped
+    counts (each kernel and each of its routes, forward and backward)."""
+    return {k: v for k, v in counts.items() if k.startswith(("flash_attention", "swiglu"))}
+
+
+def _wgmma_only(counts: dict, what: str) -> None:
+    """Every flash attention and swiglu launch took the wgmma route, and
+    each kernel launched at least once."""
+    for name in FP32_WAYS:
+        for kind in (name, f"{name}_bwd"):
+            if counts[kind] == 0 or counts[f"{kind}_wgmma"] != counts[kind]:
+                raise AssertionError(f"{what}: {kind} launches {counts[kind]}, "
+                                     f"on wgmma {counts[f'{kind}_wgmma']}")
+
+
+def _chaos_tolerance():
+    """``tests/test_faults.py:114-120``'s recovery policy: a 10 ms retry
+    base, lifetime safety 0.9, a checkpoint after every step (the
+    ``FaultTolerance`` default)."""
+    from repro_torch.serverless import faults as F
+
+    return F.FaultTolerance(retry=F.RetryPolicy(base_delay_s=0.01), lifetime_safety=0.9)
+
+
+def _chaos_plan():
+    """``tests/test_faults.py:76-86``'s schedule: a transient put (stage 0,
+    replica 0, step 0), a transient get (stage 1, replica 1, step 1), a crash
+    of stage 1, replica 0 in the backward of step 1, and a 2-step function
+    lifetime."""
+    from repro_torch.serverless import faults as F
+
+    return F.FaultPlan(events=(
+        F.FaultEvent(kind="transient", stage=0, replica=0, step=0, op="put", index=0),
+        F.FaultEvent(kind="transient", stage=1, replica=1, step=1, op="get", index=1),
+        F.FaultEvent(kind="crash", stage=1, replica=0, step=1, phase="bwd"),
+    ), lifetime_steps=2, seed=None)
+
+
+def _chaos_run(prof, plat, config, M, execution, backend, *, chaos: bool) -> dict:
+    """One 3-step run (fault-free or through the chaos schedule) on the
+    card: losses, step wall times (from batch_fn to batch_fn), the report,
+    checkpoint bytes, peak memory, launches by route and the params on the
+    host."""
+    from repro_torch.serverless.backends import ProcessBackend
+    from repro_torch.serverless.execution import ExecutionConfig
+
+    marks = []
+
+    def batch_fn(k):
+        torch.cuda.synchronize()
+        marks.append((k, time.perf_counter()))
+        return execution.batch_fn(k)
+
+    ec = ExecutionConfig(backend=backend, steps=CHAOS_STEPS,
+                         faults=_chaos_plan() if chaos else None,
+                         tolerance=_chaos_tolerance() if chaos else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_plan(prof, plat, config, M, ec, pipelined_sync=True,
+                   execution=dataclasses.replace(execution, batch_fn=batch_fn))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    marks.append((None, t1))
+    if isinstance(backend, ProcessBackend):
+        counts = {k: sum(w["launches"][k] for rep in backend.reports for w in rep.values())
+                  for k in ops.launch_counts()}
+        child_peak = {f"s{s}r{r}": w["max_memory_allocated"]
+                      for (s, r), w in backend.reports[-1].items()}
+    else:
+        counts, child_peak = ops.launch_counts(), None
+    if not all(np.isfinite(res.losses)):
+        raise AssertionError(f"non-finite losses {res.losses}")
+    st = res.store_stats
+    rec = {"backend": res.backend, "losses": res.losses, "run_wall_s": t1 - t0,
+           "step_wall_s": [(k, b - a) for (k, a), (_, b) in zip(marks, marks[1:])],
+           "launches": _launches_by_route(counts),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "store": {"puts": st.puts, "bytes_in": st.bytes_in,
+                     "class_bytes_in": dict(st.class_bytes_in)}}
+    if child_peak is not None:
+        rec["child_max_memory_allocated_bytes"] = child_peak
+    if res.fault_report is not None:
+        rec["fault_report"] = res.fault_report.as_dict()
+        rec["checkpoint_bytes"] = st.class_bytes_in.get("ckpt", 0.0)
+    return rec, tree_map(lambda a: a.cpu(), res.params)
+
+
+def phase_train_chaos(smi: str) -> dict:
+    """``train_full``'s plan for 3 steps through ``tests/test_faults.py``'s
+    chaos schedule (a transient put, a transient get, a crash in a backward,
+    a 2-step function lifetime) with its recovery policy (retry with a 10 ms
+    base, a checkpoint into the object store after every step): phi3-mini-
+    3.8b at full width, 4 layers, bf16, 2 stages x 2 replicas, 2 micro-
+    batches of 2 x 1024 tokens, AdamW(1e-4), the kernels on.  On
+    ``emulated`` and on ``local`` the recovered run lands on the same
+    backend's fault-free 3-step run: every param bit-identical, the losses
+    equal, with at least one retry, one restart, one planned restart and
+    one checkpoint reported.  On ``process`` the same schedule at full width
+    and a cut depth (1 layer a stage), where the crash SIGKILLs a child and
+    the backend reaps and respawns it; its params bit-identical to the
+    emulated fault-free run of that depth.  Every flash attention and swiglu
+    launch on the wgmma route.  Printed: each run's report, checkpoint
+    bytes, step wall times, run wall time, peak memory (the children's on
+    ``process``), the device's free memory before and after, and launches
+    by route."""
+    from repro_torch.serverless.backends import ProcessBackend
+
+    torch.use_deterministic_algorithms(True)
+    plat = get_platform("aws")
+    runs, launches = {}, {}
+    t_phase = time.perf_counter()
+    for depth, spec, backends in (
+            ("full", TRAIN, ("emulated", "local")),
+            ("cut", TRAIN_CHAOS_CUT, ("process",))):
+        cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), n_layers=spec["n_layers"])
+        torch.cuda.empty_cache()
+        params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                      device="cuda")
+        prof, _, config, M = train_setup(cfg, spec)
+        batches = train_batches(cfg, spec, spec["d"], CHAOS_STEPS)
+        execution = Execution(cfg=cfg, optimizer=AdamW(lr=1e-4), init_params=params,
+                              batch_fn=lambda k: batches[k], use_kernels=True, device="cuda")
+        refs = {}
+        for backend in backends:
+            ref_backend = "emulated" if backend == "process" else backend
+            if ref_backend not in refs:
+                refs[ref_backend] = _chaos_run(prof, plat, config, M, execution, ref_backend,
+                                               chaos=False)
+            ref, ref_params = refs[ref_backend]
+            free_before = torch.cuda.mem_get_info()[0]
+            be = backend
+            if backend == "process":
+                root = store_root(8.0 * sum(a.numel() for a in tree_leaves(params)) * 2)
+                be = ProcessBackend(root=root["root"])
+            rec, got = _chaos_run(prof, plat, config, M, execution, be, chaos=True)
+            if backend == "process":
+                shutil.rmtree(root["root"])
+            rec["device_free_bytes_before_after"] = [free_before, torch.cuda.mem_get_info()[0]]
+            rep = rec["fault_report"]
+            if not (rep["retries"] >= 1 and rep["restarts"] >= 1 and rep["planned_restarts"] >= 1
+                    and rep["checkpoints"] >= 1 and rep["injected"].get("crash") == 1):
+                raise AssertionError(f"{backend}: report {rep}")
+            if rec["losses"] != ref["losses"]:
+                raise AssertionError(f"{backend}: losses {rec['losses']} != fault-free "
+                                     f"{ref['losses']}")
+            same = [bool(torch.equal(a, b)) for a, b in zip(tree_leaves(got),
+                                                            tree_leaves(ref_params))]
+            if not all(same):
+                raise AssertionError(f"{backend}: {same.count(False)} of {len(same)} params "
+                                     "differ from the fault-free run's")
+            _wgmma_only(rec["launches"], f"train_chaos {backend}")
+            rec["params_bit_identical_to_fault_free"] = True
+            rec["fault_free_run"] = f"{ref_backend}_{depth}"
+            runs[f"{backend}_{depth}"] = rec
+            for k, v in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            del got
+        for name, (ref, _) in refs.items():
+            runs[f"{name}_{depth}_fault_free"] = ref
+            for k, v in ref["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        del params, batches, refs, execution
+        torch.cuda.empty_cache()
+    emit({"phase": "train_chaos", "card": smi, "model": "phi3-mini-3.8b", "dtype": "bfloat16",
+          "n_layers": {"full": TRAIN["n_layers"], "cut": TRAIN_CHAOS_CUT["n_layers"]},
+          "stages": 2, "d": TRAIN["d"], "mu": TRAIN["mu"], "micro_batch": TRAIN["micro_batch"],
+          "seq": TRAIN["seq"], "steps": CHAOS_STEPS, "optimizer": "AdamW(lr=1e-4)",
+          "fault_plan": json.loads(_chaos_plan().to_json()),
+          "tolerance": dataclasses.asdict(_chaos_tolerance()), "runs": runs,
+          "kernel_launches": launches, "phase_wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
+def phase_calibrate_replan(smi: str) -> dict:
+    """Calibrate on the card, re-plan, and train the re-planned plan.
+
+    ``train_full``'s plan (phi3-mini-3.8b, full width, 4 layers, bf16, 2
+    stages x 2 replicas, M 4) runs 3 traced steps on ``process`` with
+    ``payload_true`` (each child's compute spans wait for its own device
+    work, and upload spans carry the real bf16 boundary bytes; no
+    throttle).  ``calibrate_profile`` folds the trace (step 0 dropped, the
+    wall clock's warm-up) into a measured profile: its scales, warnings and
+    the max per-stage relative error of the analytic and the measured
+    tables.  ``replan`` re-solves on it with the paper's default weights, d
+    in (1, 2) and M 4 (the port's planner, dp engine), and the re-planned
+    plan (resolved against the measured profile) trains 2 steps on
+    ``emulated`` with the kernels, every launch on wgmma, its first loss
+    within 2e-2 of the same plan with the kernels' plain versions.  Printed:
+    the old and new plans, the re-planned plan's step wall time beside
+    ``train_full``'s, and the launches."""
+    from repro_torch.obs import calibrate_profile, replan
+    from repro_torch.serverless.backends import ProcessBackend
+    from repro_torch.serverless.execution import ExecutionConfig
+
+    spec = TRAIN
+    torch.use_deterministic_algorithms(True)
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), n_layers=spec["n_layers"])
+    torch.cuda.empty_cache()
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    prof, plat, config, M = train_setup(cfg, spec)
+    plan = DeploymentPlan.from_config(prof, plat, config, M, model="phi3-mini-3.8b",
+                                      seq=spec["seq"], micro_batch=spec["micro_batch"],
+                                      solver="manual")
+    batches = train_batches(cfg, spec, spec["d"], CALIBRATE_STEPS)
+    grad_bytes = 4.0 * sum(a.numel() for a in tree_leaves(params))
+    root = store_root(2 * grad_bytes)
+    be = ProcessBackend(root=root["root"])
+    execution = Execution(cfg=cfg, optimizer=AdamW(lr=1e-4), init_params=params,
+                          batch_fn=lambda k: batches[k], use_kernels=True, device="cuda")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = plan.emulate(ExecutionConfig(backend=be, steps=CALIBRATE_STEPS, trace=True,
+                                       payload_true=True),
+                       execution=execution, profile=prof)
+    t_traced = time.perf_counter() - t0
+    shutil.rmtree(root["root"])
+    launches = _launches_by_route(
+        {k: sum(w["launches"][k] for rep in be.reports for w in rep.values())
+         for k in ops.launch_counts()})
+    _wgmma_only(launches, "calibrate_replan traced run")
+    trace = res.trace
+    validate_trace(trace)
+    if trace.meta["plan"] != plan._as_dict() or not trace.meta["payload_true"]:
+        raise AssertionError("the traced run's meta lacks its plan or payload_true")
+    summary = trace_summary(trace, "calibrate_replan_process")
+    losses_traced = res.losses
+    del res
+    cal = calibrate_profile(trace, prof, plat, config, M, pipelined_sync=True)
+    if cal.warmup != 1 or cal.profile.source != "measured":
+        raise AssertionError(f"warmup {cal.warmup}, source {cal.profile.source}")
+    if not cal.residual["max_rel_err"] <= cal.baseline["max_rel_err"]:
+        raise AssertionError(f"calibration raised the error: {cal.baseline['max_rel_err']} -> "
+                             f"{cal.residual['max_rel_err']}")
+    rep = replan(cal, plan, alpha=DEFAULT_ALPHA, d_options=(1, 2))
+    new = rep.new_plan
+    rp = new.resolve(profile=cal.profile)
+    d = rp.config.d
+    run_spec = dict(spec, d=d, mu=M // d)
+    nbatches = train_batches(cfg, run_spec, d, 2)
+    marks, counts = [], []
+
+    def batch_fn(k):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(ops.launch_counts())
+        return nbatches[k]
+
+    nexec = dataclasses.replace(execution, batch_fn=batch_fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    nres = new.emulate(ExecutionConfig(steps=2), execution=nexec, profile=cal.profile)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    counts.append(ops.launch_counts())
+    peak = torch.cuda.max_memory_allocated()
+    new_launches = _launches_by_route(counts[-1])
+    _wgmma_only(new_launches, "calibrate_replan re-planned run")
+    if not all(np.isfinite(nres.losses)):
+        raise AssertionError(f"non-finite losses {nres.losses}")
+    losses = nres.losses
+    del nres
+    with training_kernels_as_plain():
+        plain = new.emulate(ExecutionConfig(steps=1), profile=cal.profile,
+                            execution=dataclasses.replace(execution,
+                                                          batch_fn=lambda k: nbatches[k]))
+    losses_plain = plain.losses
+    del plain
+    if abs(losses[0] - losses_plain[0]) > 2e-2:
+        raise AssertionError(f"first loss {losses[0]} with the kernels, {losses_plain[0]} "
+                             "with their plain versions")
+    for k, v in new_launches.items():
+        launches[k] += v
+    step_wall = [b - a for a, b in zip(marks, marks[1:])]
+    emit({"phase": "calibrate_replan", "card": smi, "model": "phi3-mini-3.8b",
+          "dtype": cfg.param_dtype, "n_layers": cfg.n_layers, "steps_traced": CALIBRATE_STEPS,
+          "traced_backend": "process", "payload_true": True, "throttle": False,
+          "store_root": root["root"], "traced_run_wall_s": t_traced,
+          "losses_traced": losses_traced, "trace": summary,
+          "calibration": {"warmup": cal.warmup, "scales": cal.scales,
+                          "warnings": [w.describe() for w in cal.warnings],
+                          "max_rel_err_before": cal.baseline["max_rel_err"],
+                          "max_rel_err_after": cal.residual["max_rel_err"],
+                          "observed_sync_s": cal.observed_sync,
+                          "predicted_sync_s": cal.predicted_sync,
+                          "observations": [dataclasses.asdict(o) for o in cal.observations],
+                          "describe": cal.describe()},
+          "replan": {"alpha": list(DEFAULT_ALPHA), "d_options": [1, 2], "M": M,
+                     "engine": "dp", "old_plan": plan.describe(), "new_plan": new.describe(),
+                     "new_plan_config": {"x": list(new.x), "z": list(new.z), "d": new.d},
+                     "report": rep.describe()},
+          "replanned_run": {"backend": "emulated", "steps": 2, "losses": losses,
+                            "losses_kernels_as_plain": losses_plain,
+                            "step_wall_s": step_wall,
+                            "train_full_step_wall_s": RESULTS.get("train_full_step_wall_s"),
+                            "max_memory_allocated_bytes": peak,
+                            "launches": new_launches},
+          "kernel_launches": launches, "phase_wall_s": time.perf_counter() - t_phase})
+    del params, batches, nbatches, execution, nexec
     torch.cuda.empty_cache()
     return launches
 
@@ -2391,6 +2731,8 @@ def main() -> None:
     train = phase_train_full(smi)
     backends = phase_train_backends(smi)
     planned = phase_train_planned(smi)
+    chaos = phase_train_chaos(smi)
+    calibrated = phase_calibrate_replan(smi)
     fp32 = phase_train_fp32(smi)
     # the bf16 main path's training launches all took the wgmma kernels, the
     # fp32 path's the tf32x3 kernels
@@ -2406,6 +2748,12 @@ def main() -> None:
     # and the planned plan's run (train_planned), on the wgmma route too
     on_planned = {**{name: planned[f"{name}_wgmma"] for name in FP32_WAYS},
                   **{f"{name}_bwd": planned[f"{name}_bwd_wgmma"] for name in FP32_WAYS}}
+    # and the chaos-recovered runs (train_chaos) and the calibrated re-plan
+    # (calibrate_replan), all on the wgmma route
+    on_chaos = {**{name: chaos[f"{name}_wgmma"] for name in FP32_WAYS},
+                **{f"{name}_bwd": chaos[f"{name}_bwd_wgmma"] for name in FP32_WAYS}}
+    on_replan = {**{name: calibrated[f"{name}_wgmma"] for name in FP32_WAYS},
+                 **{f"{name}_bwd": calibrated[f"{name}_bwd_wgmma"] for name in FP32_WAYS}}
     phase_train_reduced(smi)
     # gemma3-4b's path: every flash launch at hd 256 on the wgmma route
     gemma = phase_train_gemma(smi)
@@ -2424,10 +2772,13 @@ def main() -> None:
     for name, rec in recs.items():
         base = next(b for b in tpu if name.startswith(b))
         extra, more = on_backends.get(name, 0), on_planned.get(name, 0)
+        chaotic, replanned = on_chaos.get(name, 0), on_replan.get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": source.format(base),
-                        "replaces": tpu[base], "launches": launches[name] + extra + more,
+                        "replaces": tpu[base],
+                        "launches": launches[name] + extra + more + chaotic + replanned,
                         "launches_backend_phases": extra, "launches_train_planned": more,
-                        **rec})
+                        "launches_train_chaos": chaotic,
+                        "launches_calibrate_replan": replanned, **rec})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,11 +7,11 @@ time/cost — together with a fingerprint of the (merged) layer profile the
 decision indexes into.  A plan saved by either package loads in the other
 field for field and resolves against that package's own profiler (merged
 with ``merge_layers`` where ``merge_to`` is set), checked by the same
-fingerprint, so one JSON drives both.  The port evaluates and simulates
-training plans here, executes them with
-``repro_torch.serverless.runtime.run_plan`` and serve plans with
-``repro_torch.serving.run_serve_plan``.  Measured (calibrated) profiles
-wait for ROADMAP port queue item 3b, ``emulate`` for item 5.
+fingerprint, so one JSON drives both.  The port evaluates, simulates and
+emulates training plans here (``emulate`` runs the storage-backed engine
+through an ``ExecutionConfig``), and serves serve plans with
+``repro_torch.serving.run_serve_plan``.  A plan solved against a measured
+(calibrated) profile resolves only with that profile passed in.
 """
 from __future__ import annotations
 
@@ -235,11 +235,13 @@ class DeploymentPlan:
                 raise PlanCompatibilityError(str(e)) from None
         if profile is None:
             if self.profile_source != "analytic":
-                raise NotImplementedError(
+                raise PlanCompatibilityError(
                     f"plan for {self.model!r} was solved against a "
-                    f"{self.profile_source} profile, which the profiler cannot "
-                    "rebuild; pass it as profile=, or wait for calibration: "
-                    "ROADMAP port queue item 3b (calibration)")
+                    f"{self.profile_source} profile, which the profiler "
+                    "cannot rebuild (it only derives analytic tables) — "
+                    "pass the measured profile explicitly "
+                    "(ModelProfile.load(...) via profile=, or "
+                    "`python -m repro_torch simulate/emulate --profile measured.json`)")
             try:
                 full = resolve_profile(self.model, platform, seq=self.seq,
                                        micro_batch=self.micro_batch)
@@ -250,15 +252,22 @@ class DeploymentPlan:
         if check:
             got = profile_fingerprint(profile, platform)
             if got != self.profile_fingerprint:
+                src = getattr(profile, "source", "analytic")
+                why = (
+                    f"  Profile source mismatch: the plan was solved "
+                    f"against a {self.profile_source} profile but a "
+                    f"{src} profile was supplied."
+                    if src != self.profile_source else
+                    "  The profiler or platform model changed since the "
+                    "plan was saved — re-plan, or pass the original "
+                    "profile explicitly.")
                 raise PlanCompatibilityError(
                     f"profile/platform fingerprint mismatch for model "
                     f"{self.model!r} on {platform.name}: plan was solved "
                     f"against {self.profile_fingerprint} "
-                    f"({self.profile_source}), freshly built state is {got} "
-                    f"({profile.source}; L={profile.L}, "
-                    f"merge_to={self.merge_to}).  The profiler or platform "
-                    "model changed since the plan was saved — re-plan, or "
-                    "pass the original profile explicitly.")
+                    f"({self.profile_source}), freshly built state is "
+                    f"{got} ({src}; L={profile.L}, "
+                    f"merge_to={self.merge_to}).{why}")
         L = profile.L
         if len(self.x) != L - 1 or len(self.z) != L:
             raise PlanCompatibilityError(
@@ -306,12 +315,35 @@ class DeploymentPlan:
                                  pipelined_sync=rp.pipelined_sync,
                                  contention=contention, trace=trace)
 
-    def emulate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "DeploymentPlan.emulate runs through ExecutionConfig, which is not "
-            "ported yet: ROADMAP port queue item 5 (fault tolerance and the "
-            "front door); run a plan with repro_torch.serverless.runtime."
-            "run_plan(plan, ...)")
+    def emulate(self, exec_config=None, *, steps=None, contention: bool = False,
+                execution=None, backend=None, trace=None, faults=None, tolerance=None,
+                payload_true=None, throttle=None, bandwidth=None, **resolve_kw):
+        """Execute through the storage-backed engine on an execution backend
+        (``"emulated"``, ``"local"``, ``"process"`` or any registered one);
+        the same saved plan JSON drives every backend.  How to execute is an
+        :class:`~repro_torch.serverless.execution.ExecutionConfig`; the
+        keywords are its deprecated legacy spelling (never mix the two).
+        ``execution`` attaches the numerics (``Execution``: the arch, its
+        params, the batches and the device).  A traced run carries this
+        plan's document in ``trace.meta["plan"]``, so ``python -m
+        repro_torch calibrate`` re-plans straight from the file."""
+        from repro_torch.serverless.execution import ExecutionConfig
+        from repro_torch.serverless.runtime import run_plan
+
+        self._require_train("DeploymentPlan.emulate")
+        ec = ExecutionConfig.merge(
+            exec_config,
+            dict(backend=backend, steps=steps, trace=trace, faults=faults,
+                 tolerance=tolerance, payload_true=payload_true,
+                 throttle=throttle, bandwidth=bandwidth),
+            where="DeploymentPlan.emulate")
+        rp = self.resolve(**resolve_kw)
+        res = run_plan(rp.profile, rp.platform, rp.config, rp.total_micro_batches, ec,
+                       pipelined_sync=rp.pipelined_sync, contention=contention,
+                       execution=execution)
+        if res.trace is not None:
+            res.trace.meta["plan"] = self._as_dict()
+        return res
 
     # ------------------------------------------------------------ describing
     def describe(self) -> str:

@@ -6,13 +6,27 @@ and the ``local``/``process`` backends' wall-clock spans, exported as a
 Perfetto-loadable Chrome trace, summarized into pipeline-health metrics and,
 against the port's own simulator's predicted spans
 (``serverless.simulator.simulate_funcpipe(..., trace=True)``), differenced
-into a gap attribution.  Front doors: ``run_plan(..., trace=True)`` and
-``run_serve_plan(..., trace=True)``.
+into a gap attribution.  Front doors: ``run_plan(..., trace=True)``,
+``run_serve_plan(..., trace=True)``, ``Session.emulate(trace=True)`` and
+``python -m repro_torch emulate --trace`` / ``inspect``.
 
-Calibration (``repro.obs.calibrate``) is not ported yet: ROADMAP port queue
-item 3b, and its names raise here.
+``repro_torch.obs.calibrate`` closes the loop: it folds a traced run back
+into a measured ``ModelProfile`` and re-plans on it
+(``Session.emulate(...).calibrate().plan()``, ``python -m repro_torch
+calibrate trace.json``).
 """
 from repro_torch.obs.attribution import ELAPSED, GapRow, gap_attribution
+from repro_torch.obs.calibrate import (
+    Calibration,
+    PerfModelWarning,
+    ReplanReport,
+    StageObservation,
+    calibrate_profile,
+    calibrate_trace,
+    observe_stages,
+    replan,
+    stage_prediction_errors,
+)
 from repro_torch.obs.metrics import pipeline_health
 from repro_torch.obs.schema import (
     OPS,
@@ -31,16 +45,7 @@ __all__ = [
     "ELAPSED", "GapRow", "gap_attribution", "pipeline_health",
     "OPS", "PHASES", "RESOURCE_OF", "TRACE_SCHEMA_VERSION", "Span", "SpanRecorder",
     "Trace", "TraceValidationError", "WorkerTracer", "validate_trace",
+    "Calibration", "PerfModelWarning", "ReplanReport", "StageObservation",
+    "calibrate_profile", "calibrate_trace", "observe_stages", "replan",
+    "stage_prediction_errors",
 ]
-
-_CALIBRATE = ("Calibration", "PerfModelWarning", "ReplanReport", "StageObservation",
-              "calibrate_profile", "calibrate_trace", "observe_stages", "replan",
-              "stage_prediction_errors")
-
-
-def __getattr__(name: str):
-    if name in _CALIBRATE:
-        raise NotImplementedError(
-            f"repro_torch.obs.{name}: calibration is not ported yet: ROADMAP port "
-            "queue item 3b (calibration)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -44,6 +44,17 @@ class EmulatedWorkerContext(WorkerContext):
     def phase_barrier(self) -> None:
         self.channel.join_uplink_into_downlink()
 
+    def wait(self, seconds: float, op: str = "retry") -> None:
+        # retry backoff or an injected straggle: the worker is blocked, so
+        # its three virtual resources stall (a deterministic charge: chaos
+        # runs repeat in time as well as in value)
+        self.channel.stall(seconds, op=op)
+
+    def fetch(self, key: str, op: str = "download"):
+        # non-consuming download (a checkpoint restore): every worker of the
+        # stage reads the same checkpoint object once
+        return self.channel.download(key, ready=self.channel.dn_free, op=op)
+
 
 class EmulatedBackend(ExecutionBackend):
     """The emulated store + one virtual clock per worker."""

@@ -377,8 +377,15 @@ class LocalWorkerContext(WorkerContext):
             self.tracer.phase = "bwd"
 
     def wait(self, seconds: float, op: str = "retry") -> None:
+        # a real backoff on the wall clock; traced, an ``op`` span makes the
+        # recovery's cost visible
         self._beat()
+        if self.tracer is None:
+            time.sleep(seconds)
+            return
+        t0 = self.clock()
         time.sleep(seconds)
+        self.tracer.emit(op, t0, self.clock())
 
     def fetch(self, key: str, op: str = "download"):
         self._beat()
@@ -525,7 +532,13 @@ class LocalBackend(ExecutionBackend):
         for ws in streams.values():
             caller.wait_stream(ws)     # the step's end, the params, the next step
         if errors:
-            raise _primary_error(errors)
+            try:
+                raise _primary_error(errors)
+            finally:
+                # the errors' tracebacks hold the threads' frames, which hold
+                # this list: emptied, no reference cycle keeps the failed
+                # step's tensors alive until the garbage collector runs
+                errors.clear()
         sync = max((sync_secs.get((s, r), 0.0) for s in range(S) for r in range(d)),
                    default=0.0)
         self._steps_done += 1

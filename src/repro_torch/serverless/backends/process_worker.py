@@ -23,7 +23,11 @@ spawned worker processes, and the storage they share.
   the engine's own worker program locally (a generator cannot cross a
   process boundary).  A command that fails
   poisons the store, is reported to the parent with its traceback, and the
-  child stays up.
+  child stays up.  In a chaos run the step program's context fires the
+  parent's fault schedule; an injected crash poisons the store, sends a
+  dying report and SIGKILLs the child, and a lifetime-cap kill exits it
+  with :data:`EXIT_LIFETIME`.  The child also serves the checkpoint ops
+  ``export_state``, ``load_state`` and ``reset``.
 
 ``payload_true`` charges each transfer its real size (``Tensor.nbytes``: 2
 bytes a bf16 element) instead of the modeled one; a ``bandwidth`` throttle
@@ -35,6 +39,7 @@ import contextlib
 import json
 import os
 import pickle
+import signal
 import struct
 import threading
 import time
@@ -48,6 +53,7 @@ try:
 except ImportError:                      # non-POSIX host
     fcntl = None
 
+from repro_torch.models.common import tree_map
 from repro_torch.serverless.runtime.store import (
     StoreAbortedError,
     StoreStats,
@@ -60,6 +66,10 @@ from repro_torch.serverless.runtime.store import (
 
 #: object-file header: little-endian float64 charged nbytes
 _HEADER = struct.Struct("<d")
+
+#: exit code of a child the function-lifetime cap killed (a planned death,
+#: not a crash: the parent relaunches it)
+EXIT_LIFETIME = 43
 
 
 def _true_payload_nbytes(value: Any, pickled: int) -> float:
@@ -451,12 +461,57 @@ def _device_report(device) -> dict:
     return {"launches": ops.launch_counts(), "max_memory_allocated": peak}
 
 
-def _error_reply(store: FileStore, s: int, r: int, e: Exception) -> dict:
+def _error_reply(store: FileStore, s: int, r: int, e: Exception, **extra) -> dict:
     """Poison the store for the peers and describe ``e`` for the parent."""
     store.mark_dead((s, r))
     store.abort(e)
     return {"error": {"type": type(e).__name__, "msg": str(e),
-                      "traceback": traceback.format_exc()}}
+                      "traceback": traceback.format_exc(), **extra}}
+
+
+def _fault_delta(state, report) -> Optional[dict]:
+    """What the step consumed of the fault schedule, and its retries: the
+    parent keeps the authoritative once-only schedule across workers and
+    replays."""
+    out: dict = {}
+    if state is not None:
+        out["remaining"] = dict(state.remaining)
+        out["fired"] = sorted(state.fired)
+    if report is not None:
+        out["retries"] = report.retries
+        out["recovery_s"] = report.recovery_s
+    return out or None
+
+
+class _InjectorView:
+    """What ``FaultyWorkerContext`` reads off its injector, mirrored from the
+    parent's ``FaultInjector`` for one step."""
+
+    def __init__(self, plan, k: int, age: int):
+        self.plan = plan
+        self.current_step = k
+        self.age = age
+        self._lifetime_noted = True     # the parent counts "lifetime"
+
+
+def _faulty(ctx, cmd: dict, s: int, r: int):
+    """Wrap the step's context in the parent's fault schedule and retry
+    policy; returns (context, schedule state, retry report)."""
+    from repro_torch.serverless import faults as F
+
+    state = report = None
+    fp = cmd.get("fault")
+    if fp is not None:
+        plan = F.FaultPlan(events=tuple(F.FaultEvent.from_dict(e) for e in fp["events"]),
+                           lifetime_steps=fp["lifetime_steps"])
+        state = F._PlanState(plan, None)            # the parent owns the report
+        state.remaining = {int(i): n for i, n in fp["remaining"].items()}
+        state.fired = set(fp["fired"])
+        ctx = F.FaultyWorkerContext(ctx, state, s, r, _InjectorView(plan, cmd["k"], fp["age"]))
+    if cmd.get("retry") is not None:
+        report = F.FaultReport()
+        ctx = F.ResilientContext(ctx, cmd["retry"], report)
+    return ctx, state, report
 
 
 def _tracer(cmd: dict, s: int, r: int, phase: str, spans: list):
@@ -510,18 +565,35 @@ def _run_step(conn, store: FileStore, s: int, r: int, agg, worker, cmd) -> None:
         sync_s.append(time.monotonic() - t0)
         return reduced
 
+    from repro_torch.serverless import faults as F
+
     ops.reset_launch_counts()
     device = None if worker is None else worker.device
+    ctx, state, report = _faulty(
+        LocalWorkerContext(store, worker=(s, r), tracer=tracer, clock=clock), cmd, s, r)
     try:
-        ctx = LocalWorkerContext(store, worker=(s, r), tracer=tracer, clock=clock)
         _drive(_worker_step_program(ctx, k=k, s=s, r=r, agg=agg, worker=worker,
                                     batch=from_wire(cmd["batch"]), losses=losses), sync)
         if device is not None and device.type == "cuda":
             torch.cuda.synchronize(device)   # a launch's fault surfaces here
         reply = {"ok": True, "sync_s": sum(sync_s), "loss": losses.get((s, r)),
-                 "spans": [sp.to_dict() for sp in spans], **_device_report(device)}
+                 "spans": [sp.to_dict() for sp in spans], "fault": _fault_delta(state, report),
+                 **_device_report(device)}
+    except F.WorkerCrashed as e:
+        # a function's real death: poison the store so the peers fail over,
+        # send the dying report (the pipe keeps it past the death), then die
+        # (SIGKILL for a crash, a planned exit for the lifetime cap)
+        store.mark_dead((s, r))
+        store.abort(e)
+        conn.send({"dying": {"kind": e.kind, "msg": str(e), "step": k,
+                             "spans": [sp.to_dict() for sp in spans],
+                             "fault": _fault_delta(state, report)}})
+        if e.kind == "lifetime":
+            os._exit(EXIT_LIFETIME)
+        os.kill(os.getpid(), signal.SIGKILL)
     except Exception as e:  # noqa: BLE001 - shipped to the parent
-        reply = _error_reply(store, s, r, e)
+        reply = _error_reply(store, s, r, e, spans=[sp.to_dict() for sp in spans],
+                             fault=_fault_delta(state, report))
     conn.send(reply)
 
 
@@ -589,20 +661,28 @@ def worker_main(conn, init: dict) -> None:
     threading.Thread(target=beat, daemon=True, name=f"heartbeat-s{s}r{r}").start()
 
     worker = None
+    es = None
     ship = conn.recv()
+
+    def build():
+        from repro_torch.serverless.runtime.worker import StageWorker
+
+        return StageWorker(es["cfg"], es["span"], es["params"], mu=es["mu"],
+                           optimizer=es["optimizer"], remat=es["remat"],
+                           use_kernels=es["use_kernels"], device=dev)
+
     if ship["exec_spec"] is not None:
         from repro_torch.models.common import resolve_device
-        from repro_torch.serverless.runtime.worker import StageWorker
 
         try:
             dev = resolve_device(ship["device"])    # no card: raise, never the CPU
             es = store.unstash(ship["exec_spec"], dev)
-            worker = StageWorker(es["cfg"], es["span"], es["params"], mu=es["mu"],
-                                 optimizer=es["optimizer"], remat=es["remat"],
-                                 use_kernels=es["use_kernels"], device=dev)
+            worker = build()
         except Exception as e:  # noqa: BLE001 - shipped to the parent
             conn.send(_error_reply(store, s, r, e))
             return
+        if not ship.get("keep_initial"):
+            es = None       # only a fault-tolerant run resets to its initial params
     conn.send({"ready": [s, r]})
 
     while True:
@@ -617,8 +697,26 @@ def worker_main(conn, init: dict) -> None:
             _run_step(conn, store, s, r, init["agg"], worker, cmd)
         elif op == "serve":
             _run_serve(conn, store, s, r, cmd)
-        elif op == "params":
-            conn.send({"params": store.stash(f"params-s{s}r{r}", worker.params)})
         else:
-            conn.send({"error": {"type": "ValueError", "msg": f"unknown worker op {op!r}",
-                                 "traceback": ""}})
+            # the worker's state: its params, its checkpoint surface
+            try:
+                if op == "params":
+                    reply = {"path": store.stash(f"params-s{s}r{r}", worker.params)}
+                elif op == "state_spec":
+                    reply = {"spec": tree_map(lambda a: [list(a.shape), str(a.dtype)
+                                                         .removeprefix("torch.")],
+                                              worker.export_state())}
+                elif op == "export_state":
+                    reply = {"path": store.stash(f"export-s{s}r{r}", worker.export_state())}
+                elif op == "load_state":
+                    worker.load_state(store.unstash(cmd["path"], worker.device))
+                    reply = {"ok": True}
+                elif op == "reset":
+                    worker = build()
+                    reply = {"ok": True}
+                else:
+                    raise ValueError(f"unknown worker op {op!r}")
+            except Exception as e:  # noqa: BLE001 - shipped to the parent
+                reply = {"error": {"type": type(e).__name__, "msg": str(e),
+                                   "traceback": traceback.format_exc()}}
+            conn.send(reply)

@@ -26,20 +26,24 @@ The engine talks only to the ``ExecutionBackend`` protocol
 (``serverless.backends``): ``emulated`` (virtual clocks, the default),
 ``local`` (worker threads over a blocking store) and ``process`` (spawned
 worker processes over a file store, which run the programs themselves)
-train to bit-identical params.  Ported: those backends, tracing
-(``trace=True``: ``EngineResult.trace``, a ``repro_torch.obs.Trace``) and
-the legacy keywords ``steps``, ``backend``, ``pipelined_sync`` and
-``execution``.  Not yet: fault injection and tolerance with
-``ExecutionConfig`` (ROADMAP port queue item 5).
+train to bit-identical params.  How to execute (backend, steps, tracing,
+fault injection and the recovery policy) is an
+:class:`~repro_torch.serverless.execution.ExecutionConfig`; a chaos run
+(``faults=``) retries transient store errors, checkpoints each stage's
+state into the object store and restarts the worker grid from the newest
+checkpoint after a crash or under the platform's lifetime cap, and lands
+on the fault-free run's params bit for bit.
 """
 from __future__ import annotations
 
+import time as _time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
 from repro_torch.core.perfmodel import Config
+from repro_torch.serverless.execution import ExecutionConfig
 from repro_torch.serverless.platform import GB, Platform
 from repro_torch.serverless.runtime.store import StoreStats
 from repro_torch.serverless.simulator import stage_aggregates, unpack_plan_args
@@ -56,6 +60,8 @@ class Execution:
     remat: bool = False                       # recompute the forward in the backward
     use_kernels: bool = False                 # flash_attention + swiglu kernels
     device: Any = "cuda"                      # where the stage workers run
+    tolerance: Optional[Any] = None           # faults.FaultTolerance (retry /
+    #                                           checkpoint / restart policy)
 
 
 @dataclass(frozen=True)
@@ -73,6 +79,8 @@ class EngineResult:
     params: Optional[dict] = None          # final assembled params (numeric mode)
     store_stats: Optional[StoreStats] = None
     trace: Optional[Any] = None            # repro_torch.obs.Trace (trace=True runs)
+    fault_report: Optional[Any] = None     # faults.FaultReport (chaos or
+    #                                        fault-tolerant runs), else None
 
     @property
     def losses(self) -> List[float]:
@@ -150,6 +158,7 @@ def run_plan(
     platform: Optional[Platform] = None,
     config: Optional[Config] = None,
     total_micro_batches: Optional[int] = None,
+    exec_config: Optional[ExecutionConfig] = None,
     *,
     steps: Optional[int] = None,
     pipelined_sync: Optional[bool] = None,
@@ -164,20 +173,29 @@ def run_plan(
 
     Takes the explicit ``(profile, platform, config, M)`` tuple or one
     training :class:`repro_torch.api.plan.DeploymentPlan` as the first
-    argument.  ``backend`` is a registered name (``"emulated"`` when None,
-    ``"local"``, ``"process"``, ...) or an :class:`ExecutionBackend`
-    instance.  ``steps`` defaults to 1, ``pipelined_sync`` to the plan's
-    (eq (2) without a plan).  ``trace=True`` records one span per worker
-    resource task (download, compute, upload, barrier, and each
-    scatter-reduce chunk's transfers) on the backend's clock and returns
-    them as ``EngineResult.trace``."""
-    if faults is not None or tolerance is not None:
-        raise NotImplementedError(
-            "faults / tolerance: fault injection and recovery are not ported "
-            "yet: ROADMAP port queue item 5 (fault tolerance)")
-    steps = 1 if steps is None else steps
-    if not isinstance(steps, int) or steps < 1:
-        raise ValueError(f"steps must be a positive int, got {steps!r}")
+    argument.  How to execute is an :class:`ExecutionConfig`
+    (``exec_config``); the ``steps`` / ``backend`` / ``trace`` / ``faults``
+    / ``tolerance`` keywords are the deprecated legacy spelling of the same
+    settings and may not be mixed with it.  ``pipelined_sync`` defaults to
+    the plan's (eq (2) without a plan).  ``trace=True`` records one span per
+    worker resource task (download, compute, upload, barrier, each
+    scatter-reduce chunk's transfers, and the recovery's retry and restart
+    reads) on the backend's clock and returns them as
+    ``EngineResult.trace``.
+
+    ``faults`` (a :class:`~repro_torch.serverless.faults.FaultPlan` or a
+    path to its JSON) wraps the backend in a chaos ``FaultInjector``;
+    ``tolerance`` (a ``FaultTolerance``, also settable as
+    ``Execution.tolerance``) turns on the recovery: retry with backoff on
+    transient store errors, per-stage param/optimizer checkpoints into the
+    object store every N steps, and checkpoint/restart of the worker grid
+    on a crash or under the function-lifetime cap."""
+    ec = ExecutionConfig.merge(
+        exec_config,
+        dict(backend=backend, steps=steps, trace=trace, faults=faults,
+             tolerance=tolerance),
+        where="run_plan")
+    steps, trace = ec.steps, ec.trace
 
     if hasattr(profile, "resolve") and getattr(profile, "workload", "train") != "train":
         from repro_torch.api.plan import PlanCompatibilityError
@@ -195,14 +213,45 @@ def run_plan(
                            contention=contention)
     S, mu, d = agg.S, agg.mu, agg.d
 
-    from repro_torch.serverless.backends import get_backend
     from repro_torch.serverless.runtime.worker import (
         StageWorker,
         assemble_params,
         stage_instance_ranges,
     )
 
-    be = get_backend("emulated" if backend is None else backend)
+    be = base = ec.resolve_backend()
+
+    # ------------------------------------------------ fault-tolerance setup
+    report = None
+    fm = None
+    faults_obj = ec.resolved_faults()
+    tol = ec.resolved_tolerance()
+    if tol is None and execution is not None:
+        tol = execution.tolerance
+    if faults_obj is not None or tol is not None:
+        from repro_torch.serverless import faults as F
+
+        if faults_obj is not None and tol is None:
+            tol = F.FaultTolerance()            # chaos implies recovery
+        report = F.FaultReport()
+        if faults_obj is not None:
+            be = F.FaultInjector(be, faults_obj, report)
+        # the Function Manager's lifetime policy: an explicit tolerance cap
+        # wins, else the platform's (the fault plan's)
+        cap = tol.lifetime_steps
+        if cap is None and faults_obj is not None:
+            cap = faults_obj.lifetime_steps
+        if cap is not None:
+            from repro_torch.checkpoint import FunctionManager
+
+            fm = FunctionManager(lifetime_steps=cap, safety=tol.lifetime_safety)
+
+    def mk_ctx(s: int, r: int):
+        ctx = be.context(s, r)
+        if tol is not None:
+            ctx = F.ResilientContext(ctx, tol.retry, report)
+        return ctx
+
     recorder = None
     if trace:
         from repro_torch.obs.schema import SpanRecorder
@@ -214,41 +263,143 @@ def run_plan(
     # RPC proxies in place of StageWorkers
     hosts = be.hosts_programs
     if hosts:
-        be.bind_run(execution=execution, config=config)
-    metrics: List[Dict[str, float]] = []
-    iter_ends: List[float] = []
-    sync_durations: List[float] = []
+        be.bind_run(execution=execution, config=config, tolerance=tol, report=report)
+
+    def make_workers():
+        if hosts:
+            return be.worker_handles()
+        spans = stage_instance_ranges(execution.cfg, config.x)
+        return [[StageWorker(execution.cfg, spans[s], execution.init_params, mu=mu,
+                             optimizer=execution.optimizer, remat=execution.remat,
+                             use_kernels=execution.use_kernels, device=execution.device)
+                 for r in range(d)] for s in range(S)]
+
+    metrics_by_step: Dict[int, Dict[str, float]] = {}
+    iter_ends: Dict[int, float] = {}
+    sync_durations: Dict[int, float] = {}
+    workers = None
+
+    # ------------------------------------------------ checkpoint / restart
+    last_ckpt_step = -1          # state-after-step index of the newest ckpt
+    ckpt_stages: set = set()     # stages with a live ckpt/s{s} object
+
+    def write_checkpoint(k_done: int) -> None:
+        """Checkpoint every stage's param/optimizer state into the object
+        store (the state after step ``k_done``), charged like any upload.
+        Replicas hold identical state, so one object a stage."""
+        nonlocal last_ckpt_step
+        from repro_torch.checkpoint import pack_state
+
+        for s in range(S):
+            blob = None
+            if workers is not None:
+                blob = pack_state(workers[s][0].export_state(), step=k_done + 1)
+                nbytes = float(len(blob))
+            else:
+                # timing-only: fp32 masters and two moments beside the
+                # stage's params, the modeled checkpoint payload
+                nbytes = 3.0 * float(agg.s_stage[s])
+            mk_ctx(s, 0).upload(f"ckpt/s{s}", nbytes, value=blob)
+            del blob
+            ckpt_stages.add(s)
+        last_ckpt_step = k_done
+        report.checkpoints += 1
+
+    def restore_from_checkpoint() -> None:
+        """Relaunch the worker grid from the newest store checkpoint (or from
+        scratch when there is none yet): every worker re-fetches its stage's
+        state (``op="restart"`` spans) and drops its transient step state.
+        Bit-identical to never having crashed."""
+        nonlocal workers
+        from repro_torch.checkpoint import unpack_state
+
+        if last_ckpt_step < 0:
+            if execution is not None:       # nothing persisted: initial state
+                workers = make_workers()
+            return
+        for s in range(S):
+            state = None
+            for r in range(d):
+                value, _ = mk_ctx(s, r).fetch(f"ckpt/s{s}", op="restart")
+                if workers is not None:
+                    if state is None:       # restored onto the state's device
+                        state, _step = unpack_state(value, workers[s][r].state_like())
+                    workers[s][r].load_state(state)
+                del value
+            del state
+
+    restarts = 0
+    steps_since_launch = 0
+    pending_restore = False
+    k = 0
     try:
         be.open(agg)
-        workers = None
-        if execution is not None and hosts:
-            workers = be.worker_handles()
-        elif execution is not None:
-            spans = stage_instance_ranges(execution.cfg, config.x)
-            workers = [[StageWorker(execution.cfg, spans[s], execution.init_params, mu=mu,
-                                    optimizer=execution.optimizer, remat=execution.remat,
-                                    use_kernels=execution.use_kernels,
-                                    device=execution.device)
-                        for r in range(d)] for s in range(S)]
-        for k in range(steps):
-            batch = execution.batch_fn(k) if execution is not None else None
-            losses: Dict = {}
-            if hosts:
-                be.stage_step(k, batch=batch, losses=losses)
-            programs = {
-                (s, r): _worker_step_program(
-                    be.context(s, r), k=k, s=s, r=r, agg=agg,
-                    worker=None if workers is None else workers[s][r],
-                    batch=batch, losses=losses)
-                for s in range(S) for r in range(d)
-            }
-            timing = be.run_step(k, programs, pipelined_sync=pipelined_sync)
-            iter_ends.append(timing.end)
-            sync_durations.append(timing.sync)
+        workers = make_workers() if execution is not None else None
+        while k < steps:
+            try:
+                if pending_restore:
+                    t0r = _time.perf_counter()
+                    restore_from_checkpoint()
+                    report.recovery_s += _time.perf_counter() - t0r
+                    pending_restore = False
+                if fm is not None and fm.should_restart(steps_since_launch):
+                    # a planned relaunch under the platform's lifetime cap:
+                    # checkpoint the progress, recycle the functions, restore
+                    # (the paper's Function Manager, §3.1 ⑧)
+                    if last_ckpt_step < k - 1:
+                        write_checkpoint(k - 1)
+                    be.recover()
+                    fm.restarted()
+                    report.planned_restarts += 1
+                    t0r = _time.perf_counter()
+                    restore_from_checkpoint()
+                    report.recovery_s += _time.perf_counter() - t0r
+                    steps_since_launch = 0
+                batch = execution.batch_fn(k) if execution is not None else None
+                losses: Dict = {}
+                if hosts:
+                    be.stage_step(k, batch=batch, losses=losses)
+                programs = {
+                    (s, r): _worker_step_program(
+                        mk_ctx(s, r), k=k, s=s, r=r, agg=agg,
+                        worker=None if workers is None else workers[s][r],
+                        batch=batch, losses=losses)
+                    for s in range(S) for r in range(d)
+                }
+                timing = be.run_step(k, programs, pipelined_sync=pipelined_sync)
+            except Exception as e:
+                from repro_torch.serverless import faults as F
+
+                if tol is None or not F.is_recoverable(e):
+                    raise
+                if restarts >= tol.max_restarts:
+                    raise F.FaultToleranceExceeded(
+                        f"step {k} still failing after {restarts} restarts "
+                        f"(max_restarts={tol.max_restarts}): {e}") from e
+                restarts += 1
+                report.restarts += 1
+                be.recover()        # purge residual keys, revive the store
+                k = last_ckpt_step + 1
+                report.resumed_steps.append(k)
+                steps_since_launch = 0
+                pending_restore = True
+                continue
+            # a replayed step overwrites its aborted attempt's bookkeeping
+            iter_ends[k] = timing.end
+            sync_durations[k] = timing.sync
             if workers is not None:
                 ce_sum = sum(losses[(S - 1, r)][0] for r in range(d))
                 aux_sum = sum(losses[(s, r)][1] for s in range(S) for r in range(d))
-                metrics.append({"ce": ce_sum, "aux": aux_sum, "loss": ce_sum + aux_sum})
+                metrics_by_step[k] = {"ce": ce_sum, "aux": aux_sum, "loss": ce_sum + aux_sum}
+            if (tol is not None and tol.checkpoint_every
+                    and (k + 1) % tol.checkpoint_every == 0 and k + 1 < steps):
+                write_checkpoint(k)
+            k += 1
+            steps_since_launch += 1
+        # checkpoint objects are engine state, not leaked traffic: deleted
+        # (counted) before the drain check
+        for s in sorted(ckpt_stages):
+            be.delete(f"ckpt/s{s}")
         be.verify_drained()
         stats = be.store_stats
         # assembled before close(): a program-hosting backend reads the
@@ -259,12 +410,15 @@ def run_plan(
     finally:
         be.close()
 
-    t_total = iter_ends[-1]
+    ends = [iter_ends[i] for i in sorted(iter_ends)]
+    syncs = [sync_durations[i] for i in sorted(sync_durations)]
+    metrics = [metrics_by_step[i] for i in sorted(metrics_by_step)]
+    t_total = iter_ends[steps - 1]
     t_iter = t_total / steps
     mem_total = d * float(agg.mem.sum())
     cost = platform.price_per_gb_s * (mem_total / GB) * t_iter
     comp = float(agg.t_fc.sum() + agg.t_bc.sum())
-    sync_t = float(np.mean(sync_durations))
+    sync_t = float(np.mean(syncs))
     trace_obj = None
     if recorder is not None:
         from repro_torch.obs.schema import Trace
@@ -277,16 +431,18 @@ def run_plan(
             "n_workers": agg.n_workers,
             "t_total": float(t_total),
             "t_iter": float(t_iter),
-            "step_ends": [float(t) for t in iter_ends],
-            "step_syncs": [float(t) for t in sync_durations],
+            "step_ends": [float(t) for t in ends],
+            "step_syncs": [float(t) for t in syncs],
             "bandwidth": [float(w) for w in agg.w],
             "t_lat": float(agg.t_lat),
             "pipelined_sync": bool(pipelined_sync),
             "contention": bool(contention),
-            "payload_true": bool(getattr(be, "payload_true", False)),
-            "throttle": bool(getattr(be, "throttle", False)),
+            "payload_true": bool(getattr(base, "payload_true", False)),
+            "throttle": bool(getattr(base, "throttle", False)),
             "store": stats.as_dict(),
         })
+        if report is not None:
+            trace_obj.meta["fault_report"] = report.as_dict()
         if plan_doc is not None:
             trace_obj.meta["plan"] = plan_doc
     return EngineResult(
@@ -307,4 +463,5 @@ def run_plan(
         params=params,
         store_stats=stats,
         trace=trace_obj,
+        fault_report=report,
     )

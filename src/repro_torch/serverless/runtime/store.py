@@ -325,7 +325,8 @@ class StageChannel:
             self.tracer.emit("upload", start, end, nbytes=nbytes, key=key)
         return end
 
-    def download(self, key: str, ready: float = 0.0, new_request: bool = True):
+    def download(self, key: str, ready: float = 0.0, new_request: bool = True,
+                 op: str = "download"):
         obj = self.store.get(key)
         # the span starts when the transfer does: the visibility wait shows
         # as a gap (bubble), not as link occupancy
@@ -333,8 +334,19 @@ class StageChannel:
         end = start + obj.nbytes / self.bandwidth + (self.latency if new_request else 0.0)
         self.dn_free = end
         if self.tracer is not None:
-            self.tracer.emit("download", start, end, nbytes=obj.nbytes, key=key)
+            self.tracer.emit(op, start, end, nbytes=obj.nbytes, key=key)
         return obj.value, end
+
+    def stall(self, duration: float, op: str = "retry") -> float:
+        """Charge ``duration`` of idle occupancy across all three resources
+        (the worker is blocked in a retry backoff or an injected straggle);
+        one ``op`` span."""
+        start = self.now
+        end = start + duration
+        self.release_at(end)
+        if self.tracer is not None:
+            self.tracer.emit(op, start, end)
+        return end
 
     def join_uplink_into_downlink(self) -> None:
         """Program-order fence between the forward and backward phases: no

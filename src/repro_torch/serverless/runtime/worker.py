@@ -254,6 +254,10 @@ class StageWorker:
         moments.  Saved graphs and gradient accumulators are per step."""
         return {"params": self.params, "opt_state": self.opt_state}
 
+    def state_like(self) -> dict:
+        """The state a checkpoint restores into (its layout and device)."""
+        return self.export_state()
+
     def load_state(self, state: dict) -> None:
         """Restore from :meth:`export_state` at a step boundary; clears every
         transient accumulator."""

@@ -41,6 +41,7 @@ from repro.core.profiler import arch_model_profile as jax_profile
 from repro.data.synthetic import make_batch as jax_make_batch
 from repro.models import registry as jreg
 from repro.optim import AdamW as JaxAdamW
+from repro.serverless.backends.local import LocalBackend as JaxLocalBackend
 from repro.serverless.backends.local import LocalStore as JaxLocalStore
 from repro.serverless.execution import ExecutionConfig
 from repro.serverless.platform import AWS_LAMBDA
@@ -634,10 +635,14 @@ def trained(request):
                 ("process", ProcessBackend(lease_timeout=WAIT)),
                 ("local_traced", LocalBackend(lease_timeout=WAIT)),
                 ("process_traced", ProcessBackend(lease_timeout=WAIT)))}
+    # the reference's local run gets the port's lease: under a loaded host a
+    # JAX worker thread that is compiling can miss the default 5 s heartbeat
     jres = jax_run_plan(
         jax_profile(p.jcfg, AWS_LAMBDA, seq=p.seq, micro_batch=p.B // (p.d * p.mu)),
         AWS_LAMBDA, JaxConfig(x=p.x, d=p.d, z=(0,) * p.L), total_micro_batches=p.d * p.mu,
-        pipelined_sync=pipelined, exec_config=ExecutionConfig(steps=p.steps, backend="local"),
+        pipelined_sync=pipelined,
+        exec_config=ExecutionConfig(steps=p.steps,
+                                    backend=JaxLocalBackend(lease_timeout=WAIT)),
         execution=JaxExecution(cfg=p.jcfg, optimizer=JaxAdamW(lr=1e-2),
                                init_params=p.params0, batch_fn=lambda k: p.jbatches[k]))
     return SimpleNamespace(inputs=p, runs=runs, jres=jres)

@@ -211,8 +211,16 @@ def test_validate_trace_rules_equal_jax(case):
 
 
 def test_calibration_names_raise_naming_item_3b():
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        obs.calibrate_trace
+    """Calibration is ported (item 3b): ``repro_torch.obs`` exports the same
+    names as ``repro.obs``, from ``repro_torch.obs.calibrate``; an unknown
+    name is still an AttributeError."""
+    from repro_torch.obs import calibrate
+
+    names = ("Calibration", "PerfModelWarning", "ReplanReport", "StageObservation",
+             "calibrate_profile", "calibrate_trace", "observe_stages", "replan",
+             "stage_prediction_errors")
+    assert set(names) <= set(obs.__all__) and set(names) <= set(jobs.__all__)
+    assert all(getattr(obs, n) is getattr(calibrate, n) for n in names)
     with pytest.raises(AttributeError):
         obs.no_such_name
 

@@ -447,8 +447,15 @@ def test_deployment_plan_crosses_packages(merge_to):
     assert back.resolve(profile=rp.profile, platform=AWS).config == plan.config
     with pytest.raises(PlanCompatibilityError, match="fingerprint"):
         back.resolve(profile=profiler.resolve_profile("resnet101", AWS))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        back.emulate(steps=1)
+    # emulate (ported, item 5) runs the engine through an ExecutionConfig:
+    # the virtual clock, cost and store traffic are JAX's
+    from repro.serverless.execution import ExecutionConfig as JaxExecutionConfig
+
+    from repro_torch.serverless.execution import ExecutionConfig
+
+    e, je = back.emulate(ExecutionConfig(steps=1)), jback.emulate(JaxExecutionConfig(steps=1))
+    assert (e.t_iter, e.cost, e.n_workers) == (je.t_iter, je.cost, je.n_workers)
+    assert e.store_stats.as_dict() == je.store_stats.as_dict()
 
 
 def test_from_config_equal_jax():

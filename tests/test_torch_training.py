@@ -496,12 +496,17 @@ def test_run_plan_guard_rails():
         total_micro_batches=2, alpha=(1.0, 0.0), pipelined_sync=True, merge_to=None, seq=16,
         micro_batch=2, profile_fingerprint="0" * 16, t_iter=0.0, c_iter=0.0, objective=0.0,
         solver="manual", engine="-", solve_seconds=0.0, profile_source="measured")
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        run_plan(measured)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        run_plan(*args, faults={"seed": 0})
-    with pytest.raises(NotImplementedError, match="item 5"):
-        run_plan(*args, tolerance=object())
+    with pytest.raises(PlanCompatibilityError, match="measured profile explicitly"):
+        run_plan(measured)      # ported (item 3b): measured plans need their profile
+    # ported (item 5): a chaos run recovers, a tolerance alone checkpoints
+    from repro_torch.serverless import faults as F
+
+    crash = F.FaultPlan(events=(F.FaultEvent(kind="crash", stage=0, replica=0, step=1),))
+    chaos = run_plan(*args, steps=2, faults=crash)
+    assert chaos.fault_report.restarts == 1 and chaos.fault_report.resumed_steps == [1]
+    assert chaos.fault_report.checkpoints == 1 and chaos.store_stats.class_bytes_in["ckpt"] > 0
+    tolerant = run_plan(*args, steps=2, tolerance=F.FaultTolerance())
+    assert tolerant.fault_report.checkpoints == 1 and tolerant.fault_report.restarts == 0
     for backend in ("local", "process"):     # ported: timing-only runs drain
         assert run_plan(*args, backend=backend).backend == backend
     with pytest.raises(KeyError, match="unknown execution backend"):
