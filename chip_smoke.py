@@ -54,7 +54,12 @@ and a non-zero exit:
    fp32 beside SDPA's memory-efficient backend where no window is set, with
    the passes' device ms (the split pass apart); swiglu also in fp32 (tf32x3, its
    split pass apart, with the simt kernels on the same inputs); decode
-   attention with its kernels per call on a line of its own.
+   attention with its kernels per call on a line of its own.  Then the
+   MoE and Mamba families' shapes (``_families_parity``): flash attention
+   forward and backward at qwen3-moe-235b-a22b's [1,2048,64 q,4 kv,128]
+   (bf16, G 16, wgmma) and decode attention at jamba-v0.1-52b's [4,32 q,8
+   kv,128] over 1040 slots (a short last chunk), each against its plain
+   version and timed beside its bound, its plain version and SDPA.
 4. full-width serve -- phi3-mini-3.8b, all 32 layers, bf16, random weights
    from seed 0, a hand-built 4-stage serve plan run through
    ``run_serve_plan(..., use_kernels=True)``: kernel launches counted, tokens
@@ -151,15 +156,43 @@ and a non-zero exit:
    ``emulated`` with the kernels, its first loss within 2e-2 of its
    plain-version run; old and new plans, step times beside train_full's.
 
+15. MoE and Mamba serving (``serve_jamba``) -- jamba-v0.1-52b at full width
+   cut to one period (``@layers8``: 7 Mamba layers and one attention
+   layer, 4 MoE FFNs of 16 experts top-2 and 4 dense FFNs; 13.3 B params),
+   bf16, seed 0, through ``run_serve_plan(..., use_kernels=True)`` on 2
+   stages [embed + period | head], batch 4, 1024 + 16 tokens: 15 decode-
+   attention launches, tokens bit-identical to the monolithic loop, every
+   decode-attention call within 2e-2 of ``impl="ref"``, the Mamba and KV
+   bytes a round equal to what crossed the store; round times, peak memory,
+   and a profiled prefill and decode with the MoE steps (routing, slots,
+   dispatch, expert products, combine) and Mamba's scan apart.
+16. ``serve_jamba_reduced`` -- ``tests/test_models_unit.py:23-48`` on the
+   card: jamba@reduced in fp32 with capacity ``n_experts``, prefill then 4
+   decode steps (decode attention on the kernel) against the full
+   forward's logits at 1e-4 / 2e-4.
+17. MoE training (``train_moe``) -- qwen3-moe-235b-a22b at full width, one
+   layer (3.73 B params), bf16, seed 0: 2 stages [embed + layer | head],
+   d 1, 2 micro-batches of 1 x 2048 tokens, eq (2), SGD, 2 steps: 2 + 2
+   flash launches a step on the wgmma route (hd 128, G 16), each held
+   against ``impl="ref"`` in step 1; finite ce and aux, the first loss
+   within 2e-2 of the kernels' plain versions; peak memory; a profiled step
+   with the MoE's steps and backward nodes apart.
+18. ``train_jamba_reduced`` -- jamba@reduced, fp32, one stage, SGD, 1 step,
+   kernels on and off: Mamba's backward, 2 flash and 8 swiglu launches on
+   tf32x3; losses within 5e-5, params within 1e-4.
+
 The traced runs' Chrome traces (``Trace.save``; Perfetto loads them, and
 ``Trace.load`` in either package) are written to ``chiprun_out/traces/``.
 
-The last lines are the kernels' record (thirteen rows: decode attention,
+The last lines are the kernels' record (sixteen rows: decode attention,
 the bf16 main paths' training kernels on the wgmma route, hd 256's from
-train_gemma, the fp32 rows on the tf32x3 route, and fp32 hd 256's from
-train_gemma_fp32; ``launches`` includes the backend phases' launches, also
-given apart as ``launches_backend_phases``, and those of ``train_planned``,
-``train_chaos`` and ``calibrate_replan`` apart too), the ``nvidia-smi``
+train_gemma, the fp32 rows on the tf32x3 route, fp32 hd 256's from
+train_gemma_fp32, and the families' shapes: ``decode_attention_jamba``
+from serve_jamba, ``flash_attention_qwen3_moe`` and its backward from
+train_moe; ``launches`` includes the backend phases' launches, also
+given apart as ``launches_backend_phases``, those of ``train_planned``,
+``train_chaos`` and ``calibrate_replan`` apart too, and the reduced
+families' runs' as ``launches_reduced_families``), the ``nvidia-smi``
 name/power line and ``{"ok": true,
 "device": {...}}``.
 """
@@ -190,7 +223,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.api.plan import DeploymentPlan, profile_fingerprint  # noqa: E402
 from repro_torch.api.session import DEFAULT_ALPHA  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.configs.base import InputShape  # noqa: E402
+from repro_torch.configs.base import ATTN, DENSE_FF, InputShape  # noqa: E402
 from repro_torch.core import planner  # noqa: E402
 from repro_torch.core.perfmodel import Config  # noqa: E402
 from repro_torch.core.profiler import arch_model_profile, resolve_profile  # noqa: E402
@@ -201,6 +234,8 @@ from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kernel_ref  # noqa: E402
 from repro_torch.kernels import swiglu as sg_kernel  # noqa: E402
+from repro_torch.models import mamba as mamba_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.obs import pipeline_health, validate_trace  # noqa: E402
@@ -1143,13 +1178,14 @@ def phase_kernel_parity(smi: str) -> dict:
     decode, decode_detail = _decode_parity(gen, flush)
     flash, flash_detail = _flash_parity(gen, gen256, gen256f, flush)
     swiglu, swiglu_detail = _swiglu_parity(gen, flush)
-    recs = {"decode_attention": decode, **flash, **swiglu}
+    families, families_detail = _families_parity(flush)
+    recs = {"decode_attention": decode, **flash, **swiglu, **families}
     emit({"phase": "kernel_parity", "card": smi, "kernels": recs,
           "flash_wgmma_probe_max_abs_err": wgmma_probe,
           "flash_tf32x3_probe_max_abs_err": probe,
           "swiglu_tf32x3_probe_max_abs_err": swiglu_probe,
           "decode_attention": decode_detail, "flash_attention": flash_detail,
-          "swiglu": swiglu_detail})
+          "swiglu": swiglu_detail, "families": families_detail})
     return recs
 
 
@@ -1251,18 +1287,20 @@ def teacher_forced(cfg, params, prompt, tokens, *, s_ctx, call_tol, logit_tol=No
         rec["logits_abs_max"] = max(rec["logits_abs_max"], float(got.abs().max()))
         if logit_tol is not None:
             rec["logits_ok"] &= bool(torch.allclose(got, ref, rtol=logit_tol, atol=logit_tol))
-    if rec["calls"] != (tokens.shape[1] - 1) * cfg.n_layers:
+    n_attn = n_layers_of(cfg, mixer=ATTN)
+    if rec["calls"] != (tokens.shape[1] - 1) * n_attn:
         raise AssertionError(f"{rec['calls']} decode-attention calls, expected "
-                             f"{(tokens.shape[1] - 1) * cfg.n_layers}")
+                             f"{(tokens.shape[1] - 1) * n_attn}")
     if not (rec["calls_ok"] and rec["logits_ok"]):
         raise AssertionError(f"kernel path disagrees with impl='ref': {rec}")
     return rec
 
 
-def profile_decode(cfg, params, prompt, tokens, *, s_ctx, steps=2) -> dict:
+def profile_decode(cfg, params, prompt, tokens, *, s_ctx, steps=2, split=False) -> dict:
     """Where a decode round's time goes: ``torch.profiler`` over ``steps``
     monolithic decode steps (the stage workers make the same per-layer
-    calls), after one warm-up step."""
+    calls), after one warm-up step; ``split`` adds the MoE and Mamba steps'
+    device time (:func:`device_split`)."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = params["embed"].device
@@ -1273,21 +1311,25 @@ def profile_decode(cfg, params, prompt, tokens, *, s_ctx, steps=2) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for t in range(1, steps + 1):
-            registry.decode_step(cfg, params, caches, toks[:, t:t + 1], use_kernels=True)
+        with family_regions() if split else contextlib.nullcontext():
+            for t in range(1, steps + 1):
+                registry.decode_step(cfg, params, caches, toks[:, t:t + 1], use_kernels=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return _profile_summary(prof, wall, steps)
+    return _profile_summary(prof, wall, steps, split=split)
 
 
-def _profile_summary(prof, wall: float, steps: int) -> dict:
-    """Device busy and idle share, the top kernels and host ops per step."""
+def _profile_summary(prof, wall: float, steps: int, split: bool = False) -> dict:
+    """Device busy and idle share, the top kernels and host ops per step
+    (with ``split``, also :func:`device_split`'s)."""
     events = prof.key_averages()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device events, less the ranges family_regions() marks on the device
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in region_labels()]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3 / steps
     # the port's kernels by source (every kernel whose name holds the word)
     # and one by one
@@ -1312,7 +1354,8 @@ def _profile_summary(prof, wall: float, steps: int) -> dict:
             "top_kernels_ms_per_step": [[e.key[:80], dev_us(e) / 1e3 / steps, e.count // steps]
                                         for e in top],
             "top_host_ops_ms_per_step": [[e.key[:60], e.self_cpu_time_total / 1e3 / steps,
-                                          e.count // steps] for e in host]}
+                                          e.count // steps] for e in host],
+            **({"device_ms_split_per_step": device_split(prof, steps)} if split else {})}
 
 
 def phase_serve_full(smi: str) -> int:
@@ -2397,9 +2440,11 @@ def phase_calibrate_replan(smi: str) -> dict:
     return launches
 
 
-def profile_train_step(cfg, prof, plat, config, M, params, batches, optimizer) -> dict:
+def profile_train_step(cfg, prof, plat, config, M, params, batches, optimizer,
+                       split=False) -> dict:
     """Where a training step's time goes: a second run of the same plan,
-    with ``torch.profiler`` over its second step only."""
+    with ``torch.profiler`` over its second step only (``split``: and the
+    MoE and Mamba steps' device time, :func:`device_split`)."""
     from torch.profiler import ProfilerActivity, profile
 
     window = {}
@@ -2412,13 +2457,14 @@ def profile_train_step(cfg, prof, plat, config, M, params, batches, optimizer) -
             window["t0"] = time.perf_counter()
         return batches[k]
 
-    run_plan(prof, plat, config, M, steps=2, pipelined_sync=True,
-             execution=Execution(cfg=cfg, optimizer=optimizer, init_params=params,
-                                 batch_fn=batch_fn, use_kernels=True, device="cuda"))
+    with family_regions() if split else contextlib.nullcontext():
+        run_plan(prof, plat, config, M, steps=2, pipelined_sync=True,
+                 execution=Execution(cfg=cfg, optimizer=optimizer, init_params=params,
+                                     batch_fn=batch_fn, use_kernels=True, device="cuda"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - window["t0"]
     window["prof"].stop()
-    return _profile_summary(window["prof"], wall, 1)
+    return _profile_summary(window["prof"], wall, 1, split=split)
 
 
 def _max_param_diff(a: dict, b: dict) -> float:
@@ -2440,17 +2486,18 @@ def training_kernels_as_plain():
         ops.flash_attention, ops.swiglu = real
 
 
-def _expected_launches(n: int, flash_way: str, swiglu_way: str) -> dict:
+def _expected_launches(n: int, flash_way: str, swiglu_way: str, n_swiglu=None) -> dict:
     """``ops.launch_counts()`` after n launches of each training kernel,
     forward and backward, flash attention on route ``flash_way`` and swiglu
-    on ``swiglu_way``."""
+    on ``swiglu_way`` (``n_swiglu`` of swiglu's, when it differs)."""
     counts = {"decode_attention": 0}
-    for name, mod, way in (("flash_attention", fa_kernel, flash_way),
-                           ("swiglu", sg_kernel, swiglu_way)):
-        counts |= {name: n, f"{name}_bwd": n}
+    for name, mod, way, k in (("flash_attention", fa_kernel, flash_way, n),
+                              ("swiglu", sg_kernel, swiglu_way,
+                               n if n_swiglu is None else n_swiglu)):
+        counts |= {name: k, f"{name}_bwd": k}
         for route in mod.ROUTES:
-            counts |= {f"{name}_{route}": n if route == way else 0,
-                       f"{name}_bwd_{route}": n if route == way else 0}
+            counts |= {f"{name}_{route}": k if route == way else 0,
+                       f"{name}_bwd_{route}": k if route == way else 0}
     return counts
 
 
@@ -2467,7 +2514,9 @@ def train_routes(cfg, spec, optimizer, params, *, d: int, steps: int, routes) ->
     so flash attention and swiglu take the tf32x3 route (``FP32_WAYS``)."""
     prof, plat, config, M = train_setup(cfg, spec, d=d)
     batches = train_batches(cfg, spec, d, steps)
-    per_run = d * spec["mu"] * cfg.n_layers * steps
+    per_call = d * spec["mu"] * steps       # a layer's calls in the run
+    per_flash = per_call * n_layers_of(cfg, mixer=ATTN)
+    per_swiglu = per_call * n_layers_of(cfg, ff=DENSE_FF)
     out = {}
     for route in routes:
         ops.reset_launch_counts()
@@ -2478,8 +2527,9 @@ def train_routes(cfg, spec, optimizer, params, *, d: int, steps: int, routes) ->
                 batch_fn=lambda k: batches[k], use_kernels=route != "plain", device="cuda"))
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        want = _expected_launches(per_run if route == "kernel" else 0,
-                                  FP32_WAYS["flash_attention"], FP32_WAYS["swiglu"])
+        on = route == "kernel"
+        want = _expected_launches(per_flash if on else 0, FP32_WAYS["flash_attention"],
+                                  FP32_WAYS["swiglu"], n_swiglu=per_swiglu if on else 0)
         if counts != want:
             raise AssertionError(f"route {route}: launches {counts}, expected {want}")
         out[route] = (res.losses, res.params, counts)
@@ -2720,6 +2770,443 @@ def phase_train_gemma_fp32(smi: str) -> dict:
     return launches
 
 
+# --------------------------------------------------- the MoE and Mamba families
+# jamba-v0.1-52b served at full width, one period (7 Mamba layers and one
+# attention layer, 4 MoE FFNs of 16 experts and 4 dense FFNs); a prompt of
+# 1024 tokens (a multiple of Mamba's chunk of 256) and 16 new tokens
+SERVE_JAMBA = dict(batch=4, prefill_tokens=1024, new_tokens=16)   # s_ctx = 1040
+JAMBA_LAYERS = 8
+# qwen3-moe-235b-a22b trained at full width, one layer (64 q / 4 kv heads of
+# 128 with q/k norms, 128 experts top-8 of width 1536): [embed + layer | head]
+TRAIN_MOE = dict(n_layers=1, seq=2048, micro_batch=1, d=1, mu=2, steps=2, cut=1,
+                 lr=5e-3)
+# jamba@reduced in fp32 on one stage: Mamba's backward, a hybrid period's
+# swiglu (4 dense FFNs) and flash attention (hd 64) on the tf32x3 route
+TRAIN_JAMBA_REDUCED = dict(n_layers=8, seq=128, micro_batch=2, d=1, mu=2, steps=1, cut=-1)
+# the kernels at the families' shapes: flash attention at qwen3-moe's
+# training shape (G 16, hd 128) and decode attention at jamba's decode shape
+# (G 4, hd 128) over 1024 + 16 slots (a short last chunk of the split pass)
+FLASH_QWEN3_MOE = (1, 2048, 64, 4, 128, True, 0)
+JAMBA_DECODE = dict(B=4, Hq=32, Hkv=8, hd=128, C=1040)
+# the steps of the MoE FFN and the Mamba mixer timed apart on the device
+FAMILY_REGIONS = {moe_mod: ("route", "slots", "dispatch", "experts", "combine"),
+                  mamba_mod: ("selective_scan", "mamba_decode")}
+# autograd nodes of their backward: the expert products and the row gathers
+FAMILY_BACKWARD = {"experts": "BmmBackward0", "dispatch_combine": "_RowGatherBackward"}
+
+
+def n_layers_of(cfg, mixer=None, ff=None) -> int:
+    """Layers of ``cfg`` with that mixer and/or FFN kind."""
+    return sum(1 for i in range(cfg.n_layers)
+               if (mixer is None or cfg.layer_spec(i).mixer == mixer)
+               and (ff is None or cfg.layer_spec(i).ff == ff))
+
+
+def region_labels() -> set:
+    """The ``record_function`` names of ``family_regions``."""
+    return {f"{mod.__name__.rsplit('.', 1)[-1]}.{n}"
+            for mod, names in FAMILY_REGIONS.items() for n in names}
+
+
+@contextlib.contextmanager
+def family_regions():
+    """Wrap each step of ``FAMILY_REGIONS`` in a ``record_function`` range
+    named ``<module>.<step>`` (``moe.dispatch``, ``mamba.selective_scan``,
+    ...), so a profile gives each its device time.  The modules look the
+    steps up at each call."""
+    saved = []
+    for mod, names in FAMILY_REGIONS.items():
+        for name in names:
+            real = getattr(mod, name)
+            label = f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
+
+            def wrapped(*a, _real=real, _label=label, **k):
+                with torch.profiler.record_function(_label):
+                    return _real(*a, **k)
+
+            saved.append((mod, name, real))
+            setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+
+
+def _kernel_family(name: str) -> str:
+    if "flash" in name:
+        return "flash_attention"
+    if "decode_attention" in name:
+        return "decode_attention"
+    if "swiglu" in name:
+        return "swiglu"
+    if re.search(r"gemm|cutlass|xmma|sm90_|gemv|cublas|nvjet", name, re.I):
+        return "cublas"
+    if re.search(r"index|gather|scatter", name, re.I):
+        return "index"
+    if re.search(r"sort|radix|scan", name, re.I):
+        return "sort_cumsum"
+    if re.search(r"elementwise|vectorized|reduce|softmax|cat|copy|fill", name, re.I):
+        return "elementwise_reduce"
+    return "other"
+
+
+def device_split(prof, steps: int) -> dict:
+    """Device ms per step: by ``family_regions`` range (the kernels launched
+    inside it, forward), by backward node of ``FAMILY_BACKWARD``, and over
+    all kernels by family of name (cuBLAS, elementwise and reductions, index
+    gathers, sorts and scans, the port's kernels)."""
+    def dev_us(e):
+        return e.device_time_total if hasattr(e, "device_time_total") else e.cuda_time_total
+
+    def self_us(e):
+        return e.self_device_time_total if hasattr(e, "self_device_time_total") \
+            else e.self_cuda_time_total
+
+    labels = region_labels()
+    regions, backward, families = {}, {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name in labels:   # the range itself on the device timeline
+                continue
+            fam = _kernel_family(e.name)
+            families[fam] = families.get(fam, 0.0) + self_us(e) / 1e3 / steps
+        elif e.name in labels:
+            regions[e.name] = regions.get(e.name, 0.0) + dev_us(e) / 1e3 / steps
+        else:
+            for what, node in FAMILY_BACKWARD.items():
+                if e.name.startswith("autograd::engine::evaluate_function: ") \
+                        and e.name.endswith(node):
+                    backward[what] = backward.get(what, 0.0) + dev_us(e) / 1e3 / steps
+    return {"forward_regions": regions, "backward_nodes": backward,
+            "kernel_families": families}
+
+
+def _families_parity(flush) -> tuple:
+    """The kernels at the new families' shapes, each against its plain
+    version: flash attention forward and backward at qwen3-moe's
+    [1, 2048, 64 q, 4 kv, 128] (bf16, the wgmma route, two backward calls
+    bit-equal), and decode attention at jamba's [4, 32 q, 8 kv, 128] over a
+    1040-slot cache at lengths around the short last chunk (fp32 2e-5, bf16
+    2e-2); each timed beside its bound, its plain version and SDPA (pinned
+    to its flash backend for flash attention, with the default dispatch
+    beside it; with ``enable_gqa`` for decode)."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    B, S, Hq, Hkv, hd, causal, window = FLASH_QWEN3_MOE
+    dtype = torch.bfloat16
+    q, do = (torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    what = f"flash qwen3-moe {FLASH_QWEN3_MOE}"
+    ops.reset_launch_counts()
+    err = _check_kernel(
+        lambda a, b, c: ops.flash_attention(a, b, c, causal=causal),
+        lambda a, b, c: ops.flash_attention(a, b, c, causal=causal, impl="ref"),
+        (q, k, v), do, what)
+    counts = ops.launch_counts()
+    if (counts["flash_attention_wgmma"], counts["flash_attention_bwd_wgmma"]) != (1, 1):
+        raise AssertionError(f"{what}: expected the wgmma route, launches {counts}")
+    o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=causal)
+    grads = [fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+             for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*grads)):
+        raise AssertionError(f"{what}: two backward calls differ")
+    flash = _flash_timing(gen, flush, dtype, FLASH_QWEN3_MOE)
+
+    def rec(r, e):
+        return {k: v for k, v in r.items() if k not in ("bytes", "flops")} | {"max_abs_err": e}
+
+    recs = {"flash_attention_qwen3_moe": rec(flash["fwd"], err["out"]),
+            "flash_attention_bwd_qwen3_moe": rec(flash["bwd"], err["grad"])}
+
+    B, Hq, Hkv, hd, C = (JAMBA_DECODE[x] for x in ("B", "Hq", "Hkv", "hd", "C"))
+    decode_err = {}
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        q = torch.randn(B, Hq, hd, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(B, Hkv, C, hd, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        for length in (1, 1024, 1025, C):
+            L = torch.tensor([length], dtype=torch.int32, device="cuda")
+            out = ops.decode_attention(q, k, v, L)
+            decode_err[f"{str(dtype)[6:]}@{length}"] = _close(
+                out, ops.decode_attention(q, k, v, L, impl="ref"), tol,
+                f"jamba decode B={B} Hq={Hq} Hkv={Hkv} hd={hd} C={C} length={length} {dtype}")
+            if not torch.equal(out, ops.decode_attention(q, k, v, L)):
+                raise AssertionError(f"jamba decode length={length}: two calls differ")
+    # timing: bf16, a full cache (length = C)
+    L = torch.tensor([C], dtype=torch.int32, device="cuda")
+    mask = (torch.arange(C, device="cuda") < C).view(1, 1, 1, C)
+    ms = _time_ms(lambda: da_kernel.decode_attention(q, k, v, L), flush)
+    plain_ms = _time_ms(lambda: ops.decode_attention(q, k, v, L, impl="ref"), flush)
+    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q.unsqueeze(2), k, v, attn_mask=mask, enable_gqa=True), flush)
+    esz = q.element_size()
+    nbytes = 2 * B * Hkv * C * hd * esz + 2 * q.numel() * esz
+    flops = 4 * B * Hq * C * hd
+    bound_ms, bound_by = _bound(nbytes, flops, torch.bfloat16)
+    recs["decode_attention_jamba"] = {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_call": "scaled_dot_product_attention(enable_gqa=True)",
+        "bound_ms": bound_ms, "bound_by": bound_by, "kernel_route": "splitk",
+        "tflop_per_s": flops / ms / 1e9, "max_abs_err": decode_err[f"bfloat16@{C}"],
+        "hbm_gb_per_s": nbytes / (ms * 1e-3) / 1e9, "roofline_share": bound_ms / ms}
+    detail = {"flash_shape": FLASH_QWEN3_MOE, "flash_sdpa": flash["sdpa"],
+              "flash_simt_ms": flash["simt"], "flash_bwd_passes_ms": flash["bwd_passes_ms"],
+              "decode_shape": JAMBA_DECODE, "decode_max_abs_err": decode_err,
+              "decode_chunk": da_kernel.split_chunk(C),
+              "decode_splits": -(-C // da_kernel.split_chunk(C))}
+    return recs, detail
+
+
+def _cache_bytes(caches) -> dict:
+    """Bytes of one period instance's decode caches by kind."""
+    out = {"mamba": 0, "kv": 0}
+    for c in caches:
+        kind = "mamba" if isinstance(c, mamba_mod.MambaCache) else "kv"
+        out[kind] += sum(int(np.prod(a.shape[1:])) * a.element_size() for a in c)
+    return out
+
+
+def profile_prefill(cfg, params, prompt, *, s_ctx) -> dict:
+    """Where a prefill's time goes (one monolithic prefill after a warm-up
+    one), with the MoE and Mamba steps apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    toks = torch.from_numpy(prompt).cuda()
+    registry.prefill(cfg, params, {"tokens": toks}, capacity=s_ctx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with family_regions():
+            registry.prefill(cfg, params, {"tokens": toks}, capacity=s_ctx)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return _profile_summary(prof, wall, 1, split=True)
+
+
+def phase_serve_jamba(smi: str) -> int:
+    """jamba-v0.1-52b at full width, one period (``@layers8``: 13.3 B
+    params, bf16, seed 0), served through ``run_serve_plan`` on emulated, 2
+    stages [embed + period | head]: 1 decode-attention launch a round,
+    tokens bit-identical to the monolithic loop, every decode-attention call
+    within 2e-2 of ``impl="ref"``; the Mamba and KV bytes that cross the
+    store each round, round times, peak memory, and the device time of
+    prefill and decode by step (MoE routing, dispatch, experts, combine,
+    Mamba scan and decode) and by kernel family."""
+    torch.use_deterministic_algorithms(True)
+    spec = SERVE_JAMBA
+    model = f"jamba-v0.1-52b@layers{JAMBA_LAYERS}"
+    cfg = arch_config_for_model(model)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    plan = manual_serve_plan(model, cuts=(JAMBA_LAYERS,), **spec)
+    prompt = make_prompt(cfg, spec["batch"], spec["prefill_tokens"], seed=0)
+    s_ctx = spec["prefill_tokens"] + spec["new_tokens"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = run_serve_plan(plan, params=params, prompt=prompt, use_kernels=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.launch_counts()["decode_attention"]
+    expect = (spec["new_tokens"] - 1) * n_layers_of(cfg, mixer=ATTN)
+    if launches != expect:
+        raise AssertionError(f"decode_attention launched {launches} times, expected {expect}")
+    mono = reference_decode(cfg, params, prompt, spec["new_tokens"], use_kernels=True)
+    if not np.array_equal(res.tokens, mono):
+        raise AssertionError(f"pipelined tokens differ from the monolithic loop:\n"
+                             f"{res.tokens}\n{mono}")
+    tf = teacher_forced(cfg, params, prompt, res.tokens, s_ctx=s_ctx, call_tol=2e-2)
+    per_round = _cache_bytes(registry.init_decode_caches(cfg, spec["batch"], s_ctx,
+                                                         device="meta"))
+    kv_store = res.store_stats.class_bytes_in["kv"]
+    if kv_store != spec["new_tokens"] * (per_round["mamba"] + per_round["kv"]):
+        raise AssertionError(f"{kv_store} cache bytes put in the store, expected "
+                             f"{spec['new_tokens']} x {per_round}")
+    prefill_profile = profile_prefill(cfg, params, prompt, s_ctx=s_ctx)
+    decode_profile = profile_decode(cfg, params, prompt, res.tokens, s_ctx=s_ctx, split=True)
+    emit({"phase": "serve_jamba", "card": smi, "model": model, "dtype": cfg.param_dtype,
+          "n_layers": cfg.n_layers, "reduced": {"n_layers": [32, cfg.n_layers]},
+          "period": [[s_.mixer, s_.ff] for s_ in cfg.period], "params": n_params,
+          "stages": plan.n_stages, **spec, "s_ctx": s_ctx,
+          "kernel_launches": launches, "tokens_match_monolithic": True,
+          "teacher_forced_bf16": tf,
+          "cache_bytes_per_round": per_round, "store_cache_bytes_in": kv_store,
+          "kv_bytes_estimate": list(res.kv_bytes), "store": res.store_stats.as_dict(),
+          "t_request_virtual_s": res.t_request, "param_init_s": t_init,
+          "prefill_wall_s": res.round_wall_s[0],
+          "decode_round_wall_s": list(res.round_wall_s[1:]),
+          "decode_round_wall_s_median": statistics.median(res.round_wall_s[1:]),
+          "max_memory_allocated_bytes": peak, "prefill_profile": prefill_profile,
+          "decode_profile": decode_profile, "tokens_head": res.tokens[0].tolist(),
+          "training_at_full_width": "not run: one period needs >= 10 B a param "
+          "(bf16 weights, fp32 masters, fp32 gradients), >= 133 GB; it waits for the "
+          "mesh path (ROADMAP port queue item 7)"})
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_jamba_reduced(smi: str) -> int:
+    """tests/test_models_unit.py:23-48 on the card: jamba@reduced in fp32,
+    capacity ``n_experts`` (no drops), weights from seed 0: the prefill of
+    28 tokens then 4 decode steps (decode attention on the kernel) against
+    the full forward's logits at 1e-4 / 2e-4."""
+    cfg = arch_config_for_model("jamba-v0.1-52b@reduced")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = registry.init_params(cfg, gen, device="cuda")
+    B, S = 2, 32
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    h, aux = registry.forward(cfg, params, {"tokens": toks, "labels": toks})
+    ref = registry._logits(cfg, params, h)
+    logits, caches = registry.prefill(cfg, params, {"tokens": toks[:, :S - 4]}, capacity=S)
+    errs = [_close_at(logits[:, 0], ref[:, S - 5], 1e-4, 1e-4, "jamba@reduced prefill")]
+    ops.reset_launch_counts()
+    for t in range(S - 4, S):
+        logits, caches = registry.decode_step(cfg, params, caches, toks[:, t:t + 1],
+                                              use_kernels=True)
+        errs.append(_close_at(logits[:, 0], ref[:, t], 1e-4, 2e-4,
+                              f"jamba@reduced decode step {t}"))
+    launches = ops.launch_counts()["decode_attention"]
+    if launches != 4 * n_layers_of(cfg, mixer=ATTN):
+        raise AssertionError(f"decode_attention launched {launches} times")
+    emit({"phase": "serve_jamba_reduced", "card": smi, "model": "jamba-v0.1-52b@reduced",
+          "dtype": cfg.param_dtype, "capacity_factor": cfg.moe.capacity_factor,
+          "prompt": S - 4, "decode_steps": 4, "aux": float(aux),
+          "prefill_max_abs_err": errs[0], "decode_max_abs_err": errs[1:],
+          "kernel_launches": launches})
+    return launches
+
+
+def phase_train_moe(smi: str) -> dict:
+    """qwen3-moe-235b-a22b at full width, one layer (3.73 B params), bf16,
+    seed 0: 2 stages [embed + layer | head], d 1, 2 micro-batches of 1 x
+    2048 tokens, eq (2), SGD, 2 steps through ``run_plan(...,
+    use_kernels=True)``.  2 + 2 flash attention launches a step, all on the
+    wgmma route (hd 128, G 16), none of swiglu (the layer's FFN is the MoE's
+    expert products); in step 1 every flash call held against
+    ``impl="ref"``; finite losses (ce and aux apart), the first within 2e-2
+    of the same plan with the kernels' plain versions; peak memory; one
+    profiled step with the MoE's steps apart."""
+    spec = TRAIN_MOE
+    torch.use_deterministic_algorithms(True)
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"), n_layers=spec["n_layers"])
+    torch.cuda.empty_cache()
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    prof, plat, config, M = train_setup(cfg, spec)
+    d, mu, steps = spec["d"], spec["mu"], spec["steps"]
+    batches = train_batches(cfg, spec, d, steps)
+    per_step = d * mu * n_layers_of(cfg, mixer=ATTN)
+    checker = CallChecker(names=("flash_attention",))
+    marks, counts = [], []
+
+    def batch_fn(k):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(ops.launch_counts())
+        if k > 0:
+            checker.remove()
+        else:
+            checker.install()
+        return batches[k]
+
+    execution = Execution(cfg=cfg, optimizer=SGD(lr=spec["lr"]), init_params=params,
+                          batch_fn=batch_fn, use_kernels=True, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        res = run_plan(prof, plat, config, M, steps=steps, pipelined_sync=True,
+                       execution=execution)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(ops.launch_counts())
+    finally:
+        checker.remove()
+    peak = torch.cuda.max_memory_allocated()
+    launches = counts[-1]
+    step_counts = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
+    expect = _expected_launches(per_step, "wgmma", "wgmma", n_swiglu=0)
+    if any(c != expect for c in step_counts):
+        raise AssertionError(f"launches per step {step_counts}, expected {expect}")
+    if checker.failures:
+        raise AssertionError(f"flash calls disagree with impl='ref': {checker.failures[:5]}")
+    if checker.calls["flash_attention"] != per_step or \
+            checker.grads["flash_attention"] != 3 * per_step:
+        raise AssertionError(f"checked {checker.calls} calls and {checker.grads} gradients")
+    metrics = res.metrics
+    if not all(np.isfinite([m[k] for m in metrics for k in ("ce", "aux")])):
+        raise AssertionError(f"non-finite losses {metrics}")
+    t_iter = res.t_iter
+    del res
+    with training_kernels_as_plain():
+        plain = run_plan(prof, plat, config, M, steps=steps, pipelined_sync=True,
+                         execution=dataclasses.replace(execution,
+                                                       batch_fn=lambda k: batches[k]))
+    metrics_plain = plain.metrics
+    del plain
+    if abs(metrics[0]["loss"] - metrics_plain[0]["loss"]) > 2e-2:
+        raise AssertionError(f"first loss {metrics[0]} on the kernel path, "
+                             f"{metrics_plain[0]} with the kernels' plain versions")
+    profile = profile_train_step(cfg, prof, plat, config, M, params, batches,
+                                 SGD(lr=spec["lr"]), split=True)
+    emit({"phase": "train_moe", "card": smi, "model": "qwen3-moe-235b-a22b",
+          "dtype": cfg.param_dtype, "n_layers": cfg.n_layers,
+          "reduced": {"n_layers": [94, cfg.n_layers]}, "params": n_params,
+          "stages": 2, "d": d, "mu": mu, "micro_batch": spec["micro_batch"],
+          "seq": spec["seq"], "steps": steps, "optimizer": f"SGD(lr={spec['lr']})",
+          "capacity": moe_mod.capacity(spec["micro_batch"] * spec["seq"], cfg.moe),
+          "metrics": metrics, "metrics_kernels_as_plain": metrics_plain,
+          "t_iter_virtual_s": t_iter, "launches_per_step": step_counts,
+          "launches_by_route": _launches_by_route(launches),
+          "kernel_launches": launches, "checked_calls": checker.calls,
+          "checked_gradients": checker.grads, "call_max_abs_err": checker.out_err,
+          "grad_max_abs_err": checker.grad_err,
+          "step_wall_s": [b - a for a, b in zip(marks, marks[1:])],
+          "max_memory_allocated_bytes": peak, "train_profile": profile})
+    del params, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_jamba_reduced(smi: str) -> dict:
+    """jamba@reduced (one period: 7 Mamba layers and one attention layer, 4
+    MoE and 4 dense FFNs), fp32, seed 0: one stage, d 1, 2 micro-batches of
+    2 x 128 tokens, SGD(0.05), 1 step with the kernels and without: 2 flash
+    attention and 8 swiglu launches, all on tf32x3; losses within 5e-5 and
+    params within 1e-4 (tests/test_runtime.py:286-288)."""
+    spec = TRAIN_JAMBA_REDUCED
+    cfg = arch_config_for_model("jamba-v0.1-52b@reduced")
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    routes = train_routes(cfg, spec, SGD(lr=0.05), params, d=spec["d"], steps=spec["steps"],
+                          routes=("kernel", "plain"))
+    rec = _diff(routes, "kernel", "plain")
+    losses = {r: v[0] for r, v in routes.items()}
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"non-finite losses {losses}")
+    if rec["loss_max_abs_diff"] > 5e-5 or rec["param_max_abs_diff"] > 1e-4:
+        raise AssertionError(f"jamba@reduced kernel path disagrees with the plain path: {rec}")
+    emit({"phase": "train_jamba_reduced", "card": smi, "model": "jamba-v0.1-52b@reduced",
+          "dtype": cfg.param_dtype, "n_layers": cfg.n_layers, "d": spec["d"],
+          "mu": spec["mu"], "seq": spec["seq"], "steps": spec["steps"],
+          "optimizer": "SGD(lr=0.05)", "losses": losses,
+          "kernel_launches": routes["kernel"][2], **rec})
+    return routes["kernel"][2]
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -2764,6 +3251,20 @@ def main() -> None:
     way = FP32_WAYS["flash_attention"]
     launches |= {f"flash_attention_hd256_{way}": gemma_fp32[f"flash_attention_{way}"],
                  f"flash_attention_bwd_hd256_{way}": gemma_fp32[f"flash_attention_bwd_{way}"]}
+    # the MoE and Mamba families: jamba's decode (G 4, hd 128), qwen3-moe's
+    # flash attention (G 16, hd 128, wgmma); their reduced fp32 runs' launches
+    # (decode attention at hd 64, flash attention and swiglu on tf32x3) count
+    # in the rows of those routes
+    launches["decode_attention_jamba"] = phase_serve_jamba(smi)
+    jamba_reduced_decode = phase_serve_jamba_reduced(smi)
+    moe = phase_train_moe(smi)
+    launches |= {"flash_attention_qwen3_moe": moe["flash_attention_wgmma"],
+                 "flash_attention_bwd_qwen3_moe": moe["flash_attention_bwd_wgmma"]}
+    jamba_reduced = phase_train_jamba_reduced(smi)
+    on_families = {"decode_attention": jamba_reduced_decode}
+    for name in FP32_WAYS:
+        on_families |= {f"{name}_{way}": jamba_reduced[f"{name}_{way}"],
+                        f"{name}_bwd_{way}": jamba_reduced[f"{name}_bwd_{way}"]}
     source = "src/repro_torch/kernels/csrc/{}.cu"
     tpu = {"decode_attention": "src/repro/kernels/decode_attention.py:68",
            "flash_attention": "src/repro/kernels/flash_attention.py:83",
@@ -2773,12 +3274,15 @@ def main() -> None:
         base = next(b for b in tpu if name.startswith(b))
         extra, more = on_backends.get(name, 0), on_planned.get(name, 0)
         chaotic, replanned = on_chaos.get(name, 0), on_replan.get(name, 0)
+        family = on_families.get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": source.format(base),
                         "replaces": tpu[base],
-                        "launches": launches[name] + extra + more + chaotic + replanned,
+                        "launches": launches[name] + extra + more + chaotic + replanned
+                        + family,
                         "launches_backend_phases": extra, "launches_train_planned": more,
                         "launches_train_chaos": chaotic,
-                        "launches_calibrate_replan": replanned, **rec})
+                        "launches_calibrate_replan": replanned,
+                        "launches_reduced_families": family, **rec})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,14 +3,25 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig, LayerSpec, validate  # noqa: F401
+from repro_torch.configs.base import (  # noqa: F401
+    ArchConfig,
+    LayerSpec,
+    MambaCfg,
+    MoECfg,
+    validate,
+)
 
-# public id -> module name; the JAX package's other archs wait for
-# ROADMAP port queue item 6 (other model families)
+# public id -> module name; the JAX package's other archs (xlstm-125m,
+# bert-large, hubert-xlarge, internvl2-26b) wait for ROADMAP port queue
+# item 6b
 _ARCH_MODULES = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
     "qwen2.5-14b": "qwen2_5_14b",
     "gemma3-4b": "gemma3_4b",
+    "internlm2-20b": "internlm2_20b",
+    "dbrx-132b": "dbrx_132b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
 }
 
 ARCH_IDS = list(_ARCH_MODULES)

@@ -1,8 +1,8 @@
 """Architecture configuration (``repro.configs.base`` for the port).
 
-The port covers decoder LMs of ATTN mixers and DENSE_FF feed-forwards (the
-serving slice); the other mixer and FF kinds are named so configs stay
-comparable, and anything that would need them raises.  A model is a
+The port covers token decoder LMs of ATTN and MAMBA mixers with DENSE_FF or
+MOE_FF feed-forwards; the xLSTM mixers (SLSTM, MLSTM) are named so configs
+stay comparable, and anything that would need them raises.  A model is a
 sequence of *period instances*, each a static list of :class:`LayerSpec`,
 exactly as in the JAX package, so stage cuts and parameter stacking carry
 over.
@@ -25,7 +25,8 @@ NO_FF = "none"
 
 GLOBAL_WINDOW = 0  # sentinel: full (global) attention
 
-OTHER_FAMILIES = "not ported yet: ROADMAP port queue item 6 (other model families)"
+OTHER_FAMILIES = ("not ported yet: ROADMAP port queue item 6b (xLSTM mixers, the "
+                  "encoders and the audio/vision frontends)")
 
 
 @dataclass(frozen=True)
@@ -42,6 +43,25 @@ class LayerSpec:
 
 
 @dataclass(frozen=True)
+class MoECfg:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class MambaCfg:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str  # dense | moe | ssm | hybrid | vlm | audio
@@ -54,6 +74,8 @@ class ArchConfig:
     vocab_size: int
     head_dim: Optional[int] = None  # default d_model // n_heads
     period: Sequence[LayerSpec] = (LayerSpec(),)
+    moe: Optional[MoECfg] = None
+    mamba: Optional[MambaCfg] = None
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
@@ -87,20 +109,43 @@ class ArchConfig:
         total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         for i in range(self.n_layers):
             spec = self.layer_spec(i)
-            if spec.mixer != ATTN or spec.ff not in (DENSE_FF, NO_FF):
-                raise NotImplementedError(
-                    f"{spec.mixer}/{spec.ff} layers: {OTHER_FAMILIES}")
-            total += d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
-                + self.n_heads * hd * d
+            if spec.mixer == ATTN:
+                total += d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+                    + self.n_heads * hd * d
+            elif spec.mixer == MAMBA:
+                mc = self.mamba or MambaCfg()
+                di = mc.d_inner(d)
+                total += d * 2 * di + di * mc.d_conv + di * (2 * mc.d_state + 2) + di * d
+            else:
+                raise NotImplementedError(f"{spec.mixer} layers: {OTHER_FAMILIES}")
             if spec.ff == DENSE_FF:
                 total += 3 * d * self.d_ff
+            elif spec.ff == MOE_FF:
+                if self.moe is None:
+                    raise ValueError(f"{self.name}: MoE layers without a MoECfg")
+                total += self.moe.n_experts * 3 * d * self.moe.d_ff_expert \
+                    + d * self.moe.n_experts
         return total
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only top_k experts)."""
+        if self.moe is None:
+            return self.param_count()
+        n_moe_layers = sum(1 for i in range(self.n_layers) if self.layer_spec(i).ff == MOE_FF)
+        inactive = n_moe_layers * (self.moe.n_experts - self.moe.top_k) * 3 \
+            * self.d_model * self.moe.d_ff_expert
+        return self.param_count() - inactive
+
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: <=2 periods, d_model<=256, fp32."""
+        """Smoke-test variant: <=2 periods, d_model<=256, <=4 experts, fp32."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
         n_kv = min(self.n_kv_heads, max(1, n_heads // 2))
+        moe = None
+        if self.moe is not None:
+            moe = replace(self.moe, n_experts=min(4, self.moe.n_experts),
+                          top_k=min(2, self.moe.top_k),
+                          d_ff_expert=min(self.moe.d_ff_expert, 2 * d_model))
         n_layers = self.period_len * (2 if self.period_len == 1 else 1)
         period = tuple(
             replace(s, window=min(s.window, 64) if s.window else 0) for s in self.period
@@ -115,6 +160,7 @@ class ArchConfig:
             head_dim=d_model // n_heads,
             d_ff=min(self.d_ff, 4 * d_model) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 1024),
+            moe=moe,
             period=period,
             param_dtype="float32",
         )
@@ -133,3 +179,7 @@ def validate(cfg: ArchConfig) -> None:
         raise ValueError(f"{cfg.name}: no layers")
     if cfg.n_heads % cfg.n_kv_heads and cfg.n_kv_heads % cfg.n_heads:
         raise ValueError(f"{cfg.name}: {cfg.n_heads} heads vs {cfg.n_kv_heads} kv heads")
+    if any(s.ff == MOE_FF for s in cfg.period) and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: MoE layers without a MoECfg")
+    if any(s.mixer == MAMBA for s in cfg.period) and cfg.mamba is None:
+        raise ValueError(f"{cfg.name}: Mamba layers without a MambaCfg")

@@ -4,8 +4,7 @@ for the port, copied exactly so plans resolve to the same fingerprint.
 The per-layer tables are synthesized analytically: FLOPs-derived compute
 times under the platform's memory->vCPU scaling, plus parameter /
 activation / boundary sizes, for the paper's four evaluation models (Table
-1) and for the ported architectures.  MoE layers wait for ROADMAP port
-queue item 6 (other model families).
+1) and for the ported architectures.
 """
 from __future__ import annotations
 
@@ -95,12 +94,14 @@ def arch_model_profile(cfg: ArchConfig, platform: Platform, *, seq: int = 512,
     per_layer_params = max(
         0.0, cfg.param_count() * F32 - n_emb_tables * emb_b) / cfg.n_layers
     for i in range(cfg.n_layers):
-        if cfg.layer_spec(i).ff == MOE_FF:
-            raise NotImplementedError(
-                "MoE profiles: not ported yet: ROADMAP port queue item 6 "
-                "(other model families)")
+        spec = cfg.layer_spec(i)
         p_b = per_layer_params
-        flops = 6 * (p_b / F32) * seq * micro_batch / 3  # fwd ~ 2*N*D
+        flops_params = p_b / F32
+        if spec.ff == MOE_FF and cfg.moe is not None:
+            # only top_k experts touched per token
+            frac = cfg.active_param_count() / cfg.param_count()
+            flops_params *= frac
+        flops = 6 * flops_params * seq * micro_batch / 3  # fwd ~ 2*N*D
         layers.append(_layer(platform, f"layer{i}", p_b, act_per_layer, out_b,
                              out_b, flops))
     # lm head
@@ -109,29 +110,37 @@ def arch_model_profile(cfg: ArchConfig, platform: Platform, *, seq: int = 512,
     return ModelProfile(name=cfg.name, layers=tuple(layers))
 
 
+_SPELLINGS = ("reduced", "layers")
+
+
 def arch_config(model: str) -> ArchConfig:
-    """ArchConfig of an arch id or its reduced spelling
-    ``<arch>@reduced[<n_layers>]``.  The paper's Table 1 models are
-    analytic layer tables with no runnable layers, so they have none."""
+    """ArchConfig of an arch id, its reduced spelling
+    ``<arch>@reduced[<n_layers>]``, or ``<arch>@layers<n_layers>``: the
+    config at full width cut to its first ``n_layers`` layers (the port's
+    own spelling, for a model that one card holds only in part; the JAX
+    package does not know it).  The paper's Table 1 models are analytic
+    layer tables with no runnable layers, so they have none."""
     from repro_torch.configs import ARCH_IDS, get_config
 
     base, _, spec = model.partition("@")
-    if base not in ARCH_IDS or (spec and not spec.startswith("reduced")):
+    if base not in ARCH_IDS or (spec and not spec.startswith(_SPELLINGS)):
         raise KeyError(
             f"{model!r} is not an arch id the port runs ({sorted(ARCH_IDS)}; "
-            "reduced spelling: <arch>@reduced[<L>]); the paper's Table 1 "
-            "models are analytic-only, and the other archs wait for ROADMAP "
-            "port queue item 6 (other model families)")
+            "reduced spelling: <arch>@reduced[<L>], full width cut: "
+            "<arch>@layers<L>); the paper's Table 1 models are analytic-only, "
+            "and the other archs wait for ROADMAP port queue item 6b")
     cfg = get_config(base)
     if spec:
-        cfg = cfg.reduced()
-        depth = spec[len("reduced"):]
-        if depth:
+        kind = "layers" if spec.startswith("layers") else "reduced"
+        if kind == "reduced":
+            cfg = cfg.reduced()
+        depth = spec[len(kind):]
+        if depth or kind == "layers":
             try:
                 cfg = dataclasses.replace(cfg, n_layers=int(depth))
             except ValueError:
                 raise KeyError(
-                    f"malformed reduced-arch spec {model!r}: depth "
+                    f"malformed {kind}-arch spec {model!r}: depth "
                     f"{depth!r} is not an integer") from None
     return cfg
 
@@ -150,7 +159,8 @@ def resolve_profile(model: str, platform: Platform, *, seq=None,
     ``DeploymentPlan.resolve`` replays it.
 
     Accepts the paper's Table 1 models, the ported arch ids and their
-    reduced spelling ``<arch>@reduced[<n_layers>]``; ``None`` keeps each
+    spellings ``<arch>@reduced[<n_layers>]`` and ``<arch>@layers<n_layers>``
+    (:func:`arch_config`); ``None`` keeps each
     family's own default (paper: micro_batch=4; arch: seq=512,
     micro_batch=1)."""
     if model in _PAPER_MODELS:
@@ -159,7 +169,7 @@ def resolve_profile(model: str, platform: Platform, *, seq=None,
     from repro_torch.configs import ARCH_IDS
 
     base, _, spec = model.partition("@")
-    if base not in ARCH_IDS or (spec and not spec.startswith("reduced")):
+    if base not in ARCH_IDS or (spec and not spec.startswith(_SPELLINGS)):
         raise KeyError(
             f"unknown model {model!r}; known models: {known_models()} "
             "(reduced spelling: <arch>@reduced[<L>])")

@@ -87,8 +87,16 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// cuTensorMapEncodeTiled works in the calling thread's current context.  A
+// thread whose runtime calls so far needed none (PyTorch's autograd worker,
+// which runs every backward) may have none current yet, and the encoder then
+// refuses memory mapped by PyTorch's expandable segments (cudaErrorInvalidValue
+// from the backward launches only).  Setting the runtime's device again makes
+// its primary context current on this thread first.
 inline EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) return nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult found;

@@ -75,14 +75,13 @@ def reset_launch_counts() -> None:
 def decode_attention_capable(*, n_q_heads: int, n_kv_heads: int,
                              capacity: int, window: int = 0,
                              seq_shards: int = 1) -> bool:
-    """Shape-capability probe for the flash-decode kernel: the Pallas path
-    covers the plain append-cache layout only — no rolling-window ring
-    validity, no sequence-sharded partial softmax — and needs whole-group
-    query heads plus a cache capacity the grid can tile (C % c_block == 0
-    with c_block = min(512, C)).  Callers fall back to the jnp path when
-    this returns False, so ``use_pallas`` is safe to pass for any layer."""
+    """Shape-capability probe for the flash-decode kernel: the plain
+    append-cache layout only — no rolling-window ring validity, no
+    sequence-sharded partial softmax — and whole-group query heads.  Unlike
+    the Pallas kernel's grid, the split-K kernel takes any capacity: its
+    last chunk may be short (jamba serves 1024 + 16 slots).  Callers take
+    the plain path when this returns False, so ``use_kernels`` is safe to
+    pass for any layer."""
     if window or seq_shards > 1:
         return False
-    if n_kv_heads <= 0 or n_q_heads % n_kv_heads:
-        return False
-    return capacity <= 512 or capacity % 512 == 0
+    return n_kv_heads > 0 and n_q_heads % n_kv_heads == 0 and capacity > 0

@@ -12,8 +12,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTN, DENSE_FF, NO_FF, OTHER_FAMILIES, ArchConfig
-from repro_torch.models import attention, mlp
+from repro_torch.configs.base import (
+    ATTN,
+    DENSE_FF,
+    MAMBA,
+    MOE_FF,
+    NO_FF,
+    OTHER_FAMILIES,
+    ArchConfig,
+)
+from repro_torch.models import attention, mamba, mlp, moe
 from repro_torch.models.common import (
     dense_init,
     dtype_of,
@@ -46,14 +54,17 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *, device="cuda",
     P = n_instances if n_instances is not None else cfg.n_periods
     layers = []
     for spec in cfg.period:
-        if spec.mixer != ATTN or spec.ff not in (DENSE_FF, NO_FF):
+        if spec.mixer not in (ATTN, MAMBA) or spec.ff not in (DENSE_FF, MOE_FF, NO_FF):
             raise NotImplementedError(
                 f"{spec.mixer}/{spec.ff} layers: {OTHER_FAMILIES}")
+        init_mixer = (mamba.init_mamba_params if spec.mixer == MAMBA
+                      else attention.init_attn_params)
         p = {"norm1": init_norm(cfg.d_model, dtype, dev, P),
-             "mixer": attention.init_attn_params(generator, cfg, dtype, P)}
-        if spec.ff == DENSE_FF:
+             "mixer": init_mixer(generator, cfg, dtype, P)}
+        if spec.ff != NO_FF:
+            init_ff = moe.init_moe_params if spec.ff == MOE_FF else mlp.init_mlp_params
             p["norm2"] = init_norm(cfg.d_model, dtype, dev, P)
-            p["ff"] = mlp.init_mlp_params(generator, cfg, dtype, P)
+            p["ff"] = init_ff(generator, cfg, dtype, P)
         layers.append(p)
     params = {
         "embed": dense_init(generator, (cfg.vocab_size, cfg.d_model), dtype),
@@ -104,14 +115,16 @@ def embed_inputs(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
 
 # ------------------------------------------------------------------- training
 def forward(cfg: ArchConfig, params, batch: dict, *, use_kernels: bool = False):
-    """Full forward -> (hidden [B,S,d] after the final norm, aux scalar).
-    The dense layers have no auxiliary loss: aux is a float32 zero."""
+    """Full forward -> (hidden [B,S,d] after the final norm, aux scalar): the
+    MoE routers' auxiliary loss, a float32 zero for a model without one."""
     h = embed_inputs(cfg, params, batch)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
-    h = scan_forward(params["layers"], h, active_mask(cfg), cfg=cfg, positions=positions,
-                     use_kernels=use_kernels)
+    h, aux = scan_forward(params["layers"], h, active_mask(cfg), cfg=cfg,
+                          positions=positions, use_kernels=use_kernels)
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def loss_fn(cfg: ArchConfig, params, batch: dict, *, use_kernels: bool = False):
@@ -129,17 +142,21 @@ def loss_fn(cfg: ArchConfig, params, batch: dict, *, use_kernels: bool = False):
 # -------------------------------------------------------------------- serving
 def init_decode_caches(cfg: ArchConfig, batch: int, s_ctx: int, *,
                        device="cuda", dtype: Optional[torch.dtype] = None):
-    """Cache tree: tuple over period positions; leaves stacked [P, ...].
+    """Cache tree: tuple over period positions; leaves stacked [P, ...]:
+    ``KVCache`` for attention layers, ``MambaCache`` for Mamba ones.
     ``device="meta"`` gives the shapes without allocating."""
     dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
     dtype = dtype or dtype_of(cfg.param_dtype)
     caches = []
     for spec in cfg.period:
-        if spec.mixer != ATTN:
+        if spec.mixer == MAMBA:
+            caches.append(mamba.init_mamba_cache(cfg.n_periods, batch, cfg, dtype, dev))
+        elif spec.mixer == ATTN:
+            caches.append(attention.init_kv_cache(
+                cfg.n_periods, batch, cfg.n_kv_heads, attention.cache_capacity(spec, s_ctx),
+                cfg.hd, dtype, dev))
+        else:
             raise NotImplementedError(f"{spec.mixer} caches: {OTHER_FAMILIES}")
-        caches.append(attention.init_kv_cache(
-            cfg.n_periods, batch, cfg.n_kv_heads, attention.cache_capacity(spec, s_ctx),
-            cfg.hd, dtype, dev))
     return tuple(caches)
 
 

@@ -6,67 +6,83 @@ A *layer* = pre-norm mixer (+ residual) then pre-norm FFN (+ residual); a
 :func:`scan_prefill` and :func:`scan_decode` are the port's loops over the
 same stacked parameters, shared by the monolithic entry points
 (``registry``) and the pipelined stage workers (``serverless.runtime.
-worker``, ``serving.worker``) so both run the same math.  The dense layers
-the port covers have no auxiliary loss (the JAX package's MoE router aux),
-so the forward functions return the activations alone.
+worker``, ``serving.worker``) so both run the same math.  The training
+forwards return ``(x, aux)``, the MoE router's auxiliary loss summed over
+the layers as JAX's scan sums it; ``aux`` is None where no layer has a
+router (a zero in JAX), so a dense model adds nothing to its loss graph.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN, DENSE_FF, NO_FF, OTHER_FAMILIES
-from repro_torch.models import attention, mlp
+from repro_torch.configs.base import ATTN, DENSE_FF, MAMBA, MOE_FF, NO_FF, OTHER_FAMILIES
+from repro_torch.models import attention, mamba, mlp, moe
 from repro_torch.models.common import rms_norm, tree_map
 
 
 def _check(spec) -> None:
-    if spec.mixer != ATTN or spec.ff not in (DENSE_FF, NO_FF):
+    if spec.mixer not in (ATTN, MAMBA) or spec.ff not in (DENSE_FF, MOE_FF, NO_FF):
         raise NotImplementedError(f"{spec.mixer}/{spec.ff} layers: {OTHER_FAMILIES}")
 
 
-def _ff(p, x, *, cfg, spec, gate):
+def _ff(p, x, *, cfg, spec, gate, use_kernels=False):
+    """The pre-norm FFN and its residual -> (x, router aux or None)."""
     if spec.ff == NO_FF:
-        return x
+        return x, None
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + gate * mlp.mlp_forward(p["ff"], h)
+    if spec.ff == MOE_FF:
+        ff, aux = moe.moe_forward(p["ff"], h, cfg=cfg)
+        return x + gate * ff, aux * gate
+    return x + gate * mlp.mlp_forward(p["ff"], h, use_kernels=use_kernels), None
+
+
+def _add(total, aux):
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
 
 
 # --------------------------------------------------------------------- forward
 def layer_forward(p, x, active, *, cfg, spec, positions, use_kernels=False):
-    """One training layer; ``active`` False (a padding layer) is the
-    identity."""
+    """One training layer -> (x, aux); ``active`` False (a padding layer) is
+    the identity, with a zero aux."""
     _check(spec)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    mix = attention.attn_forward(p["mixer"], h, cfg=cfg, spec=spec, positions=positions,
-                                 use_kernels=use_kernels)
+    if spec.mixer == MAMBA:
+        mix = mamba.mamba_forward(p["mixer"], h, cfg=cfg)
+    else:
+        mix = attention.attn_forward(p["mixer"], h, cfg=cfg, spec=spec, positions=positions,
+                                     use_kernels=use_kernels)
     gate = float(active)
     x = x + gate * mix
-    if spec.ff == NO_FF:
-        return x
-    h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + gate * mlp.mlp_forward(p["ff"], h, use_kernels=use_kernels)
+    return _ff(p, x, cfg=cfg, spec=spec, gate=gate, use_kernels=use_kernels)
 
 
 def period_forward(period_params, x, active, *, cfg, positions, use_kernels=False):
+    aux = None
     for j, spec in enumerate(cfg.period):
-        x = layer_forward(period_params[j], x, bool(active[j]), cfg=cfg, spec=spec,
-                          positions=positions, use_kernels=use_kernels)
-    return x
+        x, a = layer_forward(period_params[j], x, bool(active[j]), cfg=cfg, spec=spec,
+                             positions=positions, use_kernels=use_kernels)
+        aux = _add(aux, a)
+    return x, aux
 
 
 # ---------------------------------------------------------------------- decode
 def layer_decode(p, x, cache, active, *, cfg, spec, use_kernels=False):
     _check(spec)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    # attn_decode updates the cache in place, so a padding layer (active
+    # the decoders update the cache in place, so a padding layer (active
     # False) decodes into a copy and its own cache stays as it was
-    mix, new_cache = attention.attn_decode(
-        p["mixer"], h, cache if active else tree_map(torch.clone, cache),
-        cfg=cfg, spec=spec, use_kernels=use_kernels)
+    own = cache if active else tree_map(torch.clone, cache)
+    if spec.mixer == MAMBA:
+        mix, new_cache = mamba.mamba_decode(p["mixer"], h, own, cfg=cfg)
+    else:
+        mix, new_cache = attention.attn_decode(p["mixer"], h, own, cfg=cfg, spec=spec,
+                                               use_kernels=use_kernels)
     gate = float(active)
     x = x + gate * mix
     new_cache = new_cache if active else cache  # jnp.where(active, new, old)
-    return _ff(p, x, cfg=cfg, spec=spec, gate=gate), new_cache
+    return _ff(p, x, cfg=cfg, spec=spec, gate=gate)[0], new_cache
 
 
 def period_decode(period_params, x, caches, active, *, cfg, use_kernels=False):
@@ -83,11 +99,14 @@ def layer_prefill(p, x, active, *, cfg, spec, positions, capacity=None):
     """Forward + cache construction (serving prefill)."""
     _check(spec)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    mix, cache = attention.attn_prefill(p["mixer"], h, cfg=cfg, spec=spec,
-                                        positions=positions, capacity=capacity)
+    if spec.mixer == MAMBA:
+        mix, cache = mamba.mamba_forward(p["mixer"], h, cfg=cfg, return_state=True)
+    else:
+        mix, cache = attention.attn_prefill(p["mixer"], h, cfg=cfg, spec=spec,
+                                            positions=positions, capacity=capacity)
     gate = float(active)
     x = x + gate * mix
-    return _ff(p, x, cfg=cfg, spec=spec, gate=gate), cache
+    return _ff(p, x, cfg=cfg, spec=spec, gate=gate)[0], cache
 
 
 def period_prefill(period_params, x, active, *, cfg, positions, capacity=None):
@@ -102,12 +121,17 @@ def period_prefill(period_params, x, active, *, cfg, positions, capacity=None):
 # ------------------------------------------------ loops over period instances
 def scan_forward(layers, x, mask, *, cfg, positions, use_kernels=False):
     """The training forward through every stacked period instance of
-    ``layers`` in order (``mask`` [n_instances, period_len])."""
+    ``layers`` in order (``mask`` [n_instances, period_len]) -> (x, aux):
+    the instances' aux losses summed as ``jnp.sum`` of the scan's, or None
+    when no layer routes."""
+    auxs = []
     for i in range(len(mask)):
         pp = tree_map(lambda a: a[i], layers)
-        x = period_forward(pp, x, mask[i], cfg=cfg, positions=positions,
-                           use_kernels=use_kernels)
-    return x
+        x, aux = period_forward(pp, x, mask[i], cfg=cfg, positions=positions,
+                                use_kernels=use_kernels)
+        if aux is not None:
+            auxs.append(aux)
+    return x, (torch.stack(auxs).sum() if auxs else None)
 
 
 def scan_prefill(layers, x, mask, *, cfg, positions, capacity=None):

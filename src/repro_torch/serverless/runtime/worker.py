@@ -12,13 +12,17 @@ Autograd stands in for ``jax.vjp``.  By default the forward keeps its graph
 paper's activation-memory term ``mu * a_i`` accounts for; ``remat=True``
 keeps only the inputs and recomputes the forward inside the backward.  Each
 micro-batch's parameter gradients come from ``torch.autograd.grad`` in the
-parameter dtype, are cast to fp32 and added to fp32 accumulators (never
-``.grad`` in bf16), so the arithmetic is the JAX worker's.  ``grad_vector``
-flattens them in ``jax.tree.flatten`` order for the storage scatter-reduce;
-``apply_update`` runs the optimizer on fp32 masters.
+parameter dtype, are cast to fp32 and added to an fp32 accumulator (never
+``.grad`` in bf16), so the arithmetic is the JAX worker's.  The
+accumulator is one flat vector in ``jax.tree.flatten`` order, each leaf's
+gradient added into its slice, so ``grad_vector`` hands it to the storage
+scatter-reduce without a copy and a bf16 gradient is never held in fp32
+twice; ``apply_update`` runs the optimizer on fp32 masters.  A stage with MoE
+layers also returns its routers' aux loss, whose cotangent is ``1/mu`` on
+every stage (the last stage's CE gets the same seed).
 
 ``use_kernels=True`` routes every attention layer through the flash
-attention kernel and every FFN through the swiglu kernel, forward and
+attention kernel and every dense FFN through the swiglu kernel, forward and
 backward, when the worker's device is a card.
 """
 from __future__ import annotations
@@ -121,6 +125,12 @@ def stage_share(cfg: ArchConfig, span: StageSpan, full_params: dict) -> dict:
     return out
 
 
+def _value(aux) -> float:
+    """The host value of a stage's aux loss (a stage without a router has
+    none: 0.0, as JAX's zero)."""
+    return 0.0 if aux is None else float(aux.detach())
+
+
 def _is_state(x) -> bool:
     return isinstance(x, dict) and "master" in x
 
@@ -176,17 +186,21 @@ class StageWorker:
         self.grad_nbytes = float(sum(self._sizes)) * 4  # fp32 sync payload
 
         self._saved: Dict[int, Any] = {}
-        self._grad_acc: Optional[List[torch.Tensor]] = None
+        self._grad_flat: Optional[torch.Tensor] = None   # fp32 [sum(_sizes)]
 
     # ------------------------------------------------------------- stage math
     def _stage_fn(self, params, x, batch_mb):
+        """The stage's math -> (out, aux): the boundary activation or, on the
+        last stage, the micro-batch CE; aux is the stage's MoE router loss
+        (None without a router)."""
         cfg = self.cfg
+        aux = None
         if self.span.owns_embed:
             x = registry.embed_inputs(cfg, params, batch_mb)
         if self.mask is not None:
             positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-            x = scan_forward(params["layers"], x, self.mask, cfg=cfg, positions=positions,
-                             use_kernels=self.use_kernels)
+            x, aux = scan_forward(params["layers"], x, self.mask, cfg=cfg,
+                                  positions=positions, use_kernels=self.use_kernels)
         if self.span.owns_head:
             h = rms_norm(x, params["final_norm"], cfg.norm_eps)
             head_w = params["embed"] if cfg.tie_embeddings else params["head"]
@@ -195,19 +209,19 @@ class StageWorker:
             if cfg.causal:
                 logits = logits[:, :-1]
                 labels = labels[:, 1:]
-            return torch.mean(softmax_cross_entropy(logits, labels))
-        return x
+            return torch.mean(softmax_cross_entropy(logits, labels)), aux
+        return x, aux
 
     def _graph(self, x_in, batch_mb):
-        """Run the stage with autograd on: (param leaves, input, output)."""
+        """Run the stage with autograd on: (param leaves, input, out, aux)."""
         leaves = [a.detach().requires_grad_() for a in tree_leaves(self.params)]
         params = tree_unflatten(self.params, leaves)
         x = None
         if not self.span.owns_embed:
             x = x_in.detach().requires_grad_()
         with torch.enable_grad():
-            out = self._stage_fn(params, x, batch_mb)
-        return leaves, x, out
+            out, aux = self._stage_fn(params, x, batch_mb)
+        return leaves, x, out, aux
 
     def _batch(self, batch_mb):
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch_mb.items()}
@@ -216,36 +230,46 @@ class StageWorker:
     def forward(self, m: int, x_in, batch_mb) -> Tuple[torch.Tensor, float]:
         """Run the stage on micro-batch ``m``.  Returns (output, aux): the
         boundary activation, or the micro-batch CE on the last stage; aux is
-        0.0 (the dense layers have no auxiliary loss)."""
+        the stage's MoE router loss (0.0 for a stage without a router)."""
         batch_mb = self._batch(batch_mb)
         if self.remat:
             with torch.no_grad():
-                out = self._stage_fn(self.params, x_in, batch_mb)
+                out, aux = self._stage_fn(self.params, x_in, batch_mb)
             self._saved[m] = (x_in, batch_mb)
-            return out, 0.0
-        leaves, x, out = self._graph(x_in, batch_mb)
-        self._saved[m] = (leaves, x, out)      # the residuals, until backward
-        return out.detach(), 0.0
+            return out, _value(aux)
+        leaves, x, out, aux = self._graph(x_in, batch_mb)
+        self._saved[m] = (leaves, x, out, aux)      # the residuals, until backward
+        return out.detach(), _value(aux)
 
     def backward(self, m: int, g_out) -> Optional[torch.Tensor]:
         """Backward of micro-batch ``m``.  ``g_out`` is the cotangent from
         stage s+1 (ignored on the last stage, which seeds its CE with
-        ``1/mu``).  Returns the cotangent for stage s-1 (None on stage 0)."""
+        ``1/mu``); the stage's aux is seeded with ``1/mu`` on every stage,
+        as the JAX worker seeds it.  Returns the cotangent for stage s-1
+        (None on stage 0)."""
         saved = self._saved.pop(m)
-        leaves, x, out = self._graph(*saved) if self.remat else saved
-        if self.span.owns_head:
-            seed = torch.full((), 1.0 / self.mu, dtype=torch.float32, device=out.device)
-        else:
-            seed = g_out
+        leaves, x, out, aux = self._graph(*saved) if self.remat else saved
+        inv_mu = torch.full((), 1.0 / self.mu, dtype=torch.float32, device=out.device)
+        outs, seeds = [out], [inv_mu if self.span.owns_head else g_out]
+        if aux is not None:
+            outs.append(aux)
+            seeds.append(inv_mu)
         inputs = leaves + ([x] if x is not None else [])
-        grads = torch.autograd.grad(out, inputs, grad_outputs=seed, allow_unused=True)
-        g_params = [torch.zeros(a.shape, dtype=torch.float32, device=a.device) if g is None
-                    else g.float() for g, a in zip(grads, leaves)]
-        if self._grad_acc is None:
-            self._grad_acc = g_params
-        else:
-            for acc, g in zip(self._grad_acc, g_params):
-                acc.add_(g)
+        grads = torch.autograd.grad(outs, inputs, grad_outputs=seeds, allow_unused=True)
+        first = self._grad_flat is None
+        if first:
+            self._grad_flat = torch.empty(sum(self._sizes), dtype=torch.float32,
+                                          device=self.device)
+        # the first micro-batch's gradient cast into its slice, later ones
+        # added in fp32 (the cast is exact: g.float() then an fp32 add)
+        for acc, g in zip(torch.split(self._grad_flat, self._sizes), grads):
+            if g is None:
+                if first:
+                    acc.zero_()
+            elif first:
+                acc.copy_(g.reshape(-1))
+            else:
+                acc.add_(g.reshape(-1))
         return grads[-1] if x is not None else None
 
     # ------------------------------------------------------------ checkpoints
@@ -269,18 +293,18 @@ class StageWorker:
         self.opt_state = tree_map(lambda a: torch.as_tensor(a).to(self.device),
                                   state["opt_state"])
         self._saved.clear()
-        self._grad_acc = None
+        self._grad_flat = None
 
     # ------------------------------------------------------------------- sync
     def grad_vector(self) -> torch.Tensor:
         """Accumulated stage gradient, flattened fp32 in ``jax.tree.flatten``
-        order on the worker's device (the scatter-reduce payload).  It
-        consumes the accumulators, so a stage never holds its gradient
+        order on the worker's device (the scatter-reduce payload): the
+        accumulator itself, handed over, so a stage never holds its gradient
         twice."""
-        if self._grad_acc is None:
+        if self._grad_flat is None:
             raise RuntimeError("backward() must run first")
-        acc, self._grad_acc = self._grad_acc, None
-        return torch.cat([g.reshape(-1) for g in acc])
+        vec, self._grad_flat = self._grad_flat, None
+        return vec
 
     def apply_update(self, reduced: torch.Tensor, step: int) -> None:
         """Optimizer step from the (already averaged) flat fp32 gradient."""
@@ -288,19 +312,23 @@ class StageWorker:
             raise ValueError(f"gradient of {reduced.numel()} values for "
                              f"{sum(self._sizes)} parameters")
         parts = torch.split(reduced.to(self.device), self._sizes)
-        self._grad_acc = None
-        # the worker lets go of each leaf's old master and moments as their
-        # new ones are made, so a stage never holds two copies of its state
+        self._grad_flat = None
+        # the worker lets go of each leaf's old param, master and moments as
+        # their new ones are made, so a stage never holds two copies of its
+        # state
         states = tree_leaves(self.opt_state, is_leaf=_is_state)
         like, self.opt_state = _structure(self.opt_state), None
+        old = tree_leaves(self.params)
+        like_params, self.params = _structure(self.params), None
         new_params, new_states = [], []
-        for i, (g, shape, p) in enumerate(zip(parts, self._shapes, tree_leaves(self.params))):
+        for i, (g, shape) in enumerate(zip(parts, self._shapes)):
             st, states[i] = states[i], None
+            dtype, old[i] = old[i].dtype, None
             sub = {k: v for k, v in st.items() if k != "master"}
             master, sub = self.optimizer.update(g.reshape(shape), st["master"], sub, step)
-            new_params.append(master.to(p.dtype))
+            new_params.append(master.to(dtype))
             new_states.append({"master": master, **sub})
-        self.params = tree_unflatten(self.params, new_params)
+        self.params = tree_unflatten(like_params, new_params)
         self.opt_state = tree_unflatten(like, new_states, is_leaf=_is_state)
 
 
