@@ -180,11 +180,48 @@ and a non-zero exit:
 18. ``train_jamba_reduced`` -- jamba@reduced, fp32, one stage, SGD, 1 step,
    kernels on and off: Mamba's backward, 2 flash and 8 swiglu launches on
    tf32x3; losses within 5e-5, params within 1e-4.
+19. encoder training (``train_bert``) -- bert-large at full width and depth
+   (24 layers, 465 M params), bf16, seed 0: 2 stages of 12 layers x 2
+   replicas, 2 micro-batches of 4 x 512 tokens, AdamW, 2 steps through
+   ``run_plan(..., use_kernels=True)``: the encoder's loss (no shift) and
+   attention with no mask; 96 + 96 flash and 96 + 96 swiglu launches a
+   step, all wgmma and none causal, every call of step 1 held against
+   ``impl="ref"``; the first loss within 2e-2 of the kernels' plain
+   versions'; replicas bit-identical; step times and peak memory.
+20. audio (``train_hubert``) -- hubert-xlarge at full width and depth (48
+   layers, 1.26 B params), bf16: ``registry.loss_fn(use_kernels=True)`` on
+   a frames batch of 2 x 1024 and its backward (the stage workers refuse
+   frontends in both packages): 48 + 48 flash launches at hd 80 with no
+   mask and 48 + 48 swiglu, each call held; the loss within 2e-2 of the
+   kernels' plain versions'; no gradient for the unused embedding; one SGD
+   step lowers the loss.
+21. xLSTM training (``train_xlstm``) -- xlstm-125m at full width and depth
+   (12 layers, 168 M params), bf16: 2 stages of 3 periods x 2 replicas, 2
+   micro-batches of 4 x 512 tokens (two mLSTM chunks), AdamW, 1 step: no
+   kernel launch (the scans are plain PyTorch), the first loss near
+   ln(50304), replicas bit-identical, the device's idle share in the step;
+   then at full width in fp32 the mLSTM's and sLSTM's parallel forms
+   against their decodes stepped over 512 tokens (3e-4 x max|ref|).
+22. xLSTM serving (``serve_xlstm``) -- xlstm-125m, 12 layers, bf16, 2
+   stages, batch 4, 512 + 16 tokens through ``run_serve_plan``: tokens
+   bit-identical to the monolithic loop, 57,250,176 cache bytes (mLSTM and
+   sLSTM states) through the store a round, round times, a profiled round.
+23. vision (``serve_internvl2``) -- internvl2-26b at full width cut to 8
+   layers (4.26 B params), bf16: the monolithic prefill of 1024 tokens whose
+   first 256 positions are patch embeddings, then 15 decode rounds on the
+   kernel: 120 decode launches at G 6, each held within 2e-2 of
+   ``impl="ref"``; prefill and round times, peak memory.
+
+``kernel_parity`` also holds and times (``_encoders_parity``) flash
+attention with no mask at bert-large's [4,512,16,16,64] and
+hubert-xlarge's [2,1024,16,16,80], swiglu at their FFNs' shapes, decode
+attention at internvl2-26b's [4,48,8,128] over 1040 slots and, in bf16 and
+fp32, at gemma3-4b's global layers' [4,8,4,256].
 
 The traced runs' Chrome traces (``Trace.save``; Perfetto loads them, and
 ``Trace.load`` in either package) are written to ``chiprun_out/traces/``.
 
-The last lines are the kernels' record (sixteen rows: decode attention,
+The last lines are the kernels' record (twenty-five rows: decode attention,
 the bf16 main paths' training kernels on the wgmma route, hd 256's from
 train_gemma, the fp32 rows on the tf32x3 route, fp32 hd 256's from
 train_gemma_fp32, and the families' shapes: ``decode_attention_jamba``
@@ -192,9 +229,11 @@ from serve_jamba, ``flash_attention_qwen3_moe`` and its backward from
 train_moe; ``launches`` includes the backend phases' launches, also
 given apart as ``launches_backend_phases``, those of ``train_planned``,
 ``train_chaos`` and ``calibrate_replan`` apart too, and the reduced
-families' runs' as ``launches_reduced_families``), the ``nvidia-smi``
-name/power line and ``{"ok": true,
-"device": {...}}``.
+families' runs' as ``launches_reduced_families``; and the encoders' and
+the vision model's shapes: ``flash_attention_bert``, ``swiglu_bert`` and
+their backwards from train_bert, the same ``_hubert`` rows from
+train_hubert, ``decode_attention_internvl2`` from serve_internvl2), the
+``nvidia-smi`` name/power line and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -236,6 +275,7 @@ from repro_torch.kernels import ref as kernel_ref  # noqa: E402
 from repro_torch.kernels import swiglu as sg_kernel  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.common import tree_leaves, tree_map  # noqa: E402
 from repro_torch.obs import pipeline_health, validate_trace  # noqa: E402
@@ -253,6 +293,7 @@ from repro_torch.serving import (  # noqa: E402
     reference_decode,
     run_serve_plan,
 )
+from repro_torch.serving.worker import greedy_token  # noqa: E402
 
 SLEEP_CYCLES = 4_000_000       # ~2 ms at the H100's clock: covers a call's host side
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).  fp32-accurate
@@ -797,11 +838,11 @@ def _flash_parity(gen, gen256, gen256f, flush) -> tuple:
     return recs, detail
 
 
-def _sdpa_times(q, k, v, do, flush, backend) -> dict:
-    """scaled_dot_product_attention (causal) forward, backward and both, in
-    [B, H, S, hd] layout, with the dispatcher pinned to ``backend`` (None:
-    its default choice): the yardstick of the flash kernels' times (the
-    port never calls it)."""
+def _sdpa_times(q, k, v, do, flush, backend, causal=True) -> dict:
+    """scaled_dot_product_attention (causal unless ``causal`` is False)
+    forward, backward and both, in [B, H, S, hd] layout, with the
+    dispatcher pinned to ``backend`` (None: its default choice): the
+    yardstick of the flash kernels' times (the port never calls it)."""
     from torch.nn.attention import sdpa_kernel
 
     G = q.shape[2] // k.shape[2]   # GQA: K and V heads repeated to the query heads
@@ -809,13 +850,14 @@ def _sdpa_times(q, k, v, do, flush, backend) -> dict:
     qh, kh, vh, doh = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (qh, kh, vh))
     with sdpa_kernel(backend) if backend is not None else contextlib.nullcontext():
-        fwd = _time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), flush)
-        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        fwd = _time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal),
+                       flush)
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
         bwd = _time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), doh, retain_graph=True),
                        flush)
 
         def fwd_bwd():
-            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+            o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
             torch.autograd.grad(o, (qs, ks, vs), doh)
 
         both = _time_ms(fwd_bwd, flush)
@@ -832,30 +874,30 @@ def _causal_pairs(S: int, window: int) -> int:
 
 
 def _flash_timing(gen, flush, dtype, shape=FLASH_TRAIN) -> dict:
-    """The forward and backward kernels at ``shape`` (causal, with its
-    window; the training shape by default) in ``dtype``, beside their plain
-    versions, SDPA pinned to one backend (flash attention in bf16,
-    memory-efficient attention in fp32, which the flash backend does not
-    take; none with a window, which no SDPA backend computes) and the bound;
+    """The forward and backward kernels at ``shape`` (its mask: causal, with
+    its window, or none; the training shape by default) in ``dtype``, beside
+    their plain versions, SDPA pinned to one backend (flash attention in
+    bf16, memory-efficient attention in fp32, which the flash backend does
+    not take; none with a window, which no SDPA backend computes) and the bound;
     SDPA's default dispatch beside it; on a tensor-core route, the simt
     kernels on the same inputs too."""
     from torch.nn.attention import SDPBackend
 
-    B, S, H, Hkv, hd, _, window = shape
+    B, S, H, Hkv, hd, causal, window = shape
     q, do = (torch.randn(B, S, H, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
     k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
     way = _flash_way(dtype, hd)
     ops.reset_launch_counts()
-    o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=True, window=window)
-    fwd_ms = _time_ms(lambda: fa_kernel.flash_attention_fwd(q, k, v, causal=True, window=window),
+    o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    fwd_ms = _time_ms(lambda: fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window),
                       flush)
-    bwd_ms = _time_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+    bwd_ms = _time_ms(lambda: fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
                                                             window=window), flush)
     passes = _device_ms_by_kernel(
-        lambda: fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=window),
+        lambda: fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window),
         flush)
     fwd_passes = _device_ms_by_kernel(
-        lambda: fa_kernel.flash_attention_fwd(q, k, v, causal=True, window=window), flush)
+        lambda: fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window), flush)
     counts = ops.launch_counts()
     if counts[f"flash_attention_{way}"] != counts["flash_attention"] or \
             counts[f"flash_attention_bwd_{way}"] != counts["flash_attention_bwd"]:
@@ -865,9 +907,9 @@ def _flash_timing(gen, flush, dtype, shape=FLASH_TRAIN) -> dict:
     if window:
         sdpa = {"backend": None, "fwd_ms": None, "bwd_ms": None, "fwd_bwd_ms": None}
     else:
-        sdpa = _sdpa_times(q, k, v, do, flush, backend)
+        sdpa = _sdpa_times(q, k, v, do, flush, backend, causal)
         sdpa["deterministic_algorithms"] = torch.are_deterministic_algorithms_enabled()
-        sdpa["default_dispatch"] = _sdpa_times(q, k, v, do, flush, None)
+        sdpa["default_dispatch"] = _sdpa_times(q, k, v, do, flush, None, causal)
     simt = {}
     if way != "simt":
         # the simt kernels on the same inputs, through their C entry points
@@ -876,27 +918,30 @@ def _flash_timing(gen, flush, dtype, shape=FLASH_TRAIN) -> dict:
         so, slse = torch.empty_like(q), torch.empty_like(lse)
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         ptrs = [t.data_ptr() for t in (q, k, v)]
-        args = (B, S, H, Hkv, hd, fa_kernel._DTYPES[dtype], 1, window, hd ** -0.5, stream)
+        args = (B, S, H, Hkv, hd, fa_kernel._DTYPES[dtype], int(causal), window, hd ** -0.5,
+                stream)
         simt["fwd_ms"] = _time_ms(lambda: lib.repro_flash_attention_fwd(
             *ptrs, so.data_ptr(), slse.data_ptr(), *args), flush, reps=10)
         simt["bwd_ms"] = _time_ms(lambda: lib.repro_flash_attention_bwd(
             *ptrs, o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), *args), flush, reps=10)
         _close(so, o, 2e-5 if dtype == torch.float32 else 2e-2, f"flash simt vs {way}, {dtype}")
-    fwd_plain = _time_ms(lambda: ops.flash_attention(q, k, v, window=window, impl="ref"), flush)
+    fwd_plain = _time_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window,
+                                                     impl="ref"), flush)
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    ref_out = ops.flash_attention(qg, kg, vg, window=window, impl="ref")
+    ref_out = ops.flash_attention(qg, kg, vg, causal=causal, window=window, impl="ref")
     bwd_plain = _time_ms(lambda: torch.autograd.grad(ref_out, (qg, kg, vg), do,
                                                      retain_graph=True), flush)
     slab = B * S * H * hd * q.element_size()     # one of q, o, do, dq
     kv_slab = B * S * Hkv * hd * q.element_size()  # one of k, v, dk, dv
-    pairs = B * H * _causal_pairs(S, window)
+    # (q, k) pairs the mask allows: all S^2 of a head without one
+    pairs = B * H * (_causal_pairs(S, window) if causal else S * S)
     lse_b = B * H * S * 4
     fwd_b, fwd_f = 2 * slab + 2 * kv_slab + lse_b, 4 * hd * pairs    # QK^T, PV
     bwd_b, bwd_f = 4 * slab + 4 * kv_slab + lse_b, 10 * hd * pairs   # S, dP, dV, dK, dQ
     fwd_bound, fwd_by = _bound(fwd_b, fwd_f, dtype)
     bwd_bound, bwd_by = _bound(bwd_b, bwd_f, dtype)
-    call = f"scaled_dot_product_attention(is_causal=True), {sdpa['backend']} backend" \
+    call = f"scaled_dot_product_attention(is_causal={causal}), {sdpa['backend']} backend" \
         if sdpa["backend"] else None
 
     def split(by_kernel):   # the tf32x3 route at hd 256: its split pass's device ms
@@ -955,10 +1000,11 @@ def _swiglu_bwd_composition(x, wg, wu, dout):
     return dout * u * s * (1 + g * (1 - s)), dout * g * s
 
 
-def _swiglu_timing(gen, flush, dtype) -> dict:
-    """The forward and backward kernels at the training shape in ``dtype``,
-    beside their plain versions, the PyTorch compositions and the bound."""
-    T, d, f = SWIGLU_TRAIN
+def _swiglu_timing(gen, flush, dtype, shape=SWIGLU_TRAIN) -> dict:
+    """The forward and backward kernels at ``shape`` (T, d, f; the training
+    shape by default) in ``dtype``, beside their plain versions, the PyTorch
+    compositions and the bound."""
+    T, d, f = shape
     x = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
     wg, wu = ((0.02 * torch.randn(d, f, generator=gen, device="cuda")).to(dtype)
               for _ in range(2))
@@ -1179,13 +1225,15 @@ def phase_kernel_parity(smi: str) -> dict:
     flash, flash_detail = _flash_parity(gen, gen256, gen256f, flush)
     swiglu, swiglu_detail = _swiglu_parity(gen, flush)
     families, families_detail = _families_parity(flush)
-    recs = {"decode_attention": decode, **flash, **swiglu, **families}
+    encoders, encoders_detail = _encoders_parity(flush)
+    recs = {"decode_attention": decode, **flash, **swiglu, **families, **encoders}
     emit({"phase": "kernel_parity", "card": smi, "kernels": recs,
           "flash_wgmma_probe_max_abs_err": wgmma_probe,
           "flash_tf32x3_probe_max_abs_err": probe,
           "swiglu_tf32x3_probe_max_abs_err": swiglu_probe,
           "decode_attention": decode_detail, "flash_attention": flash_detail,
-          "swiglu": swiglu_detail, "families": families_detail})
+          "swiglu": swiglu_detail, "families": families_detail,
+          "encoders": encoders_detail})
     return recs
 
 
@@ -1243,17 +1291,20 @@ def attention_fp64(q, k_cache, v_cache, length, **_):
     return o.reshape(B, Hq, hd).to(q.dtype)
 
 
-def teacher_forced(cfg, params, prompt, tokens, *, s_ctx, call_tol, logit_tol=None):
+def teacher_forced(cfg, params, prompt, tokens, *, s_ctx, call_tol, logit_tol=None,
+                   image_embeds=None):
     """Feed the decode loop ``tokens``.  Every decode-attention call of the
     kernel loop is held against the plain version (``impl="ref"``) on the
     same inputs at ``call_tol``; every step is also rerun from the same
     caches with the plain version and with a float64 attention, and the
-    step logits compared (held at ``logit_tol`` when given)."""
+    step logits compared (held at ``logit_tol`` when given).  A vision
+    model's prefill takes ``image_embeds`` too."""
     dev = params["embed"].device
     toks = torch.from_numpy(tokens).to(dev)
-    _, caches = registry.prefill(
-        cfg, params, {"tokens": torch.from_numpy(prompt).to(dev)},
-        capacity=s_ctx)
+    batch = {"tokens": torch.from_numpy(prompt).to(dev)}
+    if image_embeds is not None:
+        batch["image_embeds"] = image_embeds
+    _, caches = registry.prefill(cfg, params, batch, capacity=s_ctx)
     kernel = ops.decode_attention
     rec = {"calls": 0, "call_max_abs_err": 0.0, "calls_ok": True, "step_kernel_vs_ref": [],
            "step_ref_vs_fp64": [], "step_kernel_vs_fp64": [], "logits_ok": True,
@@ -1808,6 +1859,10 @@ def tracked_workers():
         yield TrackedWorker.instances
     finally:
         worker_mod.StageWorker = real
+        # emptied, not only dropped: a run's batch_fn closes over the list,
+        # and its workers' states (train_moe's are ~50 GB) must not outlive
+        # the run while the execution lives on for the next one
+        TrackedWorker.instances.clear()
         TrackedWorker.instances = []
 
 
@@ -1831,11 +1886,12 @@ class CallChecker:
     gradients against autograd of the plain version for the cotangent that
     arrives.  Bars by dtype: bf16 2e-2 (outputs) and 2e-2 x max|ref|
     (gradients), fp32 2e-5 and 1e-4.  Flash calls are also counted by
-    window."""
+    window and by ``causal``."""
 
     def __init__(self, names=("flash_attention", "swiglu")):
         self.names = names
         self.windows: dict = {}
+        self.causal: dict = {}
         self.real = {"flash_attention": ops.flash_attention, "swiglu": ops.swiglu}
         self.calls = {"flash_attention": 0, "swiglu": 0}
         self.grads = {"flash_attention": 0, "swiglu": 0}
@@ -1880,6 +1936,7 @@ class CallChecker:
     def flash_attention(self, q, k, v, *, causal=True, window=0, impl="auto"):
         real = self.real["flash_attention"]
         self.windows[window] = self.windows.get(window, 0) + 1
+        self.causal[causal] = self.causal.get(causal, 0) + 1
         out = real(q, k, v, causal=causal, window=window, impl=impl)
         self._check("flash_attention",
                     lambda a, b, c: real(a, b, c, causal=causal, window=window, impl="ref"),
@@ -1904,50 +1961,18 @@ class CallChecker:
 
 def phase_train_full(smi: str) -> dict:
     spec = TRAIN
-    torch.use_deterministic_algorithms(True)   # replicas must stay bit-identical
     cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), n_layers=spec["n_layers"])
     torch.cuda.empty_cache()
     params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                                   device="cuda")
     n_params = sum(a.numel() for a in tree_leaves(params))
-    prof, plat, config, M = train_setup(cfg, spec)
     d, mu, steps = spec["d"], spec["mu"], spec["steps"]
-    batches = train_batches(cfg, spec, d, steps)
     per_step = d * mu * cfg.n_layers
     checker = CallChecker()
-    marks, counts = [], []
-
-    def batch_fn(k):
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        counts.append(ops.launch_counts())
-        if k > 0:
-            checker.remove()
-            replicas_ok.append(replicas_identical(workers))
-        else:
-            checker.install()
-        return batches[k]
-
-    replicas_ok: list = []
-    execution = Execution(cfg=cfg, optimizer=AdamW(lr=1e-4), init_params=params,
-                          batch_fn=batch_fn, use_kernels=True, device="cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    try:
-        with tracked_workers() as workers:
-            res = run_plan(prof, plat, config, M, steps=steps, pipelined_sync=True,
-                           execution=execution)
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-            counts.append(ops.launch_counts())
-            replicas_ok.append(replicas_identical(workers))
-    finally:
-        checker.remove()
-    peak = torch.cuda.max_memory_allocated()
-    launches = counts[-1]
-
-    step_counts = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
+    run = _tracked_training(cfg, spec, params, AdamW(lr=1e-4), checker=checker)
+    res, launches, step_counts = run.pop("res"), run["launches"], run["launches_per_step"]
+    prof, plat, config, M = run["plan"]
+    batches = run["batches"]
     expect = _expected_launches(per_step, "wgmma", "wgmma")
     if any(c != expect for c in step_counts):
         raise AssertionError(f"launches per step {step_counts}, expected {expect}")
@@ -1958,10 +1983,6 @@ def phase_train_full(smi: str) -> dict:
     if checker.calls != want_calls or checker.grads != want_grads:
         raise AssertionError(f"checked {checker.calls} calls and {checker.grads} gradients, "
                              f"expected {want_calls} and {want_grads}")
-    if not all(np.isfinite(res.losses)):
-        raise AssertionError(f"non-finite losses {res.losses}")
-    if not all(replicas_ok) or len(replicas_ok) != steps:
-        raise AssertionError(f"replicas differ after a step: {replicas_ok}")
     timing = run_plan(prof, plat, config, M, steps=steps, pipelined_sync=True)
     same = (timing.t_iter == res.t_iter and timing.t_total == res.t_total
             and timing.cost == res.cost
@@ -1975,7 +1996,8 @@ def phase_train_full(smi: str) -> dict:
     # agrees at bf16's tolerance; the second shows what AdamW's first step
     # does at this width with either path
     plain = run_plan(prof, plat, config, M, steps=steps, pipelined_sync=True,
-                     execution=dataclasses.replace(execution, batch_fn=lambda k: batches[k],
+                     execution=dataclasses.replace(run["execution"],
+                                                   batch_fn=lambda k: batches[k],
                                                    use_kernels=False))
     losses_plain = plain.losses
     del plain
@@ -1983,7 +2005,7 @@ def phase_train_full(smi: str) -> dict:
         raise AssertionError(f"first loss {losses[0]} on the kernel path, "
                              f"{losses_plain[0]} on the plain path")
     profile = profile_train_step(cfg, prof, plat, config, M, params, batches, AdamW(lr=1e-4))
-    RESULTS["train_full_step_wall_s"] = [b - a for a, b in zip(marks, marks[1:])]
+    RESULTS["train_full_step_wall_s"] = run["step_wall_s"]
     emit({"phase": "train_full", "card": smi, "model": "phi3-mini-3.8b",
           "dtype": cfg.param_dtype, "n_layers": cfg.n_layers, "params": n_params,
           "stages": 2, "d": d, "mu": mu, "micro_batch": spec["micro_batch"],
@@ -1993,11 +2015,10 @@ def phase_train_full(smi: str) -> dict:
           "launches_per_step": step_counts, "kernel_launches": launches,
           "checked_calls": checker.calls, "checked_gradients": checker.grads,
           "call_max_abs_err": checker.out_err, "grad_max_abs_err": checker.grad_err,
-          "replicas_bit_identical": replicas_ok, "store_drained": True,
-          "clock_equals_timing_only": True,
-          "step_wall_s": [b - a for a, b in zip(marks, marks[1:])],
-          "max_memory_allocated_bytes": peak, "train_profile": profile})
-    del params, batches
+          "replicas_bit_identical": [True] * steps, "store_drained": True,
+          "clock_equals_timing_only": True, "step_wall_s": run["step_wall_s"],
+          "max_memory_allocated_bytes": run["peak"], "train_profile": profile})
+    del params, batches, run
     torch.cuda.empty_cache()
     return launches
 
@@ -2882,6 +2903,43 @@ def device_split(prof, steps: int) -> dict:
             "kernel_families": families}
 
 
+def _record(r: dict, err: float) -> dict:
+    """A kernels-record row of a timing: its bytes and flops out, the
+    parity's max |error| in."""
+    return {k: v for k, v in r.items() if k not in ("bytes", "flops")} | {"max_abs_err": err}
+
+
+def _flash_case(gen, flush, shape, tag: str) -> tuple:
+    """bf16 flash attention at ``shape`` against its plain version, forward
+    and backward, on the wgmma route (asserted through the launch counters),
+    two backward calls bit-equal, then timed (:func:`_flash_timing`) ->
+    ({"flash_attention_<tag>": ..., "flash_attention_bwd_<tag>": ...},
+    the timing)."""
+    B, S, Hq, Hkv, hd, causal, window = shape
+    dtype = torch.bfloat16
+    q, do = (torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    what = f"flash {tag} {shape}"
+    ops.reset_launch_counts()
+    err = _check_kernel(
+        lambda a, b, c: ops.flash_attention(a, b, c, causal=causal, window=window),
+        lambda a, b, c: ops.flash_attention(a, b, c, causal=causal, window=window, impl="ref"),
+        (q, k, v), do, what)
+    counts = ops.launch_counts()
+    if (counts["flash_attention_wgmma"], counts["flash_attention_bwd_wgmma"]) != (1, 1):
+        raise AssertionError(f"{what}: expected the wgmma route, launches {counts}")
+    o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    grads = [fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+             for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*grads)):
+        raise AssertionError(f"{what}: two backward calls differ")
+    t = _flash_timing(gen, flush, dtype, shape)
+    return {f"flash_attention_{tag}": _record(t["fwd"], err["out"]),
+            f"flash_attention_bwd_{tag}": _record(t["bwd"], err["grad"])}, t
+
+
 def _families_parity(flush) -> tuple:
     """The kernels at the new families' shapes, each against its plain
     version: flash attention forward and backward at qwen3-moe's
@@ -2892,70 +2950,15 @@ def _families_parity(flush) -> tuple:
     to its flash backend for flash attention, with the default dispatch
     beside it; with ``enable_gqa`` for decode)."""
     gen = torch.Generator(device="cuda").manual_seed(41)
-    B, S, Hq, Hkv, hd, causal, window = FLASH_QWEN3_MOE
-    dtype = torch.bfloat16
-    q, do = (torch.randn(B, S, Hq, hd, generator=gen, device="cuda").to(dtype)
-             for _ in range(2))
-    k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device="cuda").to(dtype)
-            for _ in range(2))
-    what = f"flash qwen3-moe {FLASH_QWEN3_MOE}"
-    ops.reset_launch_counts()
-    err = _check_kernel(
-        lambda a, b, c: ops.flash_attention(a, b, c, causal=causal),
-        lambda a, b, c: ops.flash_attention(a, b, c, causal=causal, impl="ref"),
-        (q, k, v), do, what)
-    counts = ops.launch_counts()
-    if (counts["flash_attention_wgmma"], counts["flash_attention_bwd_wgmma"]) != (1, 1):
-        raise AssertionError(f"{what}: expected the wgmma route, launches {counts}")
-    o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=causal)
-    grads = [fa_kernel.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
-             for _ in range(2)]
-    if not all(torch.equal(a, b) for a, b in zip(*grads)):
-        raise AssertionError(f"{what}: two backward calls differ")
-    flash = _flash_timing(gen, flush, dtype, FLASH_QWEN3_MOE)
+    recs, flash = _flash_case(gen, flush, FLASH_QWEN3_MOE, "qwen3_moe")
 
-    def rec(r, e):
-        return {k: v for k, v in r.items() if k not in ("bytes", "flops")} | {"max_abs_err": e}
-
-    recs = {"flash_attention_qwen3_moe": rec(flash["fwd"], err["out"]),
-            "flash_attention_bwd_qwen3_moe": rec(flash["bwd"], err["grad"])}
-
-    B, Hq, Hkv, hd, C = (JAMBA_DECODE[x] for x in ("B", "Hq", "Hkv", "hd", "C"))
-    decode_err = {}
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        q = torch.randn(B, Hq, hd, generator=gen, device="cuda").to(dtype)
-        k, v = (torch.randn(B, Hkv, C, hd, generator=gen, device="cuda").to(dtype)
-                for _ in range(2))
-        for length in (1, 1024, 1025, C):
-            L = torch.tensor([length], dtype=torch.int32, device="cuda")
-            out = ops.decode_attention(q, k, v, L)
-            decode_err[f"{str(dtype)[6:]}@{length}"] = _close(
-                out, ops.decode_attention(q, k, v, L, impl="ref"), tol,
-                f"jamba decode B={B} Hq={Hq} Hkv={Hkv} hd={hd} C={C} length={length} {dtype}")
-            if not torch.equal(out, ops.decode_attention(q, k, v, L)):
-                raise AssertionError(f"jamba decode length={length}: two calls differ")
-    # timing: bf16, a full cache (length = C)
-    L = torch.tensor([C], dtype=torch.int32, device="cuda")
-    mask = (torch.arange(C, device="cuda") < C).view(1, 1, 1, C)
-    ms = _time_ms(lambda: da_kernel.decode_attention(q, k, v, L), flush)
-    plain_ms = _time_ms(lambda: ops.decode_attention(q, k, v, L, impl="ref"), flush)
-    library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q.unsqueeze(2), k, v, attn_mask=mask, enable_gqa=True), flush)
-    esz = q.element_size()
-    nbytes = 2 * B * Hkv * C * hd * esz + 2 * q.numel() * esz
-    flops = 4 * B * Hq * C * hd
-    bound_ms, bound_by = _bound(nbytes, flops, torch.bfloat16)
-    recs["decode_attention_jamba"] = {
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "library_call": "scaled_dot_product_attention(enable_gqa=True)",
-        "bound_ms": bound_ms, "bound_by": bound_by, "kernel_route": "splitk",
-        "tflop_per_s": flops / ms / 1e9, "max_abs_err": decode_err[f"bfloat16@{C}"],
-        "hbm_gb_per_s": nbytes / (ms * 1e-3) / 1e9, "roofline_share": bound_ms / ms}
+    C = JAMBA_DECODE["C"]
+    recs["decode_attention_jamba"], decode = _decode_case(gen, flush, JAMBA_DECODE,
+                                                          lengths=(1, 1024, 1025, C))
     detail = {"flash_shape": FLASH_QWEN3_MOE, "flash_sdpa": flash["sdpa"],
               "flash_simt_ms": flash["simt"], "flash_bwd_passes_ms": flash["bwd_passes_ms"],
-              "decode_shape": JAMBA_DECODE, "decode_max_abs_err": decode_err,
-              "decode_chunk": da_kernel.split_chunk(C),
-              "decode_splits": -(-C // da_kernel.split_chunk(C))}
+              "decode_shape": JAMBA_DECODE, "decode_max_abs_err": decode["max_abs_err"],
+              "decode_chunk": decode["chunk"], "decode_splits": decode["splits"]}
     return recs, detail
 
 
@@ -3099,45 +3102,18 @@ def phase_train_moe(smi: str) -> dict:
     of the same plan with the kernels' plain versions; peak memory; one
     profiled step with the MoE's steps apart."""
     spec = TRAIN_MOE
-    torch.use_deterministic_algorithms(True)
     cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b"), n_layers=spec["n_layers"])
     torch.cuda.empty_cache()
     params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                                   device="cuda")
     n_params = sum(a.numel() for a in tree_leaves(params))
-    prof, plat, config, M = train_setup(cfg, spec)
     d, mu, steps = spec["d"], spec["mu"], spec["steps"]
-    batches = train_batches(cfg, spec, d, steps)
     per_step = d * mu * n_layers_of(cfg, mixer=ATTN)
     checker = CallChecker(names=("flash_attention",))
-    marks, counts = [], []
-
-    def batch_fn(k):
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        counts.append(ops.launch_counts())
-        if k > 0:
-            checker.remove()
-        else:
-            checker.install()
-        return batches[k]
-
-    execution = Execution(cfg=cfg, optimizer=SGD(lr=spec["lr"]), init_params=params,
-                          batch_fn=batch_fn, use_kernels=True, device="cuda")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    try:
-        res = run_plan(prof, plat, config, M, steps=steps, pipelined_sync=True,
-                       execution=execution)
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-        counts.append(ops.launch_counts())
-    finally:
-        checker.remove()
-    peak = torch.cuda.max_memory_allocated()
-    launches = counts[-1]
-    step_counts = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
+    run = _tracked_training(cfg, spec, params, SGD(lr=spec["lr"]), checker=checker)
+    res, launches, step_counts = run.pop("res"), run["launches"], run["launches_per_step"]
+    prof, plat, config, M = run["plan"]
+    batches, execution = run["batches"], run["execution"]
     expect = _expected_launches(per_step, "wgmma", "wgmma", n_swiglu=0)
     if any(c != expect for c in step_counts):
         raise AssertionError(f"launches per step {step_counts}, expected {expect}")
@@ -3173,10 +3149,9 @@ def phase_train_moe(smi: str) -> dict:
           "launches_by_route": _launches_by_route(launches),
           "kernel_launches": launches, "checked_calls": checker.calls,
           "checked_gradients": checker.grads, "call_max_abs_err": checker.out_err,
-          "grad_max_abs_err": checker.grad_err,
-          "step_wall_s": [b - a for a, b in zip(marks, marks[1:])],
-          "max_memory_allocated_bytes": peak, "train_profile": profile})
-    del params, batches
+          "grad_max_abs_err": checker.grad_err, "step_wall_s": run["step_wall_s"],
+          "max_memory_allocated_bytes": run["peak"], "train_profile": profile})
+    del params, batches, execution, run
     torch.cuda.empty_cache()
     return launches
 
@@ -3205,6 +3180,549 @@ def phase_train_jamba_reduced(smi: str) -> dict:
           "optimizer": "SGD(lr=0.05)", "losses": losses,
           "kernel_launches": routes["kernel"][2], **rec})
     return routes["kernel"][2]
+
+
+# ------------------------------------------- xLSTM, the encoders, vision
+# bert-large and hubert-xlarge's attention (no mask; heads of 64 and 80)
+# and FFNs at their phases' shapes, internvl2-26b's decode (G 6) over 1024
+# + 16 slots, and gemma3-4b's global layers' decode (G 2, hd 256)
+FLASH_BERT = (4, 512, 16, 16, 64, False, 0)
+FLASH_HUBERT = (2, 1024, 16, 16, 80, False, 0)
+SWIGLU_BERT = (2048, 1024, 4096)
+SWIGLU_HUBERT = (2048, 1280, 5120)
+INTERNVL2_DECODE = dict(B=4, Hq=48, Hkv=8, hd=128, C=1040)
+GEMMA3_DECODE = dict(B=4, Hq=8, Hkv=4, hd=256, C=1040)
+# bert-large at full width and depth: 2 stages of 12 layers x 2 replicas
+TRAIN_BERT = dict(n_layers=24, seq=512, micro_batch=4, d=2, mu=2, steps=2, cut=12)
+# hubert-xlarge's loss and gradients: one frames batch of 2 x 1024; the SGD
+# step tries JAX's test's lr first and halves it (about 2/5 each time) until
+# the loss falls: at d 1280 a softmax head's curvature is ~d/4 per unit of
+# lr, so 0.05 overshoots (it raised the loss 6.45 -> 8.20 on an H100)
+HUBERT_BATCH = dict(batch=2, seq=1024, lrs=(0.05, 0.02, 0.01, 0.005, 0.002, 0.001))
+# xlstm-125m at full width and depth: 2 stages of 3 periods x 2 replicas; 512
+# tokens are two mLSTM chunks; one step (~27 s on an H100: the sLSTM's
+# step loop launches ~1.1 M kernels a step from the host)
+TRAIN_XLSTM = dict(n_layers=12, seq=512, micro_batch=4, d=2, mu=2, steps=1, cut=6)
+SERVE_XLSTM = dict(batch=4, prefill_tokens=512, new_tokens=16)
+# the decode caches of xlstm-125m at batch 4, summed over its 6 periods: 6 x
+# (mLSTM C, n, m, conv 9,498,688 + sLSTM c, n, m, h 43,008) bytes, as JAX's
+# init_decode_caches sizes them (tests/test_torch_xlstm_encoders.py holds
+# the port's sizes to JAX's)
+XLSTM_CACHE_BYTES_PER_ROUND = 57_250_176
+SERVE_INTERNVL2 = dict(batch=4, prefill_tokens=1024, new_tokens=16)   # s_ctx = 1040
+INTERNVL2_LAYERS = 8
+
+
+def _decode_case(gen, flush, shape: dict, lengths=None, timed=(torch.bfloat16,)) -> tuple:
+    """Decode attention at ``shape`` against its plain version in fp32
+    (2e-5) and bf16 (2e-2) at ``lengths`` (1, C - 16 and C by default), two
+    calls bit-equal; then, with a full cache, timed in each dtype of
+    ``timed`` beside its bound, its plain version and SDPA (``enable_gqa``)
+    -> (the record of the first timed dtype, errors and every timed dtype's
+    record)."""
+    B, Hq, Hkv, hd, C = (shape[x] for x in ("B", "Hq", "Hkv", "hd", "C"))
+    errs, recs = {}, {}
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+        q = torch.randn(B, Hq, hd, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(B, Hkv, C, hd, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        for length in lengths or (1, C - 16, C):
+            L = torch.tensor([length], dtype=torch.int32, device="cuda")
+            out = ops.decode_attention(q, k, v, L)
+            errs[f"{str(dtype)[6:]}@{length}"] = _close(
+                out, ops.decode_attention(q, k, v, L, impl="ref"), tol,
+                f"decode {shape} length={length} {dtype}")
+            if not torch.equal(out, ops.decode_attention(q, k, v, L)):
+                raise AssertionError(f"decode {shape} length={length}: two calls differ")
+        if dtype not in timed:
+            continue
+        L = torch.tensor([C], dtype=torch.int32, device="cuda")
+        mask = torch.ones((1, 1, 1, C), dtype=torch.bool, device="cuda")
+        ms = _time_ms(lambda: da_kernel.decode_attention(q, k, v, L), flush)
+        plain_ms = _time_ms(lambda: ops.decode_attention(q, k, v, L, impl="ref"), flush)
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q.unsqueeze(2), k, v, attn_mask=mask, enable_gqa=True), flush)
+        esz = q.element_size()
+        nbytes = 2 * B * Hkv * C * hd * esz + 2 * q.numel() * esz
+        flops = 4 * B * Hq * C * hd
+        bound_ms, bound_by = _bound(nbytes, flops, dtype)
+        recs[str(dtype)[6:]] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library_call": "scaled_dot_product_attention(enable_gqa=True)",
+            "bound_ms": bound_ms, "bound_by": bound_by, "kernel_route": "splitk",
+            "tflop_per_s": flops / ms / 1e9, "max_abs_err": errs[f"{str(dtype)[6:]}@{C}"],
+            "hbm_gb_per_s": nbytes / (ms * 1e-3) / 1e9, "roofline_share": bound_ms / ms,
+            "kv_bytes": 2 * B * Hkv * C * hd * esz,
+            # query heads a split-pass block takes for the group's Hq / Hkv
+            "heads_per_block": da_kernel.build().repro_decode_attention_heads(
+                hd, int(dtype == torch.bfloat16), Hq // Hkv)}
+    first = str(timed[0])[6:]
+    return recs[first], {"max_abs_err": errs, "times": recs,
+                         "chunk": da_kernel.split_chunk(C),
+                         "splits": -(-C // da_kernel.split_chunk(C))}
+
+
+def _encoders_parity(flush) -> tuple:
+    """The kernels at the encoders' and the vision model's shapes, each
+    against its plain version and timed beside its bound, its plain version
+    and a library call: flash attention with no mask at bert-large's [4,
+    512, 16, 16, 64] and hubert-xlarge's [2, 1024, 16, 16, 80] (bf16, the
+    wgmma route, two backward calls bit-equal; SDPA with ``is_causal=False``,
+    its flash backend and its default dispatch), swiglu at their FFNs'
+    shapes (T 2048, d 1024, f 4096 and T 2048, d 1280, f 5120; wgmma),
+    decode attention at internvl2-26b's [4, 48 q, 8 kv, 128] (G 6) over
+    1040 slots and, timed in bf16 and fp32, at gemma3-4b's global layers'
+    [4, 8 q, 4 kv, 256] (G 2)."""
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    recs, detail = {}, {}
+    for name, shape in (("bert", FLASH_BERT), ("hubert", FLASH_HUBERT)):
+        rows, t = _flash_case(gen, flush, shape, name)
+        recs |= rows
+        detail[f"flash_{name}"] = {"shape": shape, "sdpa": t["sdpa"],
+                                   "simt_ms": t["simt"], "fwd_passes_ms": t["fwd_passes_ms"],
+                                   "bwd_passes_ms": t["bwd_passes_ms"]}
+
+    for name, shape in (("bert", SWIGLU_BERT), ("hubert", SWIGLU_HUBERT)):
+        T, d, f = shape
+        dtype = torch.bfloat16
+        x = torch.randn(T, d, generator=gen, device="cuda").to(dtype)
+        wg, wu = ((0.02 * torch.randn(d, f, generator=gen, device="cuda")).to(dtype)
+                  for _ in range(2))
+        dout = torch.randn(T, f, generator=gen, device="cuda").to(dtype)
+        what = f"swiglu {name} {shape}"
+        ops.reset_launch_counts()
+        err = _check_kernel(lambda a, b, c: ops.swiglu(a, b, c),
+                            lambda a, b, c: ops.swiglu(a, b, c, impl="ref"),
+                            (x, wg, wu), dout, what)
+        counts = ops.launch_counts()
+        if (counts["swiglu_wgmma"], counts["swiglu_bwd_wgmma"]) != (1, 1):
+            raise AssertionError(f"{what}: expected the wgmma route, launches {counts}")
+        t = _swiglu_timing(gen, flush, dtype, shape)
+        recs[f"swiglu_{name}"] = _record(t["fwd"], err["out"])
+        recs[f"swiglu_bwd_{name}"] = _record(t["bwd"], err["grad"])
+        detail[f"swiglu_{name}"] = {"shape": shape, "simt_ms": t["simt"]}
+
+    recs["decode_attention_internvl2"], detail["decode_internvl2"] = _decode_case(
+        gen, flush, INTERNVL2_DECODE)
+    detail["decode_internvl2"]["shape"] = INTERNVL2_DECODE
+    _, detail["decode_gemma3_global"] = _decode_case(
+        gen, flush, GEMMA3_DECODE, timed=(torch.bfloat16, torch.float32))
+    detail["decode_gemma3_global"]["shape"] = GEMMA3_DECODE
+    return recs, detail
+
+
+def _tracked_training(cfg, spec: dict, params, optimizer, *, checker=None,
+                      profile_step: int = -1) -> dict:
+    """``run_plan`` of ``spec``'s plan with the kernels on, its stage
+    workers tracked: ``checker`` (a CallChecker) installed for step 0 only,
+    the replicas compared after each step, launches counted per step, and
+    with ``profile_step`` >= 0 that step under ``device_profiler``."""
+    torch.use_deterministic_algorithms(True)   # replicas must stay bit-identical
+    prof, plat, config, M = train_setup(cfg, spec)
+    batches = train_batches(cfg, spec, spec["d"], spec["steps"])
+    marks, counts, replicas_ok, window = [], [], [], {}
+
+    def batch_fn(k):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        counts.append(ops.launch_counts())
+        if k > 0:
+            replicas_ok.append(replicas_identical(workers))
+        if checker is not None:
+            (checker.install if k == 0 else checker.remove)()
+        if k == profile_step:
+            window["prof"] = device_profiler()
+            window["prof"].start()
+        elif "prof" in window and "busy" not in window:
+            window["prof"].stop()
+            window["busy"] = device_busy(window["prof"])
+        return batches[k]
+
+    execution = Execution(cfg=cfg, optimizer=optimizer, init_params=params,
+                          batch_fn=batch_fn, use_kernels=True, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        with tracked_workers() as workers:
+            res = run_plan(prof, plat, config, M, steps=spec["steps"], pipelined_sync=True,
+                           execution=execution)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            counts.append(ops.launch_counts())
+            replicas_ok.append(replicas_identical(workers))
+    finally:
+        if checker is not None:
+            checker.remove()
+    if "prof" in window and "busy" not in window:
+        window["prof"].stop()
+        window["busy"] = device_busy(window["prof"])
+    if not all(replicas_ok) or len(replicas_ok) != spec["steps"]:
+        raise AssertionError(f"replicas differ after a step: {replicas_ok}")
+    if not all(np.isfinite(res.losses)):
+        raise AssertionError(f"non-finite losses {res.losses}")
+    walls = [b - a for a, b in zip(marks, marks[1:])]
+    out = {"res": res, "batches": batches, "execution": execution,
+           "plan": (prof, plat, config, M), "step_wall_s": walls,
+           "launches_per_step": [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])],
+           "launches": counts[-1], "peak": torch.cuda.max_memory_allocated()}
+    if "busy" in window:
+        busy, wall = window["busy"], walls[profile_step]
+        out["profiled_step"] = {"step": profile_step, "wall_s": wall, **busy,
+                                "device_idle_share": 1.0 - busy["kernel_union_s"] / wall}
+    return out
+
+
+def phase_train_bert(smi: str) -> dict:
+    """bert-large at full width and depth (24 layers, 465 M params), bf16,
+    seed 0: 2 stages of 12 layers x 2 replicas, 2 micro-batches of 4 x 512
+    tokens, AdamW, 2 steps through ``run_plan(..., use_kernels=True)``.  Its
+    loss is the encoder's masked prediction (no shift) and its attention
+    has no mask: 96 + 96 flash attention and 96 + 96 swiglu launches a step,
+    all on the wgmma route and none causal; in step 1 every call held
+    against ``impl="ref"``; finite losses, the first within 2e-2 of the same
+    plan with the kernels' plain versions; replicas bit-identical; store
+    drained (``run_plan`` checks it); step times and peak memory."""
+    spec = TRAIN_BERT
+    cfg = get_config("bert-large")
+    torch.cuda.empty_cache()
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    per_step = spec["d"] * spec["mu"] * cfg.n_layers
+    checker = CallChecker()
+    run = _tracked_training(cfg, spec, params, AdamW(lr=1e-4), checker=checker)
+    res = run.pop("res")
+    expect = _expected_launches(per_step, "wgmma", "wgmma")
+    if any(c != expect for c in run["launches_per_step"]):
+        raise AssertionError(f"launches per step {run['launches_per_step']}, expected {expect}")
+    if checker.failures:
+        raise AssertionError(f"kernel calls disagree with impl='ref': {checker.failures[:5]}")
+    want = {"flash_attention": per_step, "swiglu": per_step}
+    if checker.calls != want or checker.grads != {k: 3 * v for k, v in want.items()} \
+            or checker.causal != {False: per_step}:
+        raise AssertionError(f"checked {checker.calls} calls, {checker.grads} gradients, "
+                             f"causal {checker.causal}")
+    losses, store, t_iter = res.losses, res.store_stats.as_dict(), res.t_iter
+    del res
+    prof, plat, config, M = run["plan"]
+    batches = run["batches"]
+    with training_kernels_as_plain():
+        plain = run_plan(prof, plat, config, M, steps=spec["steps"], pipelined_sync=True,
+                         execution=dataclasses.replace(run["execution"],
+                                                       batch_fn=lambda k: batches[k]))
+    losses_plain = plain.losses
+    del plain
+    if abs(losses[0] - losses_plain[0]) > 2e-2:
+        raise AssertionError(f"first loss {losses[0]} on the kernel path, "
+                             f"{losses_plain[0]} with the kernels' plain versions")
+    emit({"phase": "train_bert", "card": smi, "model": "bert-large", "dtype": cfg.param_dtype,
+          "n_layers": cfg.n_layers, "params": n_params, "causal": cfg.causal,
+          "is_encoder": cfg.is_encoder, "stages": 2, "d": spec["d"], "mu": spec["mu"],
+          "micro_batch": spec["micro_batch"], "seq": spec["seq"], "steps": spec["steps"],
+          "optimizer": "AdamW(lr=1e-4)", "losses": losses,
+          "losses_kernels_as_plain": losses_plain, "ln_vocab": float(np.log(cfg.vocab_size)),
+          "t_iter_virtual_s": t_iter, "store": store,
+          "launches_per_step": run["launches_per_step"],
+          "launches_by_route": _launches_by_route(run["launches"]),
+          "checked_calls": checker.calls, "checked_gradients": checker.grads,
+          "flash_calls_by_causal": {str(k): v for k, v in checker.causal.items()},
+          "call_max_abs_err": checker.out_err, "grad_max_abs_err": checker.grad_err,
+          "replicas_bit_identical": True, "store_drained": True,
+          "step_wall_s": run["step_wall_s"], "max_memory_allocated_bytes": run["peak"]})
+    launches = run["launches"]
+    del params, run, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_hubert(smi: str) -> dict:
+    """hubert-xlarge at full width and depth (48 layers, 1.26 B params),
+    bf16, seed 0: the audio model's entry point, ``registry.loss_fn(...,
+    use_kernels=True)``, on a frames batch of 2 x 1024 (the stage workers
+    refuse frontends in both packages), then its backward: 48 + 48 flash
+    attention launches at hd 80 with no mask and 48 + 48 swiglu, all on the
+    wgmma route, every call and gradient held against ``impl="ref"``; the
+    loss within 2e-2 of the kernels' plain versions'; the unused ``embed``
+    gets no gradient (exactly zero, as ``jax.grad`` gives); one SGD step
+    lowers the loss (``tests/test_smoke_archs.py:20-46``; its lr 0.05
+    first, then smaller ones until one does).  Times and peak memory."""
+    spec = HUBERT_BATCH
+    cfg = get_config("hubert-xlarge")
+    torch.cuda.empty_cache()
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    leaves = tree_leaves(params)
+    n_params = sum(a.numel() for a in leaves)
+    batch = {k: v.cuda() for k, v in make_batch(
+        cfg, InputShape("train", spec["seq"], spec["batch"], "train"), seed=0,
+        device="cpu").items()}
+    for a in leaves:
+        a.requires_grad_()
+    checker = CallChecker()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    checker.install()
+    try:
+        t0 = time.perf_counter()
+        loss, metrics = registry.loss_fn(cfg, params, batch, use_kernels=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        checker.remove()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = cfg.n_layers
+    expect = _expected_launches(n, "wgmma", "wgmma")
+    if launches != expect:
+        raise AssertionError(f"launches {launches}, expected {expect}")
+    if checker.failures:
+        raise AssertionError(f"kernel calls disagree with impl='ref': {checker.failures[:5]}")
+    want = {"flash_attention": n, "swiglu": n}
+    if checker.calls != want or checker.grads != {k: 3 * v for k, v in want.items()} \
+            or checker.causal != {False: n}:
+        raise AssertionError(f"checked {checker.calls} calls, {checker.grads} gradients, "
+                             f"causal {checker.causal}")
+    embed_at = next(i for i, a in enumerate(leaves) if a is params["embed"])
+    if grads[embed_at] is not None:
+        raise AssertionError("the unused embedding got a gradient")
+    missing = [i for i, g in enumerate(grads) if g is None and i != embed_at]
+    if missing or not all(torch.isfinite(g).all() for g in grads if g is not None):
+        raise AssertionError(f"gradients missing at {missing} or not finite")
+    loss = float(loss.detach())
+    with torch.no_grad(), training_kernels_as_plain():
+        loss_plain = float(registry.loss_fn(cfg, params, batch, use_kernels=True)[0])
+    if not np.isfinite(loss) or abs(loss - loss_plain) > 2e-2:
+        raise AssertionError(f"loss {loss} on the kernel path, {loss_plain} with the "
+                             "kernels' plain versions")
+    from repro_torch.models.common import tree_unflatten
+
+    stepped_losses = {}
+    with torch.no_grad():
+        for lr in spec["lrs"]:
+            stepped = [a if g is None else (a.float() - lr * g.float()).to(a.dtype)
+                       for a, g in zip(leaves, grads)]
+            stepped_losses[lr] = float(registry.loss_fn(
+                cfg, tree_unflatten(params, stepped), batch, use_kernels=True)[0])
+            del stepped
+            if stepped_losses[lr] < loss:
+                break
+    del grads
+    if not min(stepped_losses.values()) < loss:
+        raise AssertionError(f"no SGD step along the gradient lowered the loss {loss}: "
+                             f"{stepped_losses}")
+    emit({"phase": "train_hubert", "card": smi, "model": "hubert-xlarge",
+          "dtype": cfg.param_dtype, "n_layers": n, "params": n_params,
+          "frontend": cfg.frontend, "causal": cfg.causal, "batch": spec["batch"],
+          "seq": spec["seq"], "loss": loss, "ce": float(metrics["ce"].detach()),
+          "loss_kernels_as_plain": loss_plain, "ln_vocab": float(np.log(cfg.vocab_size)),
+          "loss_after_sgd_step_by_lr": stepped_losses, "launches": launches,
+          "checked_calls": checker.calls, "checked_gradients": checker.grads,
+          "flash_calls_by_causal": {str(k): v for k, v in checker.causal.items()},
+          "call_max_abs_err": checker.out_err, "grad_max_abs_err": checker.grad_err,
+          "embed_gradient": "none (exactly zero)", "forward_checked_s": t1 - t0,
+          "backward_checked_s": t2 - t1, "max_memory_allocated_bytes": peak})
+    del params, leaves, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _xlstm_recurrent_parity() -> dict:
+    """JAX's test_mlstm_chunked_vs_recurrent at xlstm-125m's full width in
+    fp32 on the card: ``mlstm_forward`` over 2 x 512 tokens (two chunks)
+    against ``mlstm_decode`` stepped over the same sequence, outputs and the
+    final (C, n, m) at 3e-4 x max|ref|; ``slstm_forward``'s final state
+    against ``slstm_decode``'s after the same steps, and its outputs."""
+    cfg = dataclasses.replace(get_config("xlstm-125m"), param_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    B, S = 2, 512
+    x = 0.5 * torch.randn(B, S, cfg.d_model, generator=gen, device="cuda")
+    out = {}
+    for kind, init_p, init_c, fwd, dec in (
+            ("mlstm", xlstm_mod.init_mlstm_params, xlstm_mod.init_mlstm_cache,
+             xlstm_mod.mlstm_forward, xlstm_mod.mlstm_decode),
+            ("slstm", xlstm_mod.init_slstm_params, xlstm_mod.init_slstm_cache,
+             xlstm_mod.slstm_forward, xlstm_mod.slstm_decode)):
+        p = {k: v[0] for k, v in init_p(gen, cfg, torch.float32, 1).items()}
+        stacked = init_c(1, B, cfg, torch.float32, "cuda")
+        cache = type(stacked)(*(a[0] for a in stacked))
+        with torch.no_grad():
+            par, state = fwd(p, x, cfg=cfg, return_state=True)
+            t0 = time.perf_counter()
+            rec = torch.cat([dec(p, x[:, t:t + 1], cache, cfg=cfg)[0] for t in range(S)], dim=1)
+            torch.cuda.synchronize()
+            steps_s = time.perf_counter() - t0
+        errs = {}
+        for name, a, b in [("out", rec, par)] + [
+                (f"state_{f}", c, s_) for f, c, s_ in zip(cache._fields, cache, state)
+                if f != "conv"]:
+            scale = float(b.abs().max())
+            errs[name] = _close_at(a, b, 3e-4, 3e-4 * scale, f"{kind} {name}: recurrent vs "
+                                   "parallel") / scale
+        out[kind] = {"rel_max_abs_err": errs, "decode_steps": S, "decode_steps_s": steps_s}
+    return out
+
+
+def phase_train_xlstm(smi: str) -> dict:
+    """xlstm-125m at full width and depth (12 layers, 168 M params), bf16,
+    seed 0: 2 stages of 3 periods (an mLSTM and an sLSTM layer each) x 2
+    replicas, 2 micro-batches of 4 x 512 tokens (two mLSTM chunks, so the
+    carried state runs), AdamW, 1 step through ``run_plan``: no kernel of
+    the port on this path (its scans are plain PyTorch, as they are plain
+    JAX), so every launch count stays 0; the first loss near ln(50304);
+    finite losses; replicas bit-identical; the device's busy time and idle
+    share in that step (the sLSTM's step loop is expected to keep the host
+    busy).  Then the recurrent and parallel forms at full width in fp32
+    (:func:`_xlstm_recurrent_parity`)."""
+    spec = TRAIN_XLSTM
+    cfg = get_config("xlstm-125m")
+    torch.cuda.empty_cache()
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    run = _tracked_training(cfg, spec, params, AdamW(lr=1e-4), profile_step=0)
+    res = run.pop("res")
+    zero = _expected_launches(0, "wgmma", "wgmma")
+    if run["launches"] != zero:
+        raise AssertionError(f"a kernel launched on the xLSTM path: {run['launches']}")
+    ln_v = float(np.log(cfg.vocab_size))
+    if abs(res.losses[0] - ln_v) > 1.0:
+        raise AssertionError(f"first loss {res.losses[0]}, expected near ln(V) = {ln_v}")
+    parity = _xlstm_recurrent_parity()
+    emit({"phase": "train_xlstm", "card": smi, "model": "xlstm-125m", "dtype": cfg.param_dtype,
+          "n_layers": cfg.n_layers, "params": n_params,
+          "period": [[s_.mixer, s_.ff] for s_ in cfg.period], "stages": 2, "d": spec["d"],
+          "mu": spec["mu"], "micro_batch": spec["micro_batch"], "seq": spec["seq"],
+          "mlstm_chunks": spec["seq"] // xlstm_mod.MLSTM_CHUNK, "steps": spec["steps"],
+          "optimizer": "AdamW(lr=1e-4)", "losses": res.losses, "ln_vocab": ln_v,
+          "t_iter_virtual_s": res.t_iter, "store": res.store_stats.as_dict(),
+          "launches": run["launches"], "replicas_bit_identical": True,
+          "step_wall_s": run["step_wall_s"], "profiled_step": run["profiled_step"],
+          "max_memory_allocated_bytes": run["peak"], "recurrent_vs_parallel_fp32": parity})
+    del params, run, res
+    torch.cuda.empty_cache()
+    return zero
+
+
+def phase_serve_xlstm(smi: str) -> dict:
+    """xlstm-125m at full depth (12 layers), bf16, seed 0, served through
+    ``run_serve_plan(..., use_kernels=True)`` on emulated, 2 stages of 3
+    periods, batch 4, 512 + 16 tokens: tokens bit-identical to the
+    monolithic loop; the mLSTM (C, n, m, conv) and sLSTM (c, n, m, h) caches
+    cross the store every round, exactly 57,250,176 bytes a round (JAX's
+    sizes); no kernel launch (no attention); prefill and round times and a
+    profiled decode round."""
+    torch.use_deterministic_algorithms(True)
+    spec = SERVE_XLSTM
+    model = "xlstm-125m"
+    cfg = arch_config_for_model(model)
+    torch.cuda.empty_cache()
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    plan = manual_serve_plan(model, cuts=(6,), **spec)
+    prompt = make_prompt(cfg, spec["batch"], spec["prefill_tokens"], seed=0)
+    s_ctx = spec["prefill_tokens"] + spec["new_tokens"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = run_serve_plan(plan, params=params, prompt=prompt, use_kernels=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = ops.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"a kernel launched on the xLSTM serve path: {launches}")
+    mono = reference_decode(cfg, params, prompt, spec["new_tokens"], use_kernels=True)
+    if not np.array_equal(res.tokens, mono):
+        raise AssertionError(f"pipelined tokens differ from the monolithic loop:\n"
+                             f"{res.tokens}\n{mono}")
+    caches = registry.init_decode_caches(cfg, spec["batch"], s_ctx, device="meta")
+    by_kind = {type(c).__name__: sum(a.numel() * a.element_size() for a in c) for c in caches}
+    per_round = sum(by_kind.values())
+    kv_store = res.store_stats.class_bytes_in["kv"]
+    if per_round != XLSTM_CACHE_BYTES_PER_ROUND or \
+            kv_store != spec["new_tokens"] * XLSTM_CACHE_BYTES_PER_ROUND:
+        raise AssertionError(f"{kv_store} cache bytes put in the store, {per_round} a round; "
+                             f"expected {spec['new_tokens']} x {XLSTM_CACHE_BYTES_PER_ROUND}")
+    decode_profile = profile_decode(cfg, params, prompt, res.tokens, s_ctx=s_ctx)
+    emit({"phase": "serve_xlstm", "card": smi, "model": model, "dtype": cfg.param_dtype,
+          "n_layers": cfg.n_layers, "params": n_params, "stages": plan.n_stages, **spec,
+          "s_ctx": s_ctx, "kernel_launches": launches, "tokens_match_monolithic": True,
+          "cache_bytes_per_round": per_round, "cache_bytes_per_round_by_kind": by_kind,
+          "store_cache_bytes_in": kv_store, "kv_bytes_estimate": list(res.kv_bytes),
+          "store": res.store_stats.as_dict(), "t_request_virtual_s": res.t_request,
+          "prefill_wall_s": res.round_wall_s[0],
+          "decode_round_wall_s": list(res.round_wall_s[1:]),
+          "decode_round_wall_s_median": statistics.median(res.round_wall_s[1:]),
+          "max_memory_allocated_bytes": peak, "decode_profile": decode_profile,
+          "tokens_head": res.tokens[0].tolist()})
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_internvl2(smi: str) -> int:
+    """internvl2-26b at full width cut to 8 layers (``@layers8``: 4.26 B
+    params), bf16, seed 0: the monolithic ``registry.prefill`` of a
+    1024-token prompt whose first 256 positions are patch embeddings, then
+    15 ``decode_step(use_kernels=True)`` rounds (pipelined serving refuses
+    frontends in both packages): 120 decode-attention launches at [4, 48 q,
+    8 kv, 128] (G 6) over 1040 slots, each held within 2e-2 of
+    ``impl="ref"`` on its real inputs (teacher-forced with the greedy
+    tokens); prefill and round times, peak memory."""
+    from repro_torch.models import multimodal
+
+    torch.use_deterministic_algorithms(True)
+    spec = SERVE_INTERNVL2
+    model = f"internvl2-26b@layers{INTERNVL2_LAYERS}"
+    cfg = arch_config_for_model(model)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = registry.init_params(cfg, gen, device="cuda")
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    prompt = make_prompt(cfg, spec["batch"], spec["prefill_tokens"], seed=0)
+    image = multimodal.synth_patch_embeds(gen, cfg, spec["batch"])
+    s_ctx = spec["prefill_tokens"] + spec["new_tokens"]
+    toks = torch.from_numpy(prompt).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, caches = registry.prefill(cfg, params, {"tokens": toks, "image_embeds": image},
+                                      capacity=s_ctx)
+    out = [greedy_token(logits)]
+    torch.cuda.synchronize()
+    walls = [time.perf_counter() - t0]
+    for _ in range(1, spec["new_tokens"]):
+        t0 = time.perf_counter()
+        logits, caches = registry.decode_step(cfg, params, caches, out[-1], use_kernels=True)
+        out.append(greedy_token(logits))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = ops.launch_counts()["decode_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    expect = (spec["new_tokens"] - 1) * n_layers_of(cfg, mixer=ATTN)
+    if launches != expect:
+        raise AssertionError(f"decode_attention launched {launches} times, expected {expect}")
+    tokens = torch.cat(out, dim=1).cpu().numpy()
+    del caches
+    tf = teacher_forced(cfg, params, prompt, tokens, s_ctx=s_ctx, call_tol=2e-2,
+                        image_embeds=image)
+    emit({"phase": "serve_internvl2", "card": smi, "model": model, "dtype": cfg.param_dtype,
+          "n_layers": cfg.n_layers, "reduced": {"n_layers": [48, cfg.n_layers]},
+          "params": n_params, "frontend": cfg.frontend,
+          "n_frontend_tokens": cfg.n_frontend_tokens, **spec, "s_ctx": s_ctx,
+          "kernel_launches": launches, "teacher_forced_bf16": tf,
+          "prefill_wall_s": walls[0], "decode_round_wall_s": walls[1:],
+          "decode_round_wall_s_median": statistics.median(walls[1:]),
+          "max_memory_allocated_bytes": peak, "tokens_head": tokens[0].tolist()})
+    del params
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> None:
@@ -3265,6 +3783,17 @@ def main() -> None:
     for name in FP32_WAYS:
         on_families |= {f"{name}_{way}": jamba_reduced[f"{name}_{way}"],
                         f"{name}_bwd_{way}": jamba_reduced[f"{name}_bwd_{way}"]}
+    # xLSTM, the encoders and the vision model: bert-large's and
+    # hubert-xlarge's flash attention (no mask) and swiglu on wgmma,
+    # internvl2-26b's decode (G 6); the xLSTM phases launch no kernel
+    for phase, tag in ((phase_train_bert, "bert"), (phase_train_hubert, "hubert")):
+        counts = phase(smi)
+        for name in FP32_WAYS:
+            launches |= {f"{name}_{tag}": counts[f"{name}_wgmma"],
+                         f"{name}_bwd_{tag}": counts[f"{name}_bwd_wgmma"]}
+    phase_train_xlstm(smi)
+    phase_serve_xlstm(smi)
+    launches["decode_attention_internvl2"] = phase_serve_internvl2(smi)
     source = "src/repro_torch/kernels/csrc/{}.cu"
     tpu = {"decode_attention": "src/repro/kernels/decode_attention.py:68",
            "flash_attention": "src/repro/kernels/flash_attention.py:83",

@@ -8,23 +8,29 @@ from repro_torch.configs.base import (  # noqa: F401
     LayerSpec,
     MambaCfg,
     MoECfg,
+    XLSTMCfg,
     validate,
 )
 
-# public id -> module name; the JAX package's other archs (xlstm-125m,
-# bert-large, hubert-xlarge, internvl2-26b) wait for ROADMAP port queue
-# item 6b
+# public id -> module name, in the JAX package's order
 _ARCH_MODULES = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "hubert-xlarge": "hubert_xlarge",
     "qwen2.5-14b": "qwen2_5_14b",
-    "gemma3-4b": "gemma3_4b",
-    "internlm2-20b": "internlm2_20b",
     "dbrx-132b": "dbrx_132b",
+    "xlstm-125m": "xlstm_125m",
+    "internlm2-20b": "internlm2_20b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "internvl2-26b": "internvl2_26b",
+    "gemma3-4b": "gemma3_4b",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
+    # the paper's own evaluation model (serverless benchmarks)
+    "bert-large": "bert_large",
 }
 
-ARCH_IDS = list(_ARCH_MODULES)
+# bert-large is also the paper's Table 1 model: as an arch id it would
+# shadow that profile, so it is reachable through get_config only
+ARCH_IDS = [k for k in _ARCH_MODULES if k != "bert-large"]
 
 
 def get_config(arch_id: str) -> ArchConfig:

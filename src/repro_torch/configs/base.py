@@ -1,11 +1,11 @@
 """Architecture configuration (``repro.configs.base`` for the port).
 
-The port covers token decoder LMs of ATTN and MAMBA mixers with DENSE_FF or
-MOE_FF feed-forwards; the xLSTM mixers (SLSTM, MLSTM) are named so configs
-stay comparable, and anything that would need them raises.  A model is a
-sequence of *period instances*, each a static list of :class:`LayerSpec`,
+The port covers every mixer (ATTN, MAMBA, SLSTM, MLSTM) and feed-forward
+(DENSE_FF, MOE_FF, NO_FF) kind of the JAX package, decoders and encoders,
+with the audio and vision frontends as precomputed embeddings.  A model is
+a sequence of *period instances*, each a static list of :class:`LayerSpec`,
 exactly as in the JAX package, so stage cuts and parameter stacking carry
-over.
+over.  The mesh fields (``stages``, ``tensor``) wait for the mesh path.
 """
 from __future__ import annotations
 
@@ -24,10 +24,6 @@ MOE_FF = "moe"
 NO_FF = "none"
 
 GLOBAL_WINDOW = 0  # sentinel: full (global) attention
-
-OTHER_FAMILIES = ("not ported yet: ROADMAP port queue item 6b (xLSTM mixers, the "
-                  "encoders and the audio/vision frontends)")
-
 
 @dataclass(frozen=True)
 class LayerSpec:
@@ -62,6 +58,14 @@ class MambaCfg:
 
 
 @dataclass(frozen=True)
+class XLSTMCfg:
+    # Projection factor of the mLSTM up-projection and sLSTM ffn.
+    m_proj_factor: float = 2.0
+    s_proj_factor: float = 4.0 / 3.0
+    conv_kernel: int = 4
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str  # dense | moe | ssm | hybrid | vlm | audio
@@ -76,11 +80,14 @@ class ArchConfig:
     period: Sequence[LayerSpec] = (LayerSpec(),)
     moe: Optional[MoECfg] = None
     mamba: Optional[MambaCfg] = None
+    xlstm: Optional[XLSTMCfg] = None
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-5
     causal: bool = True
+    is_encoder: bool = False          # encoder-only (no decode shapes)
     frontend: str = "none"            # none | audio | vision
+    n_frontend_tokens: int = 256      # vision: #patch embeddings prepended
     tie_embeddings: bool = False
     # dtype of params/activations on the target hardware
     param_dtype: str = "bfloat16"
@@ -103,6 +110,27 @@ class ArchConfig:
     def layer_spec(self, i: int) -> LayerSpec:
         return self.period[i % self.period_len]
 
+    @property
+    def uses_attention(self) -> bool:
+        return any(s.mixer == ATTN for s in self.period)
+
+    @property
+    def subquadratic(self) -> bool:
+        """True if a 500k-token decode context is feasible (no full O(L^2)
+        attention with an unbounded KV cache on every layer)."""
+        if all(s.mixer != ATTN for s in self.period):
+            return True
+        n_attn = sum(1 for s in self.period if s.mixer == ATTN)
+        n_global = sum(1 for s in self.period if s.mixer == ATTN and s.window == GLOBAL_WINDOW)
+        return n_global < n_attn or n_attn * 4 <= len(self.period)
+
+    def supports_shape(self, shape_name: str) -> bool:
+        if self.is_encoder and shape_name in ("decode_32k", "long_500k"):
+            return False
+        if shape_name == "long_500k" and not self.subquadratic:
+            return False
+        return True
+
     def param_count(self) -> int:
         """Approximate parameter count (embeddings + per-layer, excl. norms)."""
         d, hd = self.d_model, self.hd
@@ -116,8 +144,11 @@ class ArchConfig:
                 mc = self.mamba or MambaCfg()
                 di = mc.d_inner(d)
                 total += d * 2 * di + di * mc.d_conv + di * (2 * mc.d_state + 2) + di * d
-            else:
-                raise NotImplementedError(f"{spec.mixer} layers: {OTHER_FAMILIES}")
+            else:  # SLSTM / MLSTM: JAX's approximation, which the profiles read
+                xc = self.xlstm or XLSTMCfg()
+                f = xc.m_proj_factor if spec.mixer == MLSTM else xc.s_proj_factor
+                di = int(d * f)
+                total += 2 * d * di + di * d + 4 * d * di  # up/gate/down + gates
             if spec.ff == DENSE_FF:
                 total += 3 * d * self.d_ff
             elif spec.ff == MOE_FF:
@@ -162,6 +193,7 @@ class ArchConfig:
             vocab_size=min(self.vocab_size, 1024),
             moe=moe,
             period=period,
+            n_frontend_tokens=min(self.n_frontend_tokens, 16),
             param_dtype="float32",
         )
 
@@ -183,3 +215,5 @@ def validate(cfg: ArchConfig) -> None:
         raise ValueError(f"{cfg.name}: MoE layers without a MoECfg")
     if any(s.mixer == MAMBA for s in cfg.period) and cfg.mamba is None:
         raise ValueError(f"{cfg.name}: Mamba layers without a MambaCfg")
+    if any(s.mixer in (SLSTM, MLSTM) for s in cfg.period) and cfg.xlstm is None:
+        raise ValueError(f"{cfg.name}: xLSTM layers without an XLSTMCfg")

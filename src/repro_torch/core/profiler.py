@@ -127,8 +127,7 @@ def arch_config(model: str) -> ArchConfig:
         raise KeyError(
             f"{model!r} is not an arch id the port runs ({sorted(ARCH_IDS)}; "
             "reduced spelling: <arch>@reduced[<L>], full width cut: "
-            "<arch>@layers<L>); the paper's Table 1 models are analytic-only, "
-            "and the other archs wait for ROADMAP port queue item 6b")
+            "<arch>@layers<L>); the paper's Table 1 models are analytic-only")
     cfg = get_config(base)
     if spec:
         kind = "layers" if spec.startswith("layers") else "reduced"

@@ -1497,14 +1497,24 @@ flash_wgmma_dkdv_split_kernel(const __grid_constant__ CUtensorMap map_q,
 // ------------------------------------------------------------ backward: dQ
 // One block per (batch, q head, 128 q rows); Q and dO stay in shared
 // memory, K and V tiles of 64 keys stream through the ring.
+//
+// dQ = scale * sum_j dS_ij (k_j - c) for kmean's c, the keys' mean over the
+// sequence ([B, Hkv, HD] bf16): the same gradient, since sum_j dS_ij is zero
+// in exact arithmetic, but D = rowsum(dO O) comes from the rounded O and dS
+// is rounded to bf16, so that sum is not zero, and times keys that share a
+// large common component it cost dq 4% of its largest value (bert-large's
+// deeper layers at init; SDPA's flash backend as much).  Each row's sum of
+// the rounded dS is kept in fp32 and r_i c subtracted before the store.
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
                       const __grid_constant__ CUtensorMap map_v,
                       const __grid_constant__ CUtensorMap map_do, const float* __restrict__ lse,
-                      const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int S,
-                      int Hq, int Hkv, int causal, int window, float scale, float scale_log2) {
+                      const float* __restrict__ delta,
+                      const __nv_bfloat16* __restrict__ kmean,
+                      __nv_bfloat16* __restrict__ dq, int S, int Hq, int Hkv, int causal,
+                      int window, float scale, float scale_log2) {
   constexpr int BQ = kDqBQ, BK = dq_bk(HD), HDP = 64 * n_boxes(HD);
   constexpr int NC = acc_chunks(HD), AW = HDP / NC / 2;
   constexpr uint32_t kQ = tile_bytes<HD, BQ>(), kK = tile_bytes<HD, BK>();
@@ -1561,7 +1571,7 @@ flash_wgmma_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     const int row0 = q0 + wg * 64 + warp * 16 + lane / 4;  // rows row0 and row0 + 8
     const int col0 = 2 * (lane % 4);
     const size_t stat = (static_cast<size_t>(b) * Hq + h) * S;
-    float lse2[2], dd[2];
+    float lse2[2], dd[2], rs[2] = {0.f, 0.f};  // rs: each row's sum of the rounded dS
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = row0 + 8 * hh;
@@ -1609,6 +1619,8 @@ flash_wgmma_dq_kernel(const __grid_constant__ CUtensorMap map_q,
           dsv[e] = p * (dp[i] - dd[hh]);
         }
         dsr[j] = pack_bf16(dsv[0], dsv[1]);
+        const float2 rounded = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&dsr[j]));
+        rs[hh] += rounded.x + rounded.y;
       }
 
       // dQ += dS K: A from registers, B = K, MN-major
@@ -1621,6 +1633,26 @@ flash_wgmma_dq_kernel(const __grid_constant__ CUtensorMap map_q,
       if (threadIdx.x % 128 == 0) mbar_arrive(empty(s));
     }
 
+    // dQ -= r c: each row's four lanes reduce in a fixed order
+    const __nv_bfloat16* c = kmean + (static_cast<size_t>(b) * Hkv + hk) * HD;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
+      rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
+    }
+#pragma unroll
+    for (int cc = 0; cc < NC; ++cc) {
+#pragma unroll
+      for (int j = 0; j < AW / 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = cc * 2 * AW + 8 * j + col0 + e;
+          const float cv = col < HD ? __bfloat162float(c[col]) : 0.f;
+          acc[cc][4 * j + e] -= rs[0] * cv;
+          acc[cc][4 * j + 2 + e] -= rs[1] * cv;
+        }
+      }
+    }
     const size_t row_stride = static_cast<size_t>(Hq) * HD;
     store_acc<HD>(dq + static_cast<size_t>(b) * S * row_stride + static_cast<size_t>(h) * HD,
                   row_stride, row0, col0, S, acc, {scale, scale});
@@ -1753,8 +1785,9 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 
 template <int HD>
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* o, const void* lse,
-                const void* dout, void* delta, void* dq, void* dk, void* dv, int B, int S, int Hq,
-                int Hkv, int causal, int window, float scale, cudaStream_t stream) {
+                const void* dout, void* delta, void* dq, void* dk, void* dv, const void* kmean,
+                int B, int S, int Hq, int Hkv, int causal, int window, float scale,
+                cudaStream_t stream) {
   CUtensorMap kv_q, kv_k, kv_v, kv_do, q_q, q_k, q_v, q_do;
   // the dK/dV pass streams 64-row Q and dO tiles against 128 keys (64 at hd
   // 256), the dQ pass 64-key K and V tiles (32 at hd 256) against 128 q rows
@@ -1793,9 +1826,9 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o, cons
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 grid_q((S + kDqBQ - 1) / kDqBQ, B * Hq);
-  dqk<<<grid_q, kThreads, dq_smem<HD>(), stream>>>(q_q, q_k, q_v, q_do, lt, dt,
-                                                    static_cast<__nv_bfloat16*>(dq), S, Hq, Hkv,
-                                                    causal, window, scale, scale * kLog2e);
+  dqk<<<grid_q, kThreads, dq_smem<HD>(), stream>>>(
+      q_q, q_k, q_v, q_do, lt, dt, static_cast<const __nv_bfloat16*>(kmean),
+      static_cast<__nv_bfloat16*>(dq), S, Hq, Hkv, causal, window, scale, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -3800,16 +3833,18 @@ extern "C" int repro_flash_wgmma_fwd(const void* q, const void* k, const void* v
 }
 
 // The backward's three launches: D = rowsum(dO * O) into `delta` ([B, Hq, S]
-// fp32 scratch), the dK/dV pass, the dQ pass.
+// fp32 scratch), the dK/dV pass, the dQ pass; kmean is the keys' mean over
+// the sequence, [B, Hkv, hd] bf16 (the dQ pass's correction).
 extern "C" int repro_flash_wgmma_bwd(const void* q, const void* k, const void* v, const void* o,
                                      const void* lse, const void* dout, void* delta, void* dq,
-                                     void* dk, void* dv, int B, int S, int Hq, int Hkv, int hd,
-                                     int causal, int window, float scale, void* stream) {
+                                     void* dk, void* dv, const void* kmean, int B, int S, int Hq,
+                                     int Hkv, int hd, int causal, int window, float scale,
+                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_WGMMA_BWD(HD)                                                                     \
   if (hd == HD)                                                                                 \
-    return (int)tc::bwd<HD>(q, k, v, o, lse, dout, delta, dq, dk, dv, B, S, Hq, Hkv, causal,    \
-                            window, scale, st);
+    return (int)tc::bwd<HD>(q, k, v, o, lse, dout, delta, dq, dk, dv, kmean, B, S, Hq, Hkv,     \
+                            causal, window, scale, st);
   REPRO_HEAD_DIMS(REPRO_WGMMA_BWD)
 #undef REPRO_WGMMA_BWD
   return (int)cudaErrorInvalidValue;

@@ -12,16 +12,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (
-    ATTN,
-    DENSE_FF,
-    MAMBA,
-    MOE_FF,
-    NO_FF,
-    OTHER_FAMILIES,
-    ArchConfig,
-)
-from repro_torch.models import attention, mamba, mlp, moe
+from repro_torch.configs.base import ATTN, MAMBA, MLSTM, MOE_FF, NO_FF, SLSTM, ArchConfig
+from repro_torch.models import attention, mamba, mlp, moe, xlstm
 from repro_torch.models.common import (
     dense_init,
     dtype_of,
@@ -52,13 +44,11 @@ def init_params(cfg: ArchConfig, generator: torch.Generator, *, device="cuda",
     dev = generator.device
     dtype = dtype_of(cfg.param_dtype)
     P = n_instances if n_instances is not None else cfg.n_periods
+    init_mixers = {ATTN: attention.init_attn_params, MAMBA: mamba.init_mamba_params,
+                   MLSTM: xlstm.init_mlstm_params, SLSTM: xlstm.init_slstm_params}
     layers = []
     for spec in cfg.period:
-        if spec.mixer not in (ATTN, MAMBA) or spec.ff not in (DENSE_FF, MOE_FF, NO_FF):
-            raise NotImplementedError(
-                f"{spec.mixer}/{spec.ff} layers: {OTHER_FAMILIES}")
-        init_mixer = (mamba.init_mamba_params if spec.mixer == MAMBA
-                      else attention.init_attn_params)
+        init_mixer = init_mixers[spec.mixer]
         p = {"norm1": init_norm(cfg.d_model, dtype, dev, P),
              "mixer": init_mixer(generator, cfg, dtype, P)}
         if spec.ff != NO_FF:
@@ -103,14 +93,22 @@ def _logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
 
 
 def embed_tokens(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"frontend {cfg.frontend!r}: {OTHER_FAMILIES}")
+    """Token ids [B, S] -> [B, S, d] (decode takes tokens with any frontend)."""
     return params["embed"][tokens.long()]
 
 
 def embed_inputs(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:
-    """Token embedding -> [B, S, d] (the port's archs are token LMs)."""
-    return embed_tokens(cfg, params, batch["tokens"])
+    """Token/frame/VLM embedding -> [B, S, d]: audio frames cast to the
+    params' dtype; for vision, the patch embeddings replace the first
+    ``n_frontend_tokens`` positions of the token embedding."""
+    if cfg.frontend == "audio":
+        return batch["frames"].to(dtype_of(cfg.param_dtype))
+    h = embed_tokens(cfg, params, batch["tokens"])
+    if cfg.frontend == "vision":
+        n_img = cfg.n_frontend_tokens
+        img = batch["image_embeds"].to(h.dtype)  # [B, n_img, d]
+        h = torch.cat([img, h[:, n_img:]], dim=1)
+    return h
 
 
 # ------------------------------------------------------------------- training
@@ -128,11 +126,12 @@ def forward(cfg: ArchConfig, params, batch: dict, *, use_kernels: bool = False):
 
 
 def loss_fn(cfg: ArchConfig, params, batch: dict, *, use_kernels: bool = False):
-    """Mean next-token CE -> (total, {"ce", "aux"})."""
+    """Mean next-token (decoder) or masked-prediction (encoder) CE ->
+    (total, {"ce", "aux"})."""
     h, aux = forward(cfg, params, batch, use_kernels=use_kernels)
     logits = _logits(cfg, params, h)
     labels = batch["labels"]
-    if cfg.causal:
+    if cfg.causal and not cfg.is_encoder:
         logits = logits[:, :-1]
         labels = labels[:, 1:]
     loss = torch.mean(softmax_cross_entropy(logits, labels))
@@ -143,20 +142,23 @@ def loss_fn(cfg: ArchConfig, params, batch: dict, *, use_kernels: bool = False):
 def init_decode_caches(cfg: ArchConfig, batch: int, s_ctx: int, *,
                        device="cuda", dtype: Optional[torch.dtype] = None):
     """Cache tree: tuple over period positions; leaves stacked [P, ...]:
-    ``KVCache`` for attention layers, ``MambaCache`` for Mamba ones.
-    ``device="meta"`` gives the shapes without allocating."""
+    ``KVCache`` for attention layers, ``MambaCache``, ``MLSTMCache`` and
+    ``SLSTMCache`` for the others.  ``device="meta"`` gives the shapes
+    without allocating."""
     dev = torch.device(device) if str(device) == "meta" else resolve_device(device)
     dtype = dtype or dtype_of(cfg.param_dtype)
     caches = []
     for spec in cfg.period:
         if spec.mixer == MAMBA:
             caches.append(mamba.init_mamba_cache(cfg.n_periods, batch, cfg, dtype, dev))
-        elif spec.mixer == ATTN:
+        elif spec.mixer == MLSTM:
+            caches.append(xlstm.init_mlstm_cache(cfg.n_periods, batch, cfg, dtype, dev))
+        elif spec.mixer == SLSTM:
+            caches.append(xlstm.init_slstm_cache(cfg.n_periods, batch, cfg, dtype, dev))
+        else:
             caches.append(attention.init_kv_cache(
                 cfg.n_periods, batch, cfg.n_kv_heads, attention.cache_capacity(spec, s_ctx),
                 cfg.hd, dtype, dev))
-        else:
-            raise NotImplementedError(f"{spec.mixer} caches: {OTHER_FAMILIES}")
     return tuple(caches)
 
 
@@ -172,7 +174,7 @@ def decode_step(cfg: ArchConfig, params, caches, tokens: torch.Tensor, *,
 
 def prefill(cfg: ArchConfig, params, batch: dict, *, capacity: Optional[int] = None):
     """Prefill -> (last-position logits [B,1,V], caches)."""
-    h = embed_tokens(cfg, params, batch["tokens"])
+    h = embed_inputs(cfg, params, batch)
     positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device)
     h, caches = scan_prefill(params["layers"], h, active_mask(cfg), cfg=cfg,
                              positions=positions, capacity=capacity)

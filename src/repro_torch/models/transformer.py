@@ -15,14 +15,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN, DENSE_FF, MAMBA, MOE_FF, NO_FF, OTHER_FAMILIES
-from repro_torch.models import attention, mamba, mlp, moe
+from repro_torch.configs.base import MAMBA, MLSTM, MOE_FF, NO_FF, SLSTM
+from repro_torch.models import attention, mamba, mlp, moe, xlstm
 from repro_torch.models.common import rms_norm, tree_map
-
-
-def _check(spec) -> None:
-    if spec.mixer not in (ATTN, MAMBA) or spec.ff not in (DENSE_FF, MOE_FF, NO_FF):
-        raise NotImplementedError(f"{spec.mixer}/{spec.ff} layers: {OTHER_FAMILIES}")
 
 
 def _ff(p, x, *, cfg, spec, gate, use_kernels=False):
@@ -46,10 +41,13 @@ def _add(total, aux):
 def layer_forward(p, x, active, *, cfg, spec, positions, use_kernels=False):
     """One training layer -> (x, aux); ``active`` False (a padding layer) is
     the identity, with a zero aux."""
-    _check(spec)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer == MAMBA:
         mix = mamba.mamba_forward(p["mixer"], h, cfg=cfg)
+    elif spec.mixer == MLSTM:
+        mix = xlstm.mlstm_forward(p["mixer"], h, cfg=cfg)
+    elif spec.mixer == SLSTM:
+        mix = xlstm.slstm_forward(p["mixer"], h, cfg=cfg)
     else:
         mix = attention.attn_forward(p["mixer"], h, cfg=cfg, spec=spec, positions=positions,
                                      use_kernels=use_kernels)
@@ -69,13 +67,16 @@ def period_forward(period_params, x, active, *, cfg, positions, use_kernels=Fals
 
 # ---------------------------------------------------------------------- decode
 def layer_decode(p, x, cache, active, *, cfg, spec, use_kernels=False):
-    _check(spec)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     # the decoders update the cache in place, so a padding layer (active
     # False) decodes into a copy and its own cache stays as it was
     own = cache if active else tree_map(torch.clone, cache)
     if spec.mixer == MAMBA:
         mix, new_cache = mamba.mamba_decode(p["mixer"], h, own, cfg=cfg)
+    elif spec.mixer == MLSTM:
+        mix, new_cache = xlstm.mlstm_decode(p["mixer"], h, own, cfg=cfg)
+    elif spec.mixer == SLSTM:
+        mix, new_cache = xlstm.slstm_decode(p["mixer"], h, own, cfg=cfg)
     else:
         mix, new_cache = attention.attn_decode(p["mixer"], h, own, cfg=cfg, spec=spec,
                                                use_kernels=use_kernels)
@@ -97,10 +98,13 @@ def period_decode(period_params, x, caches, active, *, cfg, use_kernels=False):
 # --------------------------------------------------------------------- prefill
 def layer_prefill(p, x, active, *, cfg, spec, positions, capacity=None):
     """Forward + cache construction (serving prefill)."""
-    _check(spec)
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer == MAMBA:
         mix, cache = mamba.mamba_forward(p["mixer"], h, cfg=cfg, return_state=True)
+    elif spec.mixer == MLSTM:
+        mix, cache = xlstm.mlstm_forward(p["mixer"], h, cfg=cfg, return_state=True)
+    elif spec.mixer == SLSTM:
+        mix, cache = xlstm.slstm_forward(p["mixer"], h, cfg=cfg, return_state=True)
     else:
         mix, cache = attention.attn_prefill(p["mixer"], h, cfg=cfg, spec=spec,
                                             positions=positions, capacity=capacity)

@@ -147,8 +147,8 @@ class StageWorker:
                  device="cuda"):
         if cfg.frontend != "none":
             raise NotImplementedError(
-                "runtime numeric execution covers token LMs; frontend "
-                f"{cfg.frontend!r} is not wired up")
+                "runtime numeric execution covers token-LM archs; "
+                f"frontend={cfg.frontend!r} is not wired up")
         if cfg.tie_embeddings and span.n_stages > 1:
             raise NotImplementedError(
                 "tied embeddings span two stages; untie or use a single stage")
@@ -206,7 +206,7 @@ class StageWorker:
             head_w = params["embed"] if cfg.tie_embeddings else params["head"]
             logits = h @ head_w.T
             labels = batch_mb["labels"]
-            if cfg.causal:
+            if cfg.causal and not cfg.is_encoder:
                 logits = logits[:, :-1]
                 labels = labels[:, 1:]
             return torch.mean(softmax_cross_entropy(logits, labels)), aux

@@ -99,6 +99,17 @@ AWS = get_platform("aws")
 WAIT = 60.0                     # every join and get: generous, never a sleep
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's CPU torch runs: the suite runs
+    several workers on the host's cores, and torch pools of a thread a core
+    each starve one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------- the fake S3 client
 class FakeClientError(Exception):
     """botocore.exceptions.ClientError look-alike: carries .response."""

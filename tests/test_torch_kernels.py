@@ -44,6 +44,17 @@ CASES = [(512, 1), (512, 511), (1024, 700), (2048, 2048)]
 HEADS = [(8, 2, 64), (4, 4, 128), (16, 2, 128)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's CPU torch runs: the suite runs
+    several workers on the host's cores, and torch pools of a thread a core
+    each starve one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(B, Hq, Hkv, C, hd, seed=3):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((B, Hq, hd), dtype=np.float32),
@@ -922,10 +933,11 @@ def test_flash_wrappers_launch_and_count_by_route(monkeypatch, dtype, hd, offset
     for name, args in lib.calls:   # every call matches the arity it was bound with
         assert len(args) == len(lib.argtypes[name]), name
     # (B, S, Hq, Hkv, hd) follow the pointers; the tensor-core backwards also
-    # pass their D scratch, the tf32x3 route its split planes' workspace
+    # pass their D scratch, the wgmma route the keys' means (its dQ pass's
+    # correction), the tf32x3 route its split planes' workspace
     # (last of the pointers: at hd 256 an allocation of workspace()'s size,
     # below it none), the simt kernels the dtype code
-    n_ptrs = {"repro_flash_wgmma_fwd": 5, "repro_flash_wgmma_bwd": 10,
+    n_ptrs = {"repro_flash_wgmma_fwd": 5, "repro_flash_wgmma_bwd": 11,
               "repro_flash_tf32x3_fwd": 6, "repro_flash_tf32x3_bwd": 11,
               "repro_flash_attention_fwd": 5, "repro_flash_attention_bwd": 9}
     for name, args in lib.calls:

@@ -40,6 +40,17 @@ TOL = dict(rtol=2e-4, atol=2e-4)
 B, S = 2, 8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's CPU torch runs: the suite runs
+    several workers on the host's cores, and torch pools of a thread a core
+    each starve one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(model):
     """(port cfg, jax cfg) of an ``ARCHS`` id."""
     base, _, spec = model.partition("@")

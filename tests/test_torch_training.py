@@ -60,6 +60,17 @@ AWS = get_platform("aws")
 PHI3 = "phi3-mini-3.8b"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file's CPU torch runs: the suite runs
+    several workers on the host's cores, and torch pools of a thread a core
+    each starve one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfgs(arch=PHI3, n_layers=None):
     jcfg, cfg = jconfigs.get_config(arch).reduced(), get_config(arch).reduced()
     if n_layers is not None:
@@ -555,8 +566,12 @@ def test_make_batch_is_seeded_zipf():
     jtoks = np.asarray(jax_make_batch(_cfgs()[0], JaxInputShape("z", 512, 64, "train"))
                        ["tokens"])
     assert abs(float((jtoks == 0).mean()) - expect) < 0.01
-    with pytest.raises(NotImplementedError):
-        make_batch(cfg, InputShape("z", 8, 1, "decode"), device="cpu")
+    # decode batches: one uniform token a sequence, as JAX's randint
+    dec = make_batch(cfg, InputShape("z", 8, 4096, "decode"), device="cpu")
+    assert sorted(dec) == ["tokens"] and dec["tokens"].shape == (4096, 1)
+    assert dec["tokens"].dtype == torch.int32
+    assert int(dec["tokens"].min()) >= 0 and int(dec["tokens"].max()) < cfg.vocab_size
+    assert abs(float((dec["tokens"] == 0).float().mean()) - 1 / cfg.vocab_size) < 0.002
 
 
 def test_training_run_never_imports_jax():
