@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure is an uncaught exception
+Phases, each printing one JSON line (``script_s``: the seconds since the
+script started); any failure is an uncaught exception
 and a non-zero exit:
 
 1. device -- CUDA must be present; the card's name and power limit.
@@ -180,23 +181,23 @@ and a non-zero exit:
 18. ``train_jamba_reduced`` -- jamba@reduced, fp32, one stage, SGD, 1 step,
    kernels on and off: Mamba's backward, 2 flash and 8 swiglu launches on
    tf32x3; losses within 5e-5, params within 1e-4.
-19. encoder training (``train_bert``) -- bert-large at full width and depth
-   (24 layers, 465 M params), bf16, seed 0: 2 stages of 12 layers x 2
+19. encoder training (``train_bert``) -- bert-large at full width, cut to
+   12 layers since PR 25 (24 before), bf16, seed 0: 2 stages of 6 layers x 2
    replicas, 2 micro-batches of 4 x 512 tokens, AdamW, 2 steps through
    ``run_plan(..., use_kernels=True)``: the encoder's loss (no shift) and
-   attention with no mask; 96 + 96 flash and 96 + 96 swiglu launches a
+   attention with no mask; 48 + 48 flash and 48 + 48 swiglu launches a
    step, all wgmma and none causal, every call of step 1 held against
    ``impl="ref"``; the first loss within 2e-2 of the kernels' plain
    versions'; replicas bit-identical; step times and peak memory.
-20. audio (``train_hubert``) -- hubert-xlarge at full width and depth (48
-   layers, 1.26 B params), bf16: ``registry.loss_fn(use_kernels=True)`` on
+20. audio (``train_hubert``) -- hubert-xlarge at full width, cut to 24
+   layers since PR 25 (48 before), bf16: ``registry.loss_fn(use_kernels=True)`` on
    a frames batch of 2 x 1024 and its backward (the stage workers refuse
-   frontends in both packages): 48 + 48 flash launches at hd 80 with no
-   mask and 48 + 48 swiglu, each call held; the loss within 2e-2 of the
+   frontends in both packages): 24 + 24 flash launches at hd 80 with no
+   mask and 24 + 24 swiglu, each call held; the loss within 2e-2 of the
    kernels' plain versions'; no gradient for the unused embedding; one SGD
    step lowers the loss.
-21. xLSTM training (``train_xlstm``) -- xlstm-125m at full width and depth
-   (12 layers, 168 M params), bf16: 2 stages of 3 periods x 2 replicas, 2
+21. xLSTM training (``train_xlstm``) -- xlstm-125m at full width, cut to 4
+   layers since PR 25 (12 before), bf16: 2 stages of one period x 2 replicas, 2
    micro-batches of 4 x 512 tokens (two mLSTM chunks), AdamW, 1 step: no
    kernel launch (the scans are plain PyTorch), the first loss near
    ln(50304), replicas bit-identical, the device's idle share in the step;
@@ -211,6 +212,29 @@ and a non-zero exit:
    first 256 positions are patch embeddings, then 15 decode rounds on the
    kernel: 120 decode launches at G 6, each held within 2e-2 of
    ``impl="ref"``; prefill and round times, peak memory.
+
+24. mesh training (``train_mesh``) -- ``train_full``'s model (phi3-mini-3.8b,
+   full width, 4 layers, bf16) and batches on the rank mesh: four spawned
+   ranks share the card, each with its own CUDA context, every collective
+   through gloo over a host copy.  (a) data 2 x model 2 (2 stages, tp 1, mu
+   2), AdamW(1e-4), 2 steps on the bidirectional ring, then step 2 again
+   from the state after step 1 on the unidirectional ring; (b) data 1 x
+   model 4 (2 stages x tp 2, mu 4), the same 2 steps, then one SGD(1.0)
+   step from the initial state.  Holds: (a)'s first loss within 2e-2 of
+   ``train_full``'s and of the single-process plain loss, (b)'s within 2e-2
+   of (a)'s, the data replicas bit-identical after every step, the two
+   rings' step-2 parameters within 2e-2 x max|ref| of each other, (b)'s
+   SGD step within 2e-2 x max|ref| of the single-process step with the
+   plain versions on every leaf, exact launches (the forward's twice a
+   micro-batch under remat "tick") all on wgmma.  Step wall times, each
+   step's collectives by category (seconds, calls, bytes), peak memory and
+   launches by rank.
+25. mesh serving (``serve_mesh``) -- ``serve_full``'s request (32 layers,
+   batch 4, 1008 + 16) on four ranks: 4 stages x tp 1 with one
+   micro-batch, tokens equal to ``serve_full``'s; 2 stages x tp 2 fed the
+   same tokens, its tokens and largest logit drift reported; decode
+   attention launches (8 / 16 layers a rank x 15 rounds), prefill and round
+   times, peak memory and collectives by rank.
 
 ``kernel_parity`` also holds and times (``_encoders_parity``) flash
 attention with no mask at bert-large's [4,512,16,16,64] and
@@ -232,13 +256,16 @@ given apart as ``launches_backend_phases``, those of ``train_planned``,
 families' runs' as ``launches_reduced_families``; and the encoders' and
 the vision model's shapes: ``flash_attention_bert``, ``swiglu_bert`` and
 their backwards from train_bert, the same ``_hubert`` rows from
-train_hubert, ``decode_attention_internvl2`` from serve_internvl2), the
+train_hubert, ``decode_attention_internvl2`` from serve_internvl2; every
+row's ``launches_mesh`` the mesh phases' launches summed over the ranks,
+included in ``launches``), the
 ``nvidia-smi`` name/power line and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -263,7 +290,9 @@ from repro_torch.api.plan import DeploymentPlan, profile_fingerprint  # noqa: E4
 from repro_torch.api.session import DEFAULT_ALPHA  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ATTN, DENSE_FF, InputShape  # noqa: E402
-from repro_torch.core import planner  # noqa: E402
+from repro_torch.core import collectives as mesh_cc  # noqa: E402
+from repro_torch.core import planner, sharding  # noqa: E402
+from repro_torch.core.plan import make_plan  # noqa: E402
 from repro_torch.core.perfmodel import Config  # noqa: E402
 from repro_torch.core.profiler import arch_model_profile, resolve_profile  # noqa: E402
 from repro_torch.data.synthetic import make_batch  # noqa: E402
@@ -273,6 +302,7 @@ from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kernel_ref  # noqa: E402
 from repro_torch.kernels import swiglu as sg_kernel  # noqa: E402
+from repro_torch.launch.mesh import MeshShape, run_jobs  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import xlstm as xlstm_mod  # noqa: E402
@@ -294,6 +324,13 @@ from repro_torch.serving import (  # noqa: E402
     run_serve_plan,
 )
 from repro_torch.serving.worker import greedy_token  # noqa: E402
+from repro_torch.testing.pipeline_equiv import reference_step  # noqa: E402
+from repro_torch.train import serve_step as mesh_serve  # noqa: E402
+from repro_torch.train.train_step import (  # noqa: E402
+    local_batch,
+    make_train_state,
+    make_train_step,
+)
 
 SLEEP_CYCLES = 4_000_000       # ~2 ms at the H100's clock: covers a call's host side
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).  fp32-accurate
@@ -368,7 +405,13 @@ TRAIN_GEMMA = dict(n_layers=12, seq=2048, micro_batch=1, d=1, mu=2, steps=2, cut
 TRAIN_GEMMA_FP32 = dict(n_layers=6, seq=2048, micro_batch=1, d=1, mu=2, steps=1, cut=-1)
 
 
+T_START = time.perf_counter()
+
+
 def emit(doc: dict) -> None:
+    """One JSON line; a phase's line carries the script's seconds so far."""
+    if "phase" in doc:
+        doc = {**doc, "script_s": time.perf_counter() - T_START}
     print(json.dumps(doc), flush=True)
 
 
@@ -2006,6 +2049,7 @@ def phase_train_full(smi: str) -> dict:
                              f"{losses_plain[0]} on the plain path")
     profile = profile_train_step(cfg, prof, plat, config, M, params, batches, AdamW(lr=1e-4))
     RESULTS["train_full_step_wall_s"] = run["step_wall_s"]
+    RESULTS["train_full_losses"] = losses
     emit({"phase": "train_full", "card": smi, "model": "phi3-mini-3.8b",
           "dtype": cfg.param_dtype, "n_layers": cfg.n_layers, "params": n_params,
           "stages": 2, "d": d, "mu": mu, "micro_batch": spec["micro_batch"],
@@ -3192,17 +3236,21 @@ SWIGLU_BERT = (2048, 1024, 4096)
 SWIGLU_HUBERT = (2048, 1280, 5120)
 INTERNVL2_DECODE = dict(B=4, Hq=48, Hkv=8, hd=128, C=1040)
 GEMMA3_DECODE = dict(B=4, Hq=8, Hkv=4, hd=256, C=1040)
-# bert-large at full width and depth: 2 stages of 12 layers x 2 replicas
-TRAIN_BERT = dict(n_layers=24, seq=512, micro_batch=4, d=2, mu=2, steps=2, cut=12)
+# bert-large at full width, cut to 12 of its 24 layers (the script's time
+# budget): 2 stages of 6 layers x 2 replicas
+TRAIN_BERT = dict(n_layers=12, seq=512, micro_batch=4, d=2, mu=2, steps=2, cut=6)
 # hubert-xlarge's loss and gradients: one frames batch of 2 x 1024; the SGD
 # step tries JAX's test's lr first and halves it (about 2/5 each time) until
 # the loss falls: at d 1280 a softmax head's curvature is ~d/4 per unit of
 # lr, so 0.05 overshoots (it raised the loss 6.45 -> 8.20 on an H100)
-HUBERT_BATCH = dict(batch=2, seq=1024, lrs=(0.05, 0.02, 0.01, 0.005, 0.002, 0.001))
-# xlstm-125m at full width and depth: 2 stages of 3 periods x 2 replicas; 512
-# tokens are two mLSTM chunks; one step (~27 s on an H100: the sLSTM's
-# step loop launches ~1.1 M kernels a step from the host)
-TRAIN_XLSTM = dict(n_layers=12, seq=512, micro_batch=4, d=2, mu=2, steps=1, cut=6)
+# (full width, cut to 24 of its 48 layers for the script's time budget)
+HUBERT_BATCH = dict(batch=2, seq=1024, n_layers=24,
+                    lrs=(0.05, 0.02, 0.01, 0.005, 0.002, 0.001))
+# xlstm-125m at full width, cut to 4 of its 12 layers (the script's time
+# budget): 2 stages of one period x 2 replicas; 512 tokens are two mLSTM
+# chunks; one step (at 12 layers ~27-45 s on an H100: the sLSTM's step
+# loop launches ~1.1 M kernels a step from the host)
+TRAIN_XLSTM = dict(n_layers=4, seq=512, micro_batch=4, d=2, mu=2, steps=1, cut=2)
 SERVE_XLSTM = dict(batch=4, prefill_tokens=512, new_tokens=16)
 # the decode caches of xlstm-125m at batch 4, summed over its 6 periods: 6 x
 # (mLSTM C, n, m, conv 9,498,688 + sLSTM c, n, m, h 43,008) bytes, as JAX's
@@ -3374,17 +3422,17 @@ def _tracked_training(cfg, spec: dict, params, optimizer, *, checker=None,
 
 
 def phase_train_bert(smi: str) -> dict:
-    """bert-large at full width and depth (24 layers, 465 M params), bf16,
-    seed 0: 2 stages of 12 layers x 2 replicas, 2 micro-batches of 4 x 512
+    """bert-large at full width cut to 12 layers (``TRAIN_BERT``), bf16,
+    seed 0: 2 stages of 6 layers x 2 replicas, 2 micro-batches of 4 x 512
     tokens, AdamW, 2 steps through ``run_plan(..., use_kernels=True)``.  Its
     loss is the encoder's masked prediction (no shift) and its attention
-    has no mask: 96 + 96 flash attention and 96 + 96 swiglu launches a step,
+    has no mask: 48 + 48 flash attention and 48 + 48 swiglu launches a step,
     all on the wgmma route and none causal; in step 1 every call held
     against ``impl="ref"``; finite losses, the first within 2e-2 of the same
     plan with the kernels' plain versions; replicas bit-identical; store
     drained (``run_plan`` checks it); step times and peak memory."""
     spec = TRAIN_BERT
-    cfg = get_config("bert-large")
+    cfg = dataclasses.replace(get_config("bert-large"), n_layers=spec["n_layers"])
     torch.cuda.empty_cache()
     params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                                   device="cuda")
@@ -3437,18 +3485,18 @@ def phase_train_bert(smi: str) -> dict:
 
 
 def phase_train_hubert(smi: str) -> dict:
-    """hubert-xlarge at full width and depth (48 layers, 1.26 B params),
+    """hubert-xlarge at full width cut to 24 layers (``HUBERT_BATCH``),
     bf16, seed 0: the audio model's entry point, ``registry.loss_fn(...,
     use_kernels=True)``, on a frames batch of 2 x 1024 (the stage workers
-    refuse frontends in both packages), then its backward: 48 + 48 flash
-    attention launches at hd 80 with no mask and 48 + 48 swiglu, all on the
+    refuse frontends in both packages), then its backward: 24 + 24 flash
+    attention launches at hd 80 with no mask and 24 + 24 swiglu, all on the
     wgmma route, every call and gradient held against ``impl="ref"``; the
     loss within 2e-2 of the kernels' plain versions'; the unused ``embed``
     gets no gradient (exactly zero, as ``jax.grad`` gives); one SGD step
     lowers the loss (``tests/test_smoke_archs.py:20-46``; its lr 0.05
     first, then smaller ones until one does).  Times and peak memory."""
     spec = HUBERT_BATCH
-    cfg = get_config("hubert-xlarge")
+    cfg = dataclasses.replace(get_config("hubert-xlarge"), n_layers=spec["n_layers"])
     torch.cuda.empty_cache()
     params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                                   device="cuda")
@@ -3568,8 +3616,8 @@ def _xlstm_recurrent_parity() -> dict:
 
 
 def phase_train_xlstm(smi: str) -> dict:
-    """xlstm-125m at full width and depth (12 layers, 168 M params), bf16,
-    seed 0: 2 stages of 3 periods (an mLSTM and an sLSTM layer each) x 2
+    """xlstm-125m at full width cut to 4 layers (``TRAIN_XLSTM``), bf16,
+    seed 0: 2 stages of one period (an mLSTM and an sLSTM layer) x 2
     replicas, 2 micro-batches of 4 x 512 tokens (two mLSTM chunks, so the
     carried state runs), AdamW, 1 step through ``run_plan``: no kernel of
     the port on this path (its scans are plain PyTorch, as they are plain
@@ -3579,7 +3627,7 @@ def phase_train_xlstm(smi: str) -> dict:
     busy).  Then the recurrent and parallel forms at full width in fp32
     (:func:`_xlstm_recurrent_parity`)."""
     spec = TRAIN_XLSTM
-    cfg = get_config("xlstm-125m")
+    cfg = dataclasses.replace(get_config("xlstm-125m"), n_layers=spec["n_layers"])
     torch.cuda.empty_cache()
     params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                                   device="cuda")
@@ -3724,6 +3772,349 @@ def phase_serve_internvl2(smi: str) -> int:
     torch.cuda.empty_cache()
     return launches
 
+# --------------------------------------------------------------- the mesh path
+MESH_TRAIN = dict(TRAIN)        # train_full's model, batch (2 x 2 x 2 x 1024) and steps
+MESH_SGD_LR = 1.0               # large enough that one step moves bf16 weights visibly
+MESH_RANKS = 4                  # four ranks share the card, each its own CUDA context
+
+
+def _param_digest(params) -> str:
+    h = hashlib.sha256()
+    for t in tree_leaves(params):
+        h.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rel_err(got, want) -> dict:
+    """Per leaf max |got - want| over max |want|: the worst leaf's index and
+    ratio."""
+    worst = (-1, 0.0)
+    for i, (a, b) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        scale = max(float(b.float().abs().max()), 1e-30)
+        r = float((a.float() - b.float()).abs().max()) / scale
+        if r > worst[1]:
+            worst = (i, r)
+    return {"leaf": worst[0], "max_abs_err_over_max_ref": worst[1]}
+
+
+def _mesh_layers(cfg, plan) -> int:
+    """Real layers one rank of ``plan`` holds."""
+    return int(sharding.layer_mask_array(cfg, plan)[0].sum())
+
+
+def _mesh_train_rank(mesh, cfg, plan, spec: dict, optimizer, alt_ring: bool,
+                     sgd_ref) -> dict:
+    """One rank of train_mesh: ``spec["steps"]`` steps of ``optimizer`` on
+    train_full's batches with the kernels, each step's wall time,
+    collectives and parameter digest; with ``alt_ring`` the last step again
+    from the state before it on the unidirectional ring; with ``sgd_ref``
+    (the single-process SGD step's parameters, a file) one SGD step from
+    the initial state held against it."""
+    dev = mesh.device
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    shape = InputShape("train", spec["seq"], spec["d"] * spec["mu"] * spec["micro_batch"],
+                       "train")
+
+    def batch(k):
+        b = make_batch(cfg, shape, seed=0, step=k, device="cpu")
+        return local_batch({n: v.to(dev) for n, v in b.items()}, plan, mesh)
+
+    def fresh(opt):
+        base = registry.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                    device=dev)
+        state = make_train_state(cfg, plan, mesh, base, opt)
+        del base
+        torch.cuda.empty_cache()
+        return state
+
+    params, opt = fresh(optimizer)
+    step = make_train_step(cfg, plan, mesh, optimizer, bidirectional=True, use_kernels=True)
+    out = {"rank": mesh.rank, "d": mesh.d, "m": mesh.m, "losses": [], "step_wall_s": [],
+           "collectives": [], "digests": []}
+    snapshot = None
+    ops.reset_launch_counts()
+    for k in range(spec["steps"]):
+        if alt_ring and k == spec["steps"] - 1:
+            snapshot = (tree_map(torch.clone, params), tree_map(torch.clone, opt))
+        b = batch(k)
+        mesh_cc.reset_stats()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, b, k)
+        torch.cuda.synchronize(dev)
+        out["step_wall_s"].append(time.perf_counter() - t0)
+        out["losses"].append(metrics["loss"])
+        out["collectives"].append(mesh_cc.stats())
+        out["digests"].append(_param_digest(params))
+    out["launches"] = ops.launch_counts()
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if snapshot is not None:
+        uni = make_train_step(cfg, plan, mesh, optimizer, bidirectional=False,
+                              use_kernels=True)
+        p_uni, _, m_uni = uni(*snapshot, batch(spec["steps"] - 1), spec["steps"] - 1)
+        out["uni_ring_last_loss"] = m_uni["loss"]
+        out["bidi_vs_uni_ring"] = _rel_err(params, p_uni)
+        out["uni_ring_bit_identical"] = _param_digest(p_uni) == out["digests"][-1]
+        del snapshot, p_uni
+    if sgd_ref is not None:
+        del params, opt
+        sgd = SGD(lr=MESH_SGD_LR)
+        params, opt = fresh(sgd)
+        params, opt, metrics = make_train_step(cfg, plan, mesh, sgd, use_kernels=True)(
+            params, opt, batch(0), 0)
+        ref = sharding.local_params(cfg, plan, torch.load(sgd_ref, mmap=True),
+                                    d=mesh.d, m=mesh.m)
+        out["sgd_loss"] = metrics["loss"]
+        out["sgd_vs_single_process"] = _rel_err(params, tree_map(lambda a: a.to(dev), ref))
+    return out
+
+
+def _mesh_summary(results: list, cfg, plan, spec: dict) -> dict:
+    """Checks common to train_mesh's runs: finite losses equal on every
+    rank, data replicas bit-identical after every step, exact launches (the
+    forward's kernels twice a micro-batch under remat "tick") all on
+    wgmma; the per-step collectives of each rank."""
+    losses = results[0]["losses"]
+    if any(r["losses"] != losses for r in results) or not all(np.isfinite(losses)):
+        raise AssertionError(f"losses differ across ranks or are not finite: "
+                             f"{[r['losses'] for r in results]}")
+    for r in results:
+        twin = next(o for o in results if o["m"] == r["m"] and o["d"] == 0)
+        if r["digests"] != twin["digests"]:
+            raise AssertionError(f"rank {r['rank']}'s parameters differ from its data "
+                                 f"replica's after a step")
+    L = _mesh_layers(cfg, plan)
+    calls = L * plan.microbatches * spec["steps"]
+    for r in results:
+        _wgmma_only(r["launches"], f"train_mesh rank {r['rank']}")
+        for name in FP32_WAYS:
+            if (r["launches"][name], r["launches"][f"{name}_bwd"]) != (2 * calls, calls):
+                raise AssertionError(f"rank {r['rank']}: {name} launched "
+                                     f"{r['launches'][name]} + {r['launches'][f'{name}_bwd']},"
+                                     f" expected {2 * calls} + {calls}")
+    return {"plan": dataclasses.asdict(plan), "losses": losses,
+            "replicas_bit_identical": [True] * spec["steps"],
+            "step_wall_s_by_rank": [r["step_wall_s"] for r in results],
+            "collectives_per_step_by_rank": [r["collectives"] for r in results],
+            "max_memory_allocated_bytes_by_rank":
+                [r["max_memory_allocated_bytes"] for r in results],
+            "launches_by_rank": [_launches_by_route(r["launches"]) for r in results]}
+
+
+def _train_mesh_jobs(spec: dict):
+    """train_mesh's preparation: the single-process SGD step with the plain
+    versions (its parameters to a file the ranks read) and the jobs of (a)
+    and (b)."""
+    base_cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), n_layers=spec["n_layers"])
+    shape = InputShape("train", spec["seq"], spec["d"] * spec["mu"] * spec["micro_batch"],
+                       "train")
+    params = registry.init_params(base_cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    batch0 = {k: v.cuda() for k, v in make_batch(base_cfg, shape, seed=0, device="cpu").items()}
+    t0 = time.perf_counter()
+    ref_new, ref_loss, _ = reference_step(base_cfg, params, batch0, SGD(lr=MESH_SGD_LR))
+    torch.cuda.synchronize()
+    ctx = {"cfg": base_cfg, "shape": shape, "ref_loss": ref_loss,
+           "t_ref": time.perf_counter() - t0,
+           "n_params": sum(a.numel() for a in tree_leaves(params)),
+           # how far the step moves the weights: its largest change over the
+           # largest weight (a zero-initialised norm has no scale of its own)
+           "update": (max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(tree_leaves(ref_new), tree_leaves(params)))
+                      / max(float(b.float().abs().max()) for b in tree_leaves(params)))}
+    TRACE_DIR.parent.mkdir(parents=True, exist_ok=True)
+    ctx["ref_path"] = str(TRACE_DIR.parent / "mesh_sgd_ref.pt")
+    torch.save(tree_map(lambda a: a.cpu(), ref_new), ctx["ref_path"])
+    del params, ref_new, batch0
+    torch.cuda.empty_cache()
+    jobs, ctx["meshes"] = [], {}
+    for name, (data, stages, tensor, mu) in {"a": (2, 2, 1, 2), "b": (1, 2, 2, 4)}.items():
+        cfg = dataclasses.replace(base_cfg, stages=stages, tensor=tensor)
+        plan = make_plan(cfg, shape, data=data, model=stages * tensor, microbatches=mu)
+        ctx["meshes"][name] = (cfg, plan)
+        jobs.append((_mesh_train_rank,
+                     MeshShape(data=data, model=stages * tensor, tensor=tensor,
+                               kv_heads=cfg.n_kv_heads),
+                     (cfg, plan, spec, AdamW(lr=1e-4), name == "a",
+                      ctx["ref_path"] if name == "b" else None)))
+    return jobs, ctx
+
+
+def _train_mesh_report(smi: str, spec: dict, ctx: dict, outs: list, wall: float) -> dict:
+    """train_mesh's holds and its line: (a)'s first loss within 2e-2 of
+    train_full's and of the single-process plain loss, (b)'s within 2e-2 of
+    (a)'s, the rings' step 2 and (b)'s SGD step within 2e-2 x max|ref|."""
+    a, b = (_mesh_summary(o, *ctx["meshes"][k], spec) for k, o in zip("ab", outs))
+    full_first = RESULTS.get("train_full_losses", [None])[0]
+    for want, what in ((full_first, "train_full's first loss"),
+                       (ctx["ref_loss"], "the single-process plain loss")):
+        if want is not None and abs(a["losses"][0] - want) > 2e-2:
+            raise AssertionError(f"(a)'s first loss {a['losses'][0]} vs {what} {want}")
+    if abs(b["losses"][0] - a["losses"][0]) > 2e-2:
+        raise AssertionError(f"(b)'s first loss {b['losses'][0]} vs (a)'s {a['losses'][0]}")
+    rings = [r["bidi_vs_uni_ring"] for r in outs[0]]
+    if max(r["max_abs_err_over_max_ref"] for r in rings) > 2e-2:
+        raise AssertionError(f"the rings' step-2 parameters differ past the bf16 bar: {rings}")
+    sgd = [r["sgd_vs_single_process"] for r in outs[1]]
+    if max(r["max_abs_err_over_max_ref"] for r in sgd) > 2e-2:
+        raise AssertionError(f"(b)'s SGD step differs from the single-process step: {sgd}")
+    launches = {k: sum(r["launches"][k] for o in outs for r in o)
+                for k in ("flash_attention", "flash_attention_bwd", "swiglu", "swiglu_bwd")}
+    cfg = ctx["cfg"]
+    emit({"phase": "train_mesh", "card": smi, "model": "phi3-mini-3.8b",
+          "dtype": cfg.param_dtype, "n_layers": cfg.n_layers, "params": ctx["n_params"],
+          "ranks": MESH_RANKS, "transport": mesh_cc.TRANSPORT, "seq": spec["seq"],
+          "global_batch": ctx["shape"].global_batch, "optimizer": "AdamW(lr=1e-4)",
+          "remat": "tick", "world_wall_s": wall,
+          "first_loss_train_full": full_first,
+          "first_loss_single_process_plain": ctx["ref_loss"],
+          "single_process_sgd_step_s": ctx["t_ref"],
+          "a_data2_model2": {**a, "ring": "bidirectional",
+                             "step2_uni_ring_loss": outs[0][0]["uni_ring_last_loss"],
+                             "step2_bidi_vs_uni_ring_by_rank": rings,
+                             "step2_uni_ring_bit_identical":
+                                 [r["uni_ring_bit_identical"] for r in outs[0]]},
+          "b_data1_model4_tp2": {**b, "sgd_lr": MESH_SGD_LR,
+                                 "sgd_loss": outs[1][0]["sgd_loss"],
+                                 "sgd_single_process_update_over_max_param": ctx["update"],
+                                 "sgd_vs_single_process_by_rank": sgd},
+          "kernel_launches": launches})
+    return launches
+
+
+def _mesh_serve_rank(mesh, cfg, plan, prompt_np, new_tokens: int, teacher) -> dict:
+    """One rank of serve_mesh: prefill then ``new_tokens - 1`` decode
+    rounds with the kernels; greedy, or fed ``teacher``'s tokens."""
+    dev = mesh.device
+    torch.cuda.empty_cache()
+    base = registry.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = sharding.local_params(cfg, plan, base, d=mesh.d, m=mesh.m)
+    del base
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prompt = torch.from_numpy(prompt_np).to(dev)
+    s_ctx = prompt.shape[1] + new_tokens
+    prefill = mesh_serve.make_prefill_step(cfg, plan, mesh, capacity=s_ctx)
+    decode = mesh_serve.make_decode_step(cfg, plan, mesh, use_kernels=True)
+    ops.reset_launch_counts()
+    mesh_cc.reset_stats()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": prompt})
+    torch.cuda.synchronize(dev)
+    out = {"rank": mesh.rank, "prefill_wall_s": time.perf_counter() - t0,
+           "decode_round_wall_s": []}
+    toks, steps = [greedy_token(logits)], [logits]
+    for r in range(new_tokens - 1):
+        inp = toks[-1] if teacher is None else torch.from_numpy(teacher[:, r:r + 1]).to(dev)
+        t0 = time.perf_counter()
+        logits, caches = decode(params, caches, inp)
+        torch.cuda.synchronize(dev)
+        out["decode_round_wall_s"].append(time.perf_counter() - t0)
+        toks.append(greedy_token(logits))
+        steps.append(logits)
+    out["launches"] = ops.launch_counts()["decode_attention"]
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["collectives"] = mesh_cc.stats()
+    out["tokens"] = torch.cat(toks, dim=1).cpu().numpy()
+    if mesh.rank == 0:
+        out["logits"] = torch.stack(steps).float().cpu().numpy()
+    return out
+
+
+def _serve_mesh_jobs(tokens: np.ndarray):
+    """serve_mesh's jobs: 4 stages x tp 1 (greedy) and 2 stages x tp 2 fed
+    ``tokens``, each with one micro-batch."""
+    cfg0 = arch_config_for_model("phi3-mini-3.8b")
+    prompt_np = make_prompt(cfg0, SERVE["batch"], SERVE["prefill_tokens"], seed=0)
+    shape = InputShape("serve", SERVE["prefill_tokens"] + SERVE["new_tokens"],
+                       SERVE["batch"], "decode")
+    jobs, plans = [], {}
+    for name, (stages, tensor) in {"tp1": (4, 1), "tp2": (2, 2)}.items():
+        cfg = dataclasses.replace(cfg0, stages=stages, tensor=tensor)
+        plans[name] = make_plan(cfg, shape, data=1, model=4, microbatches=1)
+        jobs.append((_mesh_serve_rank,
+                     MeshShape(data=1, model=4, tensor=tensor, kv_heads=cfg.n_kv_heads),
+                     (cfg, plans[name], prompt_np, SERVE["new_tokens"],
+                      None if name == "tp1" else np.asarray(tokens))))
+    return jobs, {"cfg": cfg0, "plans": plans, "s_ctx": shape.seq_len}
+
+
+def _serve_mesh_report(smi: str, ctx: dict, tp1: list, tp2: list, tokens: np.ndarray,
+                       wall: float) -> int:
+    """serve_mesh's holds and its line: every rank's tokens equal, 4 x 1's
+    equal to serve_full's, exact decode-attention launches; 2 x 2's tokens
+    and largest logit drift reported."""
+    cfg0 = ctx["cfg"]
+    for res in (tp1, tp2):
+        if any(not np.array_equal(r["tokens"], res[0]["tokens"]) for r in res):
+            raise AssertionError("the ranks' tokens differ")
+    if not np.array_equal(tp1[0]["tokens"], tokens):
+        raise AssertionError(f"4 x 1 mesh tokens differ from serve_full's:\n"
+                             f"{tp1[0]['tokens']}\n{tokens}")
+    expect = {"tp1": (SERVE["new_tokens"] - 1) * cfg0.n_layers // 4,
+              "tp2": (SERVE["new_tokens"] - 1) * cfg0.n_layers // 2}
+    for name, res in (("tp1", tp1), ("tp2", tp2)):
+        if any(r["launches"] != expect[name] for r in res):
+            raise AssertionError(f"{name}: decode_attention launched "
+                                 f"{[r['launches'] for r in res]}, expected {expect[name]} a rank")
+    drift = float(np.abs(tp2[0]["logits"] - tp1[0]["logits"]).max())
+    launches = sum(r["launches"] for res in (tp1, tp2) for r in res)
+
+    def summary(res, name):
+        return {"plan": dataclasses.asdict(ctx["plans"][name]),
+                "tokens_head": res[0]["tokens"][0].tolist(),
+                "prefill_wall_s": max(r["prefill_wall_s"] for r in res),
+                "decode_round_wall_s": [max(r["decode_round_wall_s"][i] for r in res)
+                                        for i in range(SERVE["new_tokens"] - 1)],
+                "decode_attention_launches_by_rank": [r["launches"] for r in res],
+                "max_memory_allocated_bytes_by_rank":
+                    [r["max_memory_allocated_bytes"] for r in res],
+                "collectives_by_rank": [r["collectives"] for r in res]}
+
+    emit({"phase": "serve_mesh", "card": smi, "model": "phi3-mini-3.8b",
+          "dtype": cfg0.param_dtype, "n_layers": cfg0.n_layers, **SERVE, "s_ctx": ctx["s_ctx"],
+          "ranks": MESH_RANKS, "transport": mesh_cc.TRANSPORT, "world_wall_s": wall,
+          "stages4_tp1": {**summary(tp1, "tp1"), "tokens_match_serve_full": True},
+          "stages2_tp2": {**summary(tp2, "tp2"), "fed_serve_full_tokens": True,
+                          "tokens_match_serve_full":
+                              bool(np.array_equal(tp2[0]["tokens"], tokens)),
+                          "tokens_differing": int((tp2[0]["tokens"] != tokens).sum()),
+                          "max_logit_drift_vs_tp1": drift},
+          "kernel_launches": launches})
+    return launches
+
+
+def phase_mesh(smi: str, tokens: np.ndarray) -> tuple:
+    """``train_mesh`` and ``serve_mesh`` in one world of four ranks (a world's
+    start, each rank importing this script and making its CUDA context,
+    costs more than a serving job): train_full's model (phi3-mini-3.8b,
+    full width, 4 layers, bf16) and batches on (a) data 2 x model 2 (2
+    stages, tp 1), AdamW(1e-4), 2 steps on the bidirectional ring, then step
+    2 again on the unidirectional ring, and (b) data 1 x model 4 (2 stages x
+    tp 2), the same steps, then one SGD step from the initial state against
+    the single-process step on the card with the plain versions; then
+    serve_full's request (32 layers, batch 4, 1008 + 16) on 4 stages x tp 1
+    with one micro-batch (serve_full's shapes), tokens equal to serve_full's,
+    and on 2 stages x tp 2 fed the same tokens, its tokens and largest logit
+    drift reported (32 bf16 layers amplify a change of summation order).
+    Returns the training kernels' launches and decode attention's."""
+    spec = MESH_TRAIN
+    torch.use_deterministic_algorithms(True)
+    torch.cuda.empty_cache()
+    train_jobs, train_ctx = _train_mesh_jobs(spec)
+    serve_jobs, serve_ctx = _serve_mesh_jobs(tokens)
+    t0 = time.perf_counter()
+    try:
+        outs = run_jobs(train_jobs + serve_jobs, device="cuda")
+    finally:
+        os.remove(train_ctx["ref_path"])
+    wall = time.perf_counter() - t0
+    train = _train_mesh_report(smi, spec, train_ctx, outs[:2], wall)
+    serve = _serve_mesh_report(smi, serve_ctx, *outs[2:], tokens, wall)
+    return train, serve
+
 
 def main() -> None:
     smi = phase_device()
@@ -3794,6 +4185,9 @@ def main() -> None:
     phase_train_xlstm(smi)
     phase_serve_xlstm(smi)
     launches["decode_attention_internvl2"] = phase_serve_internvl2(smi)
+    # the mesh path: four ranks on the card; phi3's flash attention and
+    # swiglu on wgmma, its decode attention
+    on_mesh, on_mesh["decode_attention"] = phase_mesh(smi, tokens)
     source = "src/repro_torch/kernels/csrc/{}.cu"
     tpu = {"decode_attention": "src/repro/kernels/decode_attention.py:68",
            "flash_attention": "src/repro/kernels/flash_attention.py:83",
@@ -3803,15 +4197,16 @@ def main() -> None:
         base = next(b for b in tpu if name.startswith(b))
         extra, more = on_backends.get(name, 0), on_planned.get(name, 0)
         chaotic, replanned = on_chaos.get(name, 0), on_replan.get(name, 0)
-        family = on_families.get(name, 0)
+        family, mesh = on_families.get(name, 0), on_mesh.get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": source.format(base),
                         "replaces": tpu[base],
                         "launches": launches[name] + extra + more + chaotic + replanned
-                        + family,
+                        + family + mesh,
                         "launches_backend_phases": extra, "launches_train_planned": more,
                         "launches_train_chaos": chaotic,
                         "launches_calibrate_replan": replanned,
-                        "launches_reduced_families": family, **rec})
+                        "launches_reduced_families": family, "launches_mesh": mesh,
+                        **rec})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,10 +10,13 @@ for the port).
               the §5.6 baseline algorithms (old examples/plan_serverless.py)
     serve     SLO-aware inference serving: plan a serve partition, execute
               pipelined decode on a backend, autoscale under arrival traces
-    bench, train, dryrun
-              not ported: they raise NotImplementedError (ROADMAP port
-              queue item 7, the mesh path; the benchmark folder is the JAX
-              package's)
+    train     pipelined, tensor-, data- and expert-parallel training on a
+              mesh of spawned ranks (``repro_torch.launch.train``)
+    dryrun    not ported: raises NotImplementedError (ROADMAP port queue
+              item 7b, the mesh path's analytic half)
+    bench     not ported: raises NotImplementedError (the benchmark folder
+              is the JAX package's; the port's benchmark comes in a change of
+              its own)
 
 Every subcommand that plans accepts ``--fast`` (small merge depth, reduced
 DP grid) so CI can smoke the whole surface in seconds.  ``plan -o plan.json``
@@ -755,28 +758,32 @@ def _cmd_calibrate(args) -> int:
     return 0
 
 
-# ---------------------------------------------------- not ported (item 7)
+# ------------------------------------------------------------- not ported
 _NOT_PORTED = {
-    "train": "the mesh training driver (repro.launch.train)",
-    "dryrun": "the mesh compile-only sweep (repro.launch.dryrun)",
-    "bench": "the JAX package's paper-table benchmarks (benchmarks/run.py)",
+    "dryrun": "the mesh compile-only sweep (repro.launch.dryrun) is not ported yet: "
+              "ROADMAP port queue item 7b (the mesh path's analytic half)",
+    "bench": "the JAX package's paper-table benchmarks (benchmarks/run.py) are not "
+             "ported: the benchmark folder is the JAX package's, and the port's "
+             "benchmark comes in a change of its own",
 }
 
 
 def _not_ported(cmd: str):
-    raise NotImplementedError(
-        f"python -m repro_torch {cmd}: {_NOT_PORTED[cmd]} is not ported yet: "
-        "ROADMAP port queue item 7 (the mesh path)")
+    raise NotImplementedError(f"python -m repro_torch {cmd}: {_NOT_PORTED[cmd]}")
 
 
 # ------------------------------------------------------------------- main
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    # train/dryrun forward their whole tail to the launch drivers' own
-    # parsers (argparse REMAINDER won't capture a leading option like
-    # --help, so dispatch before parsing)
+    # train forwards its whole tail to the launch driver's own parser
+    # (argparse REMAINDER won't capture a leading option like --help, so
+    # dispatch before parsing)
     if argv and argv[0] in _NOT_PORTED:
         _not_ported(argv[0])
+    if argv and argv[0] == "train":
+        from repro_torch.launch.train import main as train_main
+
+        return train_main(argv[1:])
 
     ap = argparse.ArgumentParser(
         prog="repro_torch", description="FuncPipe on PyTorch: plan, replay and "
@@ -972,7 +979,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="inter-arrival gaps file for --arrival trace")
     p.set_defaults(func=_cmd_serve)
 
-    # not ported: registered so --help lists them
+    # dispatched before parsing: registered so --help lists them
+    sub.add_parser("train", help="pipelined mesh training on spawned ranks "
+                   "(python -m repro_torch train --help)", add_help=False)
     for cmd, what in _NOT_PORTED.items():
         sub.add_parser(cmd, help=f"not ported: {what}", add_help=False)
 

@@ -4,7 +4,9 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
+    INPUT_SHAPES,
     ArchConfig,
+    InputShape,
     LayerSpec,
     MambaCfg,
     MoECfg,

@@ -5,7 +5,10 @@ The port covers every mixer (ATTN, MAMBA, SLSTM, MLSTM) and feed-forward
 with the audio and vision frontends as precomputed embeddings.  A model is
 a sequence of *period instances*, each a static list of :class:`LayerSpec`,
 exactly as in the JAX package, so stage cuts and parameter stacking carry
-over.  The mesh fields (``stages``, ``tensor``) wait for the mesh path.
+over.  ``stages``/``tensor`` give the default factorization of the mesh's
+``model`` axis into (pipeline stages x tensor parallel) that the mesh path
+(``core.plan.make_plan``) starts from; ``INPUT_SHAPES`` are the JAX
+package's named input shapes.
 """
 from __future__ import annotations
 
@@ -92,6 +95,9 @@ class ArchConfig:
     # dtype of params/activations on the target hardware
     param_dtype: str = "bfloat16"
     qk_norm: bool = False             # RMS norm of q and k over the head dim (gemma3)
+    # default factorization of the 16-wide model axis: stages * tensor
+    stages: int = 16
+    tensor: int = 1
 
     @property
     def hd(self) -> int:
@@ -193,6 +199,8 @@ class ArchConfig:
             vocab_size=min(self.vocab_size, 1024),
             moe=moe,
             period=period,
+            stages=1,
+            tensor=1,
             n_frontend_tokens=min(self.n_frontend_tokens, 16),
             param_dtype="float32",
         )
@@ -206,6 +214,14 @@ class InputShape:
     kind: str  # train | prefill | decode
 
 
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+
 def validate(cfg: ArchConfig) -> None:
     if cfg.n_periods < 1:
         raise ValueError(f"{cfg.name}: no layers")
@@ -217,3 +233,5 @@ def validate(cfg: ArchConfig) -> None:
         raise ValueError(f"{cfg.name}: Mamba layers without a MambaCfg")
     if any(s.mixer in (SLSTM, MLSTM) for s in cfg.period) and cfg.xlstm is None:
         raise ValueError(f"{cfg.name}: xLSTM layers without an XLSTMCfg")
+    if 16 % cfg.stages:
+        raise ValueError(f"{cfg.name}: {cfg.stages} stages do not divide the model axis of 16")

@@ -20,4 +20,6 @@ CONFIG = ArchConfig(
     causal=False,
     is_encoder=True,
     frontend="none",
+    stages=8,
+    tensor=2,
 )

@@ -15,4 +15,6 @@ CONFIG = ArchConfig(
     period=(LayerSpec(ff=MOE_FF),),
     moe=MoECfg(n_experts=16, top_k=4, d_ff_expert=10752),
     rope_theta=500_000.0,
+    stages=8,  # 40 layers -> 5 per stage; tensor=2 within stage
+    tensor=2,
 )

@@ -23,4 +23,6 @@ CONFIG = ArchConfig(
     period=(LOCAL, LOCAL, LOCAL, LOCAL, LOCAL, GLOBAL),
     qk_norm=True,
     rope_theta=1_000_000.0,
+    stages=2,  # 6 periods -> 3 periods/stage; tensor=8
+    tensor=8,
 )

@@ -23,4 +23,6 @@ CONFIG = ArchConfig(
     causal=False,
     is_encoder=True,
     frontend="audio",
+    stages=16,  # 48 layers -> 3 per stage
+    tensor=1,
 )

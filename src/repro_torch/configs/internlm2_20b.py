@@ -14,4 +14,6 @@ CONFIG = ArchConfig(
     vocab_size=92544,
     period=(LayerSpec(),),
     rope_theta=1_000_000.0,
+    stages=16,  # 48 layers -> 3 per stage
+    tensor=1,
 )

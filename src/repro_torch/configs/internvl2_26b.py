@@ -23,4 +23,6 @@ CONFIG = ArchConfig(
     rope_theta=1_000_000.0,
     frontend="vision",
     n_frontend_tokens=256,
+    stages=16,
+    tensor=1,
 )

@@ -33,4 +33,6 @@ CONFIG = ArchConfig(
     period=tuple(_layer(i) for i in range(8)),
     moe=MoECfg(n_experts=16, top_k=2, d_ff_expert=14336),
     mamba=MambaCfg(d_state=16, d_conv=4, expand=2),
+    stages=4,  # 4 periods of 8 -> 1 period per stage; tensor=4
+    tensor=4,
 )

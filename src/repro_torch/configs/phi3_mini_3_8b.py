@@ -14,4 +14,6 @@ CONFIG = ArchConfig(
     vocab_size=32064,
     period=(LayerSpec(),),
     rope_theta=10_000.0,
+    stages=16,  # 32 layers -> 2 per stage
+    tensor=1,
 )

@@ -15,4 +15,6 @@ CONFIG = ArchConfig(
     period=(LayerSpec(),),
     qkv_bias=True,
     rope_theta=1_000_000.0,
+    stages=16,  # 48 layers -> 3 per stage
+    tensor=1,
 )

@@ -20,4 +20,6 @@ CONFIG = ArchConfig(
     moe=MoECfg(n_experts=128, top_k=8, d_ff_expert=1536),
     qk_norm=True,
     rope_theta=1_000_000.0,
+    stages=16,  # ceil(94/16)=6 per stage (2 masked padding layers)
+    tensor=1,
 )

@@ -18,4 +18,6 @@ CONFIG = ArchConfig(
     vocab_size=50304,
     period=(LayerSpec(mixer=MLSTM, ff=NO_FF), LayerSpec(mixer=SLSTM, ff=NO_FF)),
     xlstm=XLSTMCfg(),
+    stages=2,  # 12 layers = 6 periods -> 3 periods per stage; tensor=8
+    tensor=8,
 )

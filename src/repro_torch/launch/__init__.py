@@ -1,1 +1,2 @@
-"""Launch drivers (``repro.launch`` for the port): the emulation driver."""
+"""Launch drivers (``repro.launch`` for the port): the emulation driver, the
+rank mesh (``mesh``) and the mesh training driver (``train``)."""

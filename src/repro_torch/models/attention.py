@@ -11,8 +11,12 @@ Decode supports the JAX package's two cache layouts:
   * append cache [B, Hkv, S_ctx, hd] (global-attention layers);
   * rolling-window ring [B, Hkv, W, hd] with a monotone write cursor
     (sliding-window layers).
-Sequence-sharded caches (the mesh path's long-context decode) are not
-ported.
+For a long context the mesh path shards a global layer's cache over the
+``data`` axis (``ctx.seq_shards`` > 1): each rank holds every
+``seq_shards``-th position, and the partial softmaxes are combined with
+``ctx.pmax_seq`` / ``ctx.psum_seq``.  ``ctx.psum_tp`` reduces the
+row-parallel output projection under tensor parallelism; the local head
+counts come from the (possibly sliced) weights.
 
 One deliberate difference: :func:`attn_decode` writes the new token's K/V
 and advances the cursor *in place* and returns the same cache, where the
@@ -26,8 +30,15 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig, LayerSpec
-from repro_torch.models.common import apply_rope, dense_init, init_norm, rms_norm
+from repro_torch.configs.base import GLOBAL_WINDOW, ArchConfig, LayerSpec
+from repro_torch.models.common import (
+    LOCAL_CTX,
+    ParallelCtx,
+    apply_rope,
+    dense_init,
+    init_norm,
+    rms_norm,
+)
 
 BLOCKWISE_THRESHOLD = 4_096  # O(S*block) attention at and above this length
 Q_BLOCK = 512
@@ -97,12 +108,15 @@ def init_kv_cache(n: int, batch: int, n_kv: int, capacity: int, hd: int, dtype,
     )
 
 
-def cache_capacity(spec: LayerSpec, s_ctx: int) -> int:
-    """Cache capacity of a layer: the rolling window for local layers, the
-    whole serving context for global ones."""
+def cache_capacity(spec: LayerSpec, s_ctx: int, seq_shards: int = 1) -> int:
+    """Cache capacity of a layer on one rank: the rolling window for local
+    layers, a 1/seq_shards slice of the serving context for (possibly
+    sharded) global ones."""
     if spec.window:
         return min(spec.window, s_ctx)
-    return s_ctx
+    if s_ctx % seq_shards:
+        raise ValueError(f"context {s_ctx} does not split into {seq_shards} shards")
+    return s_ctx // seq_shards
 
 
 # ------------------------------------------------------- blockwise (flash) path
@@ -187,7 +201,8 @@ def _dense_attention(q, k, v, positions, *, cfg: ArchConfig, spec: LayerSpec):
 
 # ---------------------------------------------------------------- full forward
 def attn_forward(p: dict, x: torch.Tensor, *, cfg: ArchConfig, spec: LayerSpec,
-                 positions: torch.Tensor, use_kernels: bool = False) -> torch.Tensor:
+                 positions: torch.Tensor, ctx: ParallelCtx = LOCAL_CTX,
+                 use_kernels: bool = False) -> torch.Tensor:
     """Training attention over the full sequence.  x: [B,S,d].  With
     ``use_kernels`` the attention core is ``ops.flash_attention``, which
     assumes ``positions == arange(S)`` as the Pallas path does."""
@@ -204,12 +219,13 @@ def attn_forward(p: dict, x: torch.Tensor, *, cfg: ArchConfig, spec: LayerSpec,
     else:
         out = _dense_attention(q, k, v, positions, cfg=cfg, spec=spec)
     B, S = x.shape[0], x.shape[1]
-    return out.reshape(B, S, -1) @ p["wo"]
+    return ctx.psum_tp(out.reshape(B, S, -1) @ p["wo"])
 
 
 # --------------------------------------------------------------------- prefill
 def attn_prefill(p: dict, x: torch.Tensor, *, cfg: ArchConfig, spec: LayerSpec,
-                 positions: torch.Tensor, capacity: Optional[int] = None):
+                 positions: torch.Tensor, ctx: ParallelCtx = LOCAL_CTX,
+                 capacity: Optional[int] = None):
     """Full-sequence forward that also returns the KV cache for decoding.
     Window layers keep only the trailing ``window`` keys (ring layout with the
     cursor at S % W so subsequent decode writes continue the ring).  Global
@@ -223,7 +239,7 @@ def attn_prefill(p: dict, x: torch.Tensor, *, cfg: ArchConfig, spec: LayerSpec,
         out = _blockwise_attention(q, k, v, positions, cfg.causal, spec.window)
     else:
         out = _dense_attention(q, k, v, positions, cfg=cfg, spec=spec)
-    y = out.reshape(B, S, -1) @ p["wo"]
+    y = ctx.psum_tp(out.reshape(B, S, -1) @ p["wo"])
 
     kc = k.transpose(1, 2)  # [B,Hkv,S,hd]
     vc = v.transpose(1, 2)
@@ -249,10 +265,16 @@ def attn_prefill(p: dict, x: torch.Tensor, *, cfg: ArchConfig, spec: LayerSpec,
 
 # ---------------------------------------------------------------------- decode
 def attn_decode(p: dict, x: torch.Tensor, cache: KVCache, *, cfg: ArchConfig,
-                spec: LayerSpec, use_kernels: bool = False):
+                spec: LayerSpec, ctx: ParallelCtx = LOCAL_CTX, use_kernels: bool = False):
     """One-token decode.  x: [B,1,d].  Returns (out [B,1,d], cache), the
     cache updated in place.  The position stays on the device: the write
-    slot and the kernel's ``length`` are tensors, never host integers."""
+    slot and the kernel's ``length`` are tensors, never host integers.
+
+    A global layer with ``ctx.seq_shards`` > 1 holds a 1/n slice of the KV
+    sequence: the token at global position ``pos`` is written by shard
+    ``pos % n`` at slot ``pos // n`` (round robin keeps the shards balanced
+    during decode), and the shards' partial attention outputs are combined
+    with a (max, sum-exp)-stable ``pmax_seq`` / ``psum_seq``."""
     from repro_torch.kernels import ops as kops
 
     hd = cfg.hd
@@ -264,33 +286,55 @@ def attn_decode(p: dict, x: torch.Tensor, cache: KVCache, *, cfg: ArchConfig,
     k_new = apply_rope(k_new, posv, cfg.rope_theta)
 
     C = cache.capacity
-    # rolling ring-buffer slot for windowed layers; plain append otherwise
-    # (unwindowed capacity == S_ctx covers all tokens)
-    slot = torch.remainder(pos, C) if spec.window else torch.clamp(pos, max=C - 1)
-    slot = slot.reshape(1).long()
-    cache.k.index_copy_(2, slot, k_new.transpose(1, 2))
-    cache.v.index_copy_(2, slot, v_new.transpose(1, 2))
-
-    if use_kernels and kops.decode_attention_capable(
-            n_q_heads=q.shape[2], n_kv_heads=cache.k.shape[1], capacity=C,
-            window=spec.window):
-        # flash-decode kernel: one query token against the append cache;
-        # `valid = slots <= pos` is exactly `length = pos + 1`
-        o = kops.decode_attention(q[:, 0], cache.k, cache.v, (pos + 1).reshape(1))
-        out = o.reshape(B, 1, -1) @ p["wo"]
+    slots = torch.arange(C, dtype=torch.int32, device=x.device)
+    sharded = spec.window == GLOBAL_WINDOW and ctx.seq_shards > 1
+    if sharded:
+        n, me = ctx.seq_shards, ctx.seq_index
+        is_mine = torch.remainder(pos, n) == me
+        slot = torch.where(is_mine, torch.div(pos, n, rounding_mode="floor"),
+                           torch.zeros_like(pos)).reshape(1).long()
+        # a shard that does not own the token writes its slot 0 back unchanged
+        for buf, new in ((cache.k, k_new), (cache.v, v_new)):
+            buf.index_copy_(2, slot, torch.where(is_mine, new.transpose(1, 2),
+                                                 buf.index_select(2, slot)))
+        # shard me holds the slots s with global position s * n + me <= pos
+        valid = slots * n + me <= pos
     else:
-        slots = torch.arange(C, dtype=torch.int32, device=x.device)
+        # rolling ring-buffer slot for windowed layers; plain append otherwise
+        # (unwindowed capacity == S_ctx covers all tokens)
+        slot = torch.remainder(pos, C) if spec.window else torch.clamp(pos, max=C - 1)
+        slot = slot.reshape(1).long()
+        cache.k.index_copy_(2, slot, k_new.transpose(1, 2))
+        cache.v.index_copy_(2, slot, v_new.transpose(1, 2))
         if spec.window:
             valid = (slots <= pos) | (pos >= C)  # ring fully valid once wrapped
         else:
             valid = slots <= pos
+
+    if use_kernels and not sharded and kops.decode_attention_capable(
+            n_q_heads=q.shape[2], n_kv_heads=cache.k.shape[1], capacity=C,
+            window=spec.window, seq_shards=ctx.seq_shards):
+        # flash-decode kernel: one query token against the append cache;
+        # `valid = slots <= pos` is exactly `length = pos + 1`
+        o = kops.decode_attention(q[:, 0], cache.k, cache.v, (pos + 1).reshape(1))
+        out = o.reshape(B, 1, -1)
+    else:
         n_rep = q.shape[2] // cache.k.shape[1]
         kk = _repeat_kv(cache.k, n_rep, dim=1)  # [B, Hq, C, hd]
         vv = _repeat_kv(cache.v, n_rep, dim=1)
         scores = torch.einsum("bqhd,bhcd->bhqc", q, kk).float() / hd**0.5
         scores = torch.where(valid[None, None, None, :], scores, -1e30)
-        probs = torch.softmax(scores, dim=-1)
-        o = torch.einsum("bhqc,bhcd->bhqd", probs, vv.float()).to(x.dtype)
-        out = o.transpose(1, 2).reshape(B, 1, -1) @ p["wo"]  # [B,1,Hq*hd] @ wo
+        if sharded:
+            m = scores.amax(dim=-1)                                   # [B,H,1]
+            if ctx.pmax_seq is not None:
+                m = ctx.pmax_seq(m)
+            e = torch.exp(scores - m[..., None])
+            num = ctx.psum_seq(torch.einsum("bhqc,bhcd->bhqd", e, vv.float()))
+            den = ctx.psum_seq(e.sum(dim=-1))
+            o = (num / den[..., None]).to(x.dtype)                     # [B,H,1,hd]
+        else:
+            probs = torch.softmax(scores, dim=-1)
+            o = torch.einsum("bhqc,bhcd->bhqd", probs, vv.float()).to(x.dtype)
+        out = o.transpose(1, 2).reshape(B, 1, -1)  # [B,1,Hq*hd]
     cache.cursor.add_(1)
-    return out, cache
+    return ctx.psum_tp(out @ p["wo"]), cache

@@ -1,6 +1,9 @@
 """Shared model building blocks (``repro.models.common`` in torch).
 
-Plain functions on tensors.  Where the JAX package uses ``jax.tree`` over
+Plain functions on tensors.  The layer functions are shape driven: they
+take possibly tensor-parallel sliced parameters and a :class:`ParallelCtx`
+whose hooks are the mesh's collectives; with the default ``LOCAL_CTX`` every
+hook is the identity and they are ordinary single-device modules.  Where the JAX package uses ``jax.tree`` over
 parameter and cache pytrees, the port uses :func:`tree_map` and
 :func:`tree_leaves` below, which flatten the same containers (dicts in
 sorted key order, tuples and named tuples in order) so leaf order carries
@@ -8,10 +11,42 @@ over.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+
+
+# --------------------------------------------------------------------- context
+def _identity(x):
+    return x
+
+
+@dataclasses.dataclass
+class ParallelCtx:
+    """Collective hooks.  Defaults are single-device no-ops.
+
+    tp_size / psum_tp: tensor parallelism within a pipeline stage (the tp
+                       group of the rank mesh's ``model`` axis).
+    dp_size / ep_all_to_all: expert parallelism over the ``data`` axis.
+    seq_shards / psum_seq / pmax_seq: KV sequence sharding over ``data`` for
+                       long-context decode (partial-softmax combination);
+                       seq_index is this rank's shard.
+    """
+
+    tp_size: int = 1
+    dp_size: int = 1
+    seq_shards: int = 1
+    psum_tp: Callable[[Any], Any] = _identity
+    ep_all_to_all: Optional[Callable[[Any], Any]] = None  # split/concat experts
+    ep_all_to_all_back: Optional[Callable[[Any], Any]] = None
+    psum_seq: Callable[[Any], Any] = _identity
+    pmax_seq: Optional[Callable[[Any], Any]] = None
+    seq_index: int = 0
+
+
+LOCAL_CTX = ParallelCtx()
 
 
 def resolve_device(device) -> torch.device:

@@ -12,20 +12,24 @@ chunk runs in ``torch.utils.checkpoint``, as JAX's chunk body runs in
 recomputed in the backward.  The scan is plain PyTorch, as it is plain JAX
 in the reference (no Pallas kernel).
 
+Under tensor parallelism the d_inner axis is sliced; the (delta, B, C)
+projection ``w_xproj`` and the output projection ``w_out`` are row-parallel
+(``ctx.psum_tp``).
+
 Decode is the one-token recurrence.  As :func:`attention.attn_decode` does,
 :func:`mamba_decode` writes the new conv window and state into the cache it
 is given and returns that cache (the JAX function returns a new one).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import LOCAL_CTX, ParallelCtx, dense_init
 
 CHUNK = 256
 
@@ -58,10 +62,10 @@ def init_mamba_params(gen: torch.Generator, cfg: ArchConfig, dtype, n: int) -> d
     }
 
 
-def _ssm_inputs(p: dict, xc: torch.Tensor, cfg: ArchConfig):
-    """xc [B,S,di] -> delta [B,S,di], Bc/Cc [B,S,N]."""
+def _ssm_inputs(p: dict, xc: torch.Tensor, cfg: ArchConfig, ctx: ParallelCtx):
+    """xc [B,S,di_local] -> delta [B,S,di_local], Bc/Cc [B,S,N]."""
     r, N = dt_rank(cfg), cfg.mamba.d_state
-    dbc = xc @ p["w_xproj"]
+    dbc = ctx.psum_tp(xc @ p["w_xproj"])  # row-parallel partial sums
     d_raw, b_c, c_c = torch.split(dbc, [r, N, N], dim=-1)
     delta = F.softplus(d_raw @ p["w_dt"] + p["b_dt"])
     return delta, b_c, c_c
@@ -105,17 +109,18 @@ def selective_scan(xc, delta, b_c, c_c, A, D):
     return torch.cat(ys, dim=1), h
 
 
-def mamba_forward(p: dict, x: torch.Tensor, *, cfg: ArchConfig, return_state: bool = False):
+def mamba_forward(p: dict, x: torch.Tensor, *, cfg: ArchConfig, ctx: ParallelCtx = LOCAL_CTX,
+                  return_state: bool = False):
     """x [B,S,d] -> [B,S,d] (+ MambaCache when ``return_state``, for
     prefill).  S must be a multiple of CHUNK or < CHUNK."""
     S = x.shape[1]
     xr = x @ p["w_in_x"]  # raw pre-conv activations (tail feeds the decode conv state)
     z = x @ p["w_in_z"]
     xc = F.silu(_conv1d(xr, p["conv_w"], p["conv_b"]))
-    delta, b_c, c_c = _ssm_inputs(p, xc, cfg)
+    delta, b_c, c_c = _ssm_inputs(p, xc, cfg, ctx)
     A = -torch.exp(p["A_log"].float())  # [di, N]
     y, h_last = selective_scan(xc, delta, b_c, c_c, A, p["D"].float())
-    out = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+    out = ctx.psum_tp((y.to(x.dtype) * F.silu(z)) @ p["w_out"])
     if return_state:
         kc = cfg.mamba.d_conv - 1
         return out, MambaCache(conv=xr[:, S - kc:, :].contiguous(), h=h_last)
@@ -128,31 +133,34 @@ class MambaCache(NamedTuple):
     h: torch.Tensor     # [B, di, N] fp32 state
 
 
-def init_mamba_cache(n: int, batch: int, cfg: ArchConfig, dtype, device) -> MambaCache:
-    """Empty caches of ``n`` layer instances, stacked on axis 0."""
+def init_mamba_cache(n: int, batch: int, cfg: ArchConfig, dtype, device,
+                     di: Optional[int] = None) -> MambaCache:
+    """Empty caches of ``n`` layer instances, stacked on axis 0; ``di`` is a
+    tensor-parallel rank's slice of d_inner (all of it by default)."""
     mc = cfg.mamba
-    di = mc.d_inner(cfg.d_model)
+    di = mc.d_inner(cfg.d_model) if di is None else di
     return MambaCache(
         conv=torch.zeros((n, batch, mc.d_conv - 1, di), dtype=dtype, device=device),
         h=torch.zeros((n, batch, di, mc.d_state), dtype=torch.float32, device=device),
     )
 
 
-def mamba_decode(p: dict, x: torch.Tensor, cache: MambaCache, *, cfg: ArchConfig):
+def mamba_decode(p: dict, x: torch.Tensor, cache: MambaCache, *, cfg: ArchConfig,
+                 ctx: ParallelCtx = LOCAL_CTX):
     """x [B,1,d] -> ([B,1,d], cache), the cache updated in place."""
     xc = x @ p["w_in_x"]  # [B,1,di]
     z = x @ p["w_in_z"]
     hist = torch.cat([cache.conv, xc], dim=1)  # [B, k, di]
     conv_out = torch.einsum("bkd,kd->bd", hist, p["conv_w"]) + p["conv_b"]
     xc1 = F.silu(conv_out)[:, None, :]  # [B,1,di]
-    delta, b_c, c_c = _ssm_inputs(p, xc1, cfg)
+    delta, b_c, c_c = _ssm_inputs(p, xc1, cfg, ctx)
     A = -torch.exp(p["A_log"].float())
     abar = torch.exp(delta[:, 0, :, None].float() * A)  # [B,di,N]
     bx = (delta[:, 0] * xc1[:, 0]).float()[..., None] * b_c[:, 0, None, :].float()
     h = abar * cache.h + bx
     y = (h * c_c[:, 0, None, :].float()).sum(-1)
     y = y + p["D"].float() * xc1[:, 0].float()
-    out = (y[:, None, :].to(x.dtype) * F.silu(z)) @ p["w_out"]
+    out = ctx.psum_tp((y[:, None, :].to(x.dtype) * F.silu(z)) @ p["w_out"])
     cache.conv.copy_(hist[:, 1:])
     cache.h.copy_(h)
     return out, cache

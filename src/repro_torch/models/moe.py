@@ -12,8 +12,10 @@ z-loss, as in JAX.
 
 Routing picks the top ``k`` experts with a stable descending sort, so equal
 probabilities take the lower expert index first, as ``jax.lax.top_k``
-does (``torch.topk`` promises no order on ties).  Expert parallelism and
-the tensor-parallel reduction are the mesh path's and are not ported.
+does (``torch.topk`` promises no order on ties).  On the mesh the expert
+buffer crosses the ``data`` axis by ``ctx.ep_all_to_all`` before the
+experts and back after them (expert parallelism), and ``ctx.psum_tp`` sums
+the tensor-parallel d_ff slices of the experts' outputs, as in JAX.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, MoECfg
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import LOCAL_CTX, ParallelCtx, dense_init
 
 
 def init_moe_params(gen: torch.Generator, cfg: ArchConfig, dtype, n: int) -> dict:
@@ -134,7 +136,8 @@ def combine(expert_out: torch.Tensor, gates, keep, dispatch_idx, source, T: int,
     return torch.sum((gathered * weights[:, None]).reshape(T, k, d), dim=1)
 
 
-def moe_forward(p: dict, x: torch.Tensor, *, cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_forward(p: dict, x: torch.Tensor, *, cfg: ArchConfig,
+                ctx: ParallelCtx = LOCAL_CTX) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> (out [B, S, d], aux_loss fp32 scalar)."""
     mc = cfg.moe
     B, S, d = x.shape
@@ -143,6 +146,12 @@ def moe_forward(p: dict, x: torch.Tensor, *, cfg: ArchConfig) -> Tuple[torch.Ten
     tokens = x.reshape(T, d)
     gates, sel, aux = route(p, tokens, mc)
     dispatch_idx, keep, source = slots(sel, E, C)
-    expert_out = experts(p, dispatch(tokens, k, dispatch_idx, source, E, C))
+    expert_in = dispatch(tokens, k, dispatch_idx, source, E, C)
+    # expert parallelism: [E, C, d] -> [E_local, C * ep, d] and back
+    if ctx.ep_all_to_all is not None:
+        expert_in = ctx.ep_all_to_all(expert_in)
+    expert_out = ctx.psum_tp(experts(p, expert_in))  # row-parallel d_ff slices
+    if ctx.ep_all_to_all_back is not None:
+        expert_out = ctx.ep_all_to_all_back(expert_out)
     out = combine(expert_out, gates, keep, dispatch_idx, source, T, k)
     return out.reshape(B, S, d), aux

@@ -92,9 +92,41 @@ def _logits(cfg: ArchConfig, params, h: torch.Tensor) -> torch.Tensor:
     return h @ head.T
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """``weight[ids]`` for a low-precision table, its gradient rows summed in
+    fp32 and rounded once.  Autograd's own gradient of the lookup (an
+    ``index_put_`` with ``accumulate``) adds a row's duplicates one by one
+    in the table's dtype: in bf16 a frequent token's row stalls (1,600
+    duplicates of one token, as a Zipf batch of 8 x 1024 holds, lose ~60%
+    of their sum), so two correct computations that group the tokens
+    differently (a mesh's micro-batches, one whole batch) disagreed by 39%
+    of the table's largest entry after an SGD step."""
+
+    @staticmethod
+    def forward(ctx, weight, ids):
+        ctx.save_for_backward(ids)
+        ctx.shape, ctx.dtype = weight.shape, weight.dtype
+        return weight[ids]
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        rows, inv = torch.unique(ids.reshape(-1), return_inverse=True)
+        acc = torch.zeros((rows.numel(), g.shape[-1]), dtype=torch.float32, device=g.device)
+        acc.index_put_((inv,), g.reshape(-1, g.shape[-1]).float(), accumulate=True)
+        grad = torch.zeros(ctx.shape, dtype=ctx.dtype, device=g.device)
+        grad[rows] = acc.to(ctx.dtype)
+        return grad, None
+
+
 def embed_tokens(cfg: ArchConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    """Token ids [B, S] -> [B, S, d] (decode takes tokens with any frontend)."""
-    return params["embed"][tokens.long()]
+    """Token ids [B, S] -> [B, S, d] (decode takes tokens with any frontend).
+    An fp32 table takes autograd's own gradient (fp32 sums); a bf16 one sums
+    its gradient rows in fp32 (:class:`_EmbedLookup`)."""
+    table, ids = params["embed"], tokens.long()
+    if table.dtype == torch.float32 or not (torch.is_grad_enabled() and table.requires_grad):
+        return table[ids]
+    return _EmbedLookup.apply(table, ids)
 
 
 def embed_inputs(cfg: ArchConfig, params, batch: dict) -> torch.Tensor:

@@ -20,6 +20,10 @@ does, :func:`mlstm_decode` and :func:`slstm_decode` write the new state into
 the cache they are given and return that cache (the JAX functions return
 new ones).  The JAX package's GELU is ``jax.nn.gelu``'s default, the tanh
 approximation.
+
+On the mesh both run TP-replicated (their recurrent matrices couple the full
+width): ``models.transformer`` hands them a context whose ``psum_tp`` is the
+identity, so the mLSTM's row-parallel hook after ``w_down`` sums nothing.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.common import dense_init, rms_norm
+from repro_torch.models.common import LOCAL_CTX, ParallelCtx, dense_init, rms_norm
 
 MLSTM_CHUNK = 256
 
@@ -125,7 +129,8 @@ def _mlstm_chunk(C_prev, n_prev, m_prev, qc, kc, vc, ic, fc):
     return C_new, n_new, m_state, h
 
 
-def mlstm_forward(p: dict, x: torch.Tensor, *, cfg: ArchConfig, return_state: bool = False):
+def mlstm_forward(p: dict, x: torch.Tensor, *, cfg: ArchConfig, ctx: ParallelCtx = LOCAL_CTX,
+                  return_state: bool = False):
     """Chunkwise-parallel stabilized mLSTM: x [B,S,d] -> [B,S,d] (+
     MLSTMCache when ``return_state``, for prefill).  S must be a multiple of
     ``MLSTM_CHUNK`` or shorter than it."""
@@ -150,7 +155,7 @@ def mlstm_forward(p: dict, x: torch.Tensor, *, cfg: ArchConfig, return_state: bo
         hs.append(h)
     h = torch.cat(hs, dim=1).reshape(B, S, -1).to(x.dtype)
     h = rms_norm(h, p["out_norm"], cfg.norm_eps) * F.silu(z)
-    out = h @ p["w_down"]
+    out = ctx.psum_tp(h @ p["w_down"])
     if return_state:
         kc = cfg.xlstm.conv_kernel - 1
         return out, MLSTMCache(C=C, n=n, m=m, conv=u[:, S - kc:, :].contiguous())
@@ -177,7 +182,8 @@ def init_mlstm_cache(n: int, batch: int, cfg: ArchConfig, dtype, device) -> MLST
     )
 
 
-def mlstm_decode(p: dict, x: torch.Tensor, cache: MLSTMCache, *, cfg: ArchConfig):
+def mlstm_decode(p: dict, x: torch.Tensor, cache: MLSTMCache, *, cfg: ArchConfig,
+                 ctx: ParallelCtx = LOCAL_CTX):
     """x [B,1,d] -> ([B,1,d], cache), the cache updated in place."""
     B = x.shape[0]
     u = x @ p["w_up"]  # [B,1,di]
@@ -202,7 +208,7 @@ def mlstm_decode(p: dict, x: torch.Tensor, cache: MLSTMCache, *, cfg: ArchConfig
     den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", n, q)), torch.exp(-m_new))
     h = (num / den[..., None]).reshape(B, 1, di).to(x.dtype)
     h = rms_norm(h, p["out_norm"], cfg.norm_eps) * F.silu(z)
-    out = h @ p["w_down"]
+    out = ctx.psum_tp(h @ p["w_down"])
     cache.C.copy_(C)
     cache.n.copy_(n)
     cache.m.copy_(m_new)
@@ -277,7 +283,8 @@ def _slstm_ffn(p: dict, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return F.gelu(h @ p["w_up_ff"], approximate="tanh") @ p["w_down_ff"]
 
 
-def slstm_forward(p: dict, x: torch.Tensor, *, cfg: ArchConfig, return_state: bool = False):
+def slstm_forward(p: dict, x: torch.Tensor, *, cfg: ArchConfig, ctx: ParallelCtx = LOCAL_CTX,
+                  return_state: bool = False):
     """The sLSTM stepped over the sequence, then its FFN.  x [B,S,d] ->
     [B,S,d] (+ the final SLSTMCache when ``return_state``)."""
     B, S, d = x.shape
@@ -298,7 +305,8 @@ def slstm_forward(p: dict, x: torch.Tensor, *, cfg: ArchConfig, return_state: bo
     return ff
 
 
-def slstm_decode(p: dict, x: torch.Tensor, cache: SLSTMCache, *, cfg: ArchConfig):
+def slstm_decode(p: dict, x: torch.Tensor, cache: SLSTMCache, *, cfg: ArchConfig,
+                 ctx: ParallelCtx = LOCAL_CTX):
     """x [B,1,d] -> ([B,1,d], cache), the cache updated in place."""
     B, _, d = x.shape
     xg = (x[:, 0] @ p["w_gates"] + p["b_gates"]).float().reshape(B, cfg.n_heads, -1)

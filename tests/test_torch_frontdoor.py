@@ -343,8 +343,10 @@ def test_cli_chaos_emulate_prints_jax_report(tmp_path, capsys):
 
 def test_cli_serve_and_launch_shim(tmp_path, capsys):
     """``serve`` plans and autoscales as JAX's does and executes on the CPU
-    when asked (``--device cpu``); the launch shim maps ``--arch``; the mesh
-    path and the benchmark folder are not ported and say so."""
+    when asked (``--device cpu``); the launch shim maps ``--arch``; ``train``
+    reaches the mesh driver's own parser; ``dryrun`` (item 7b, the mesh
+    path's analytic half) and the benchmark folder are not ported and say
+    so."""
     args = ["serve", "--model", "phi3-mini-3.8b@reduced", "--slo", "60",
             "--prefill-tokens", "16", "--new-tokens", "4", "--autoscale", "1,2",
             "--horizon", "30"]
@@ -354,9 +356,13 @@ def test_cli_serve_and_launch_shim(tmp_path, capsys):
     assert launch_emulate.main(["--arch", "bert-large", "--fast", "--no-plan-cache",
                                 "--steps", "1"]) == 0
     assert "engine[emulated]" in capsys.readouterr().out
-    for cmd in ("train", "dryrun", "bench"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            cli([cmd])
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        cli(["dryrun"])
+    with pytest.raises(NotImplementedError, match="benchmark folder is the JAX package's"):
+        cli(["bench"])
+    with pytest.raises(SystemExit) as exit_:
+        cli(["train", "--help"])
+    assert exit_.value.code == 0 and "--stages" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="CUDA is not available"):
         cli(["emulate", "--model", "phi3-mini-3.8b", "--numerics", "--steps", "1"])
 
