@@ -235,12 +235,30 @@ and a non-zero exit:
    same tokens, its tokens and largest logit drift reported; decode
    attention launches (8 / 16 layers a rank x 15 rounds), prefill and round
    times, peak memory and collectives by rank.
+26. the planner's own plan (``plan_auto``), in the same world of four
+   ranks -- ``core.tpu_planner.solve`` for ``train_mesh``'s model and batch
+   on data 2 x model 2 with the H100's constants (``launch.roofline.h100``:
+   80e9 / 4 bytes a rank, the host-staged gloo rate as the link): its top
+   five plans (``t_step_est``, ``hbm_est``, objective) and how many were
+   feasible; its first plan trained 2 steps with AdamW(1e-4).  Holds: the
+   first loss within 2e-2 of ``train_full``'s, the replicas bit-identical,
+   exact launches all on wgmma, and, where the plan is neither of
+   ``train_mesh``'s, one SGD(1.0) step within 2e-2 x max|ref| of the
+   single-process step.  Reported side by side: the analytic step time and
+   the measured second step, the analytic collective bytes by kind and each
+   rank's issued ones (``launch.roofline.issued_roofline`` of its
+   ``cc.stats()``), the planner's memory estimate, the dry run's argument
+   bytes (``launch.dryrun.argument_bytes``) and each rank's peak.
 
 ``kernel_parity`` also holds and times (``_encoders_parity``) flash
 attention with no mask at bert-large's [4,512,16,16,64] and
 hubert-xlarge's [2,1024,16,16,80], swiglu at their FFNs' shapes, decode
 attention at internvl2-26b's [4,48,8,128] over 1040 slots and, in bf16 and
-fp32, at gemma3-4b's global layers' [4,8,4,256].
+fp32, at gemma3-4b's global layers' [4,8,4,256]; and (``_simt_dq_correction``)
+the simt flash backward's key-mean dQ correction on misaligned bf16 tensors
+at bert-large's shape with keys that share a common component: dq, dk and
+dv within 2e-2 x max|ref| of the fp32 plain version, the uncorrected
+product's errors beside them.
 
 The traced runs' Chrome traces (``Trace.save``; Perfetto loads them, and
 ``Trace.load`` in either package) are written to ``chiprun_out/traces/``.
@@ -257,8 +275,8 @@ families' runs' as ``launches_reduced_families``; and the encoders' and
 the vision model's shapes: ``flash_attention_bert``, ``swiglu_bert`` and
 their backwards from train_bert, the same ``_hubert`` rows from
 train_hubert, ``decode_attention_internvl2`` from serve_internvl2; every
-row's ``launches_mesh`` the mesh phases' launches summed over the ranks,
-included in ``launches``), the
+row's ``launches_mesh`` the mesh phases' launches summed over the ranks
+and ``launches_plan_auto`` plan_auto's, both included in ``launches``), the
 ``nvidia-smi`` name/power line and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -291,7 +309,7 @@ from repro_torch.api.session import DEFAULT_ALPHA  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ATTN, DENSE_FF, InputShape  # noqa: E402
 from repro_torch.core import collectives as mesh_cc  # noqa: E402
-from repro_torch.core import planner, sharding  # noqa: E402
+from repro_torch.core import planner, sharding, tpu_planner  # noqa: E402
 from repro_torch.core.plan import make_plan  # noqa: E402
 from repro_torch.core.perfmodel import Config  # noqa: E402
 from repro_torch.core.profiler import arch_model_profile, resolve_profile  # noqa: E402
@@ -302,6 +320,7 @@ from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kernel_ref  # noqa: E402
 from repro_torch.kernels import swiglu as sg_kernel  # noqa: E402
+from repro_torch.launch import dryrun, roofline  # noqa: E402
 from repro_torch.launch.mesh import MeshShape, run_jobs  # noqa: E402
 from repro_torch.models import mamba as mamba_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -965,9 +984,10 @@ def _flash_timing(gen, flush, dtype, shape=FLASH_TRAIN) -> dict:
                 stream)
         simt["fwd_ms"] = _time_ms(lambda: lib.repro_flash_attention_fwd(
             *ptrs, so.data_ptr(), slse.data_ptr(), *args), flush, reps=10)
+        kmean = fa_kernel.key_means(k)
         simt["bwd_ms"] = _time_ms(lambda: lib.repro_flash_attention_bwd(
             *ptrs, o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *args), flush, reps=10)
+            dv.data_ptr(), kmean.data_ptr(), *args), flush, reps=10)
         _close(so, o, 2e-5 if dtype == torch.float32 else 2e-2, f"flash simt vs {way}, {dtype}")
     fwd_plain = _time_ms(lambda: ops.flash_attention(q, k, v, causal=causal, window=window,
                                                      impl="ref"), flush)
@@ -1256,6 +1276,75 @@ def _swiglu_parity(gen, flush) -> tuple:
     return recs, detail
 
 
+FLASH_SIMT_DQ = (4, 512, 16, 16, 64, False, 0)   # bert-large's attention, no mask
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s values in a view one element past an aligned allocation, so
+    that the kernels' ``route()`` takes the CUDA-core ("simt") kernels."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _simt_dq_correction(gen) -> dict:
+    """The simt flash backward's dQ correction (the keys' mean subtracted,
+    as on the wgmma route): misaligned bf16 tensors at bert-large's [4, 512,
+    16, 16, 64] with no mask, q, k and v sharing a common component per head
+    as bert's deeper layers do at init.  dq, dk and dv are held at 2e-2 x
+    max|ref| against autograd of the plain version in fp32 on the same bf16
+    inputs, the route by the launch counters; the uncorrected product (the
+    same C entry given a zero mean) is reported beside it."""
+    B, S, Hq, Hkv, hd, causal, window = FLASH_SIMT_DQ
+
+    def rows(H, common_scale, noise_scale):
+        common = torch.randn(1, 1, H, hd, generator=gen, device="cuda")
+        x = common_scale * common + noise_scale * torch.randn(B, S, H, hd, generator=gen,
+                                                              device="cuda")
+        return _misaligned(x.to(torch.bfloat16))
+
+    q, k, v = rows(Hq, 0.6, 0.3), rows(Hkv, 0.6, 0.3), rows(Hkv, 0.6, 0.3)
+    do = rows(Hq, 0.0, 1e-3)
+    ops.reset_launch_counts()
+    ts = [t.detach().requires_grad_() for t in (q, k, v)]    # no copy: still misaligned
+    out = ops.flash_attention(*ts, causal=causal, window=window)
+    grads = torch.autograd.grad(out, ts, do)
+    counts = ops.launch_counts()
+    if (counts["flash_attention_simt"], counts["flash_attention_bwd_simt"],
+            counts["flash_attention"], counts["flash_attention_bwd"]) != (1, 1, 1, 1):
+        raise AssertionError(f"simt dQ case: expected one simt launch each way, {counts}")
+    ref, refs = _fwd_bwd(lambda a, b, c: ops.flash_attention(a, b, c, causal=causal,
+                                                             window=window, impl="ref"),
+                         [t.float() for t in (q, k, v)], do.float())
+    # the uncorrected product: the same kernels with c = 0
+    o, lse = fa_kernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    plain = [torch.empty_like(t) for t in (q, k, v)]
+    zero = torch.zeros(B, Hkv, hd, dtype=q.dtype, device="cuda")
+    err = fa_kernel.build().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+        *(t.data_ptr() for t in plain), zero.data_ptr(), B, S, Hq, Hkv, hd,
+        fa_kernel._DTYPES[q.dtype], int(causal), window, hd ** -0.5,
+        kernel_build.stream_of(q))
+    if err:
+        raise RuntimeError(f"simt backward without the correction: cudaError {err}")
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a.float() - b).abs().max()) / float(b.abs().max())
+
+    names = ("dq", "dk", "dv")
+    corrected = {n: rel(g, r) for n, g, r in zip(names, grads, refs)}
+    uncorrected = {n: rel(g, r) for n, g, r in zip(names, plain, refs)}
+    if max(corrected.values()) > 2e-2 or rel(out, ref) > 2e-2:
+        raise AssertionError(f"simt backward with the dQ correction: {corrected}, "
+                             f"output {rel(out, ref)} of max|ref| (bar 2e-2)")
+    return {"shape": FLASH_SIMT_DQ, "dtype": "bfloat16", "route": "simt",
+            "offset_elements": 1, "out_err_over_max_ref": rel(out, ref),
+            "grad_err_over_max_ref": corrected,
+            "grad_err_over_max_ref_without_correction": uncorrected, "bar": 2e-2}
+
+
 def phase_kernel_parity(smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(3)
     gen256 = torch.Generator(device="cuda").manual_seed(17)   # hd 256's (_flash_parity)
@@ -1269,6 +1358,7 @@ def phase_kernel_parity(smi: str) -> dict:
     swiglu, swiglu_detail = _swiglu_parity(gen, flush)
     families, families_detail = _families_parity(flush)
     encoders, encoders_detail = _encoders_parity(flush)
+    simt_dq = _simt_dq_correction(torch.Generator(device="cuda").manual_seed(53))
     recs = {"decode_attention": decode, **flash, **swiglu, **families, **encoders}
     emit({"phase": "kernel_parity", "card": smi, "kernels": recs,
           "flash_wgmma_probe_max_abs_err": wgmma_probe,
@@ -1276,7 +1366,7 @@ def phase_kernel_parity(smi: str) -> dict:
           "swiglu_tf32x3_probe_max_abs_err": swiglu_probe,
           "decode_attention": decode_detail, "flash_attention": flash_detail,
           "swiglu": swiglu_detail, "families": families_detail,
-          "encoders": encoders_detail})
+          "encoders": encoders_detail, "flash_simt_dq_correction": simt_dq})
     return recs
 
 
@@ -3831,7 +3921,8 @@ def _mesh_train_rank(mesh, cfg, plan, spec: dict, optimizer, alt_ring: bool,
     params, opt = fresh(optimizer)
     step = make_train_step(cfg, plan, mesh, optimizer, bidirectional=True, use_kernels=True)
     out = {"rank": mesh.rank, "d": mesh.d, "m": mesh.m, "losses": [], "step_wall_s": [],
-           "collectives": [], "digests": []}
+           "collectives": [], "digests": [],
+           "axis_sizes": {name: axis.size for name, axis in mesh.axes.items()}}
     snapshot = None
     ops.reset_launch_counts()
     for k in range(spec["steps"]):
@@ -3871,10 +3962,11 @@ def _mesh_train_rank(mesh, cfg, plan, spec: dict, optimizer, alt_ring: bool,
 
 
 def _mesh_summary(results: list, cfg, plan, spec: dict) -> dict:
-    """Checks common to train_mesh's runs: finite losses equal on every
-    rank, data replicas bit-identical after every step, exact launches (the
-    forward's kernels twice a micro-batch under remat "tick") all on
-    wgmma; the per-step collectives of each rank."""
+    """Checks common to the mesh's training runs: finite losses equal on
+    every rank, data replicas bit-identical after every step, exact launches
+    (the forward's kernels twice a micro-batch under remat "tick" or
+    "layer", once under "none") all on wgmma; the per-step collectives of
+    each rank."""
     losses = results[0]["losses"]
     if any(r["losses"] != losses for r in results) or not all(np.isfinite(losses)):
         raise AssertionError(f"losses differ across ranks or are not finite: "
@@ -3886,13 +3978,14 @@ def _mesh_summary(results: list, cfg, plan, spec: dict) -> dict:
                                  f"replica's after a step")
     L = _mesh_layers(cfg, plan)
     calls = L * plan.microbatches * spec["steps"]
+    fwd = calls * (1 if plan.remat == "none" else 2)
     for r in results:
-        _wgmma_only(r["launches"], f"train_mesh rank {r['rank']}")
+        _wgmma_only(r["launches"], f"mesh rank {r['rank']}")
         for name in FP32_WAYS:
-            if (r["launches"][name], r["launches"][f"{name}_bwd"]) != (2 * calls, calls):
+            if (r["launches"][name], r["launches"][f"{name}_bwd"]) != (fwd, calls):
                 raise AssertionError(f"rank {r['rank']}: {name} launched "
                                      f"{r['launches'][name]} + {r['launches'][f'{name}_bwd']},"
-                                     f" expected {2 * calls} + {calls}")
+                                     f" expected {fwd} + {calls}")
     return {"plan": dataclasses.asdict(plan), "losses": losses,
             "replicas_bit_identical": [True] * spec["steps"],
             "step_wall_s_by_rank": [r["step_wall_s"] for r in results],
@@ -3979,6 +4072,113 @@ def _train_mesh_report(smi: str, spec: dict, ctx: dict, outs: list, wall: float)
                                  "sgd_loss": outs[1][0]["sgd_loss"],
                                  "sgd_single_process_update_over_max_param": ctx["update"],
                                  "sgd_vs_single_process_by_rank": sgd},
+          "kernel_launches": launches})
+    return launches
+
+
+PLAN_AUTO_MESH = dict(data=2, model=2)   # four ranks of the card
+PLAN_AUTO_TOP = 5
+
+
+def _plan_auto_jobs(spec: dict, ctx: dict):
+    """plan_auto's preparation: the port's ``tpu_planner.solve`` for
+    train_full's model and batch on data 2 x model 2 with the H100's
+    constants (80e9 / 4 bytes a rank), and the job that trains its first
+    plan; where that plan is neither of train_mesh's (a) and (b), the job
+    also takes one SGD step held against the single-process step that
+    ``_train_mesh_jobs`` saved."""
+    base_cfg, shape = ctx["cfg"], ctx["shape"]
+    chip = roofline.h100(MESH_RANKS)
+    t0 = time.perf_counter()
+    results = tpu_planner.solve(base_cfg, shape, chip=chip, **PLAN_AUTO_MESH)
+    solve_s = time.perf_counter() - t0
+    if not results:
+        raise AssertionError(f"plan_auto: no plan fits {chip.hbm_bytes} bytes a rank")
+    p = results[0].plan
+    print(f"[plan auto] S={p.stages} tp={p.tensor} mu={p.microbatches} remat={p.remat} "
+          f"(est {results[0].t_step_est*1e3:.1f} ms/step)", flush=True)
+    cfg, plan = dataclasses.replace(base_cfg, stages=p.stages, tensor=p.tensor), p
+    known = {(2, 2, 1, 2, "tick"): "a", (1, 2, 2, 4, "tick"): "b"}
+    same_as = known.get((p.data, p.stages, p.tensor, p.microbatches, p.remat))
+    pctx = {"chip": chip, "cfg": cfg, "plan": plan, "results": results, "solve_s": solve_s,
+            "same_as": same_as,
+            "analytic": roofline.analytic_roofline(cfg, shape, plan, chip=chip),
+            "argument_bytes": dryrun.argument_bytes(cfg, shape, plan)}
+    job = (_mesh_train_rank,
+           MeshShape(data=plan.data, model=plan.model_axis, tensor=plan.tensor,
+                     kv_heads=cfg.n_kv_heads),
+           (cfg, plan, spec, AdamW(lr=1e-4), False,
+            ctx["ref_path"] if same_as is None else None))
+    return job, pctx
+
+
+def _plan_auto_report(smi: str, spec: dict, ctx: dict, pctx: dict, outs: list) -> dict:
+    """plan_auto's holds and its line: the first loss within 2e-2 of
+    train_full's, replicas bit-identical, every launch on wgmma (in
+    ``_mesh_summary``), the SGD step within 2e-2 x max|ref| where it ran;
+    reported beside each other, not held: the analytic step time and the
+    measured second step, the analytic collective bytes and the issued
+    ones (each rank's ``cc.stats()`` of step 2 as a roofline), the
+    planner's memory estimate, the dry run's argument bytes and each
+    rank's peak."""
+    cfg, plan, chip, analytic = pctx["cfg"], pctx["plan"], pctx["chip"], pctx["analytic"]
+    summary = _mesh_summary(outs, cfg, plan, spec)
+    full_first = RESULTS.get("train_full_losses", [None])[0]
+    if full_first is not None and abs(summary["losses"][0] - full_first) > 2e-2:
+        raise AssertionError(f"plan_auto's first loss {summary['losses'][0]} vs "
+                             f"train_full's {full_first}")
+    sgd = None
+    if pctx["same_as"] is None:
+        sgd = [r["sgd_vs_single_process"] for r in outs]
+        if max(r["max_abs_err_over_max_ref"] for r in sgd) > 2e-2:
+            raise AssertionError(f"plan_auto's SGD step differs from the single-process "
+                                 f"step: {sgd}")
+    issued = [roofline.issued_roofline(r["collectives"][-1], r["axis_sizes"],
+                                       flops=analytic.flops, hbm_bytes=analytic.hbm_bytes,
+                                       bubble_factor=analytic.bubble_factor, chip=chip)
+              for r in outs]
+    second = [r["step_wall_s"][-1] for r in outs]
+    collective_s = [sum(v["seconds"] for v in r["collectives"][-1].values()) for r in outs]
+    launches = {k: sum(r["launches"][k] for r in outs)
+                for k in ("flash_attention", "flash_attention_bwd", "swiglu", "swiglu_bwd")}
+
+    def row(r):
+        return {"plan": {k: getattr(r.plan, k) for k in ("stages", "tensor", "microbatches",
+                                                          "remat")},
+                "t_step_est_s": r.t_step_est, "hbm_est_bytes": r.hbm_est,
+                "objective": r.objective}
+
+    emit({"phase": "plan_auto", "card": smi, "model": "phi3-mini-3.8b",
+          "dtype": cfg.param_dtype, "n_layers": cfg.n_layers, "ranks": MESH_RANKS,
+          "mesh": PLAN_AUTO_MESH, "seq": spec["seq"], "global_batch": ctx["shape"].global_batch,
+          "optimizer": "AdamW(lr=1e-4)", "transport": mesh_cc.TRANSPORT,
+          "solver": {"chip": chip.name, "chip_constants": dataclasses.asdict(chip),
+                     "feasible_plans": len(pctx["results"]), "solve_s": pctx["solve_s"],
+                     f"top{PLAN_AUTO_TOP}": [row(r) for r in pctx["results"][:PLAN_AUTO_TOP]]},
+          "same_as_train_mesh": pctx["same_as"],
+          **summary, "first_loss_train_full": full_first,
+          "sgd_lr": MESH_SGD_LR if sgd is not None else None,
+          "sgd_vs_single_process_by_rank": sgd,
+          "step_time": {"analytic_t_step_est_s": analytic.t_step_est,
+                        "analytic_terms_s": {"compute": analytic.t_compute,
+                                             "memory": analytic.t_memory,
+                                             "collective": analytic.t_collective,
+                                             "bubble_factor": analytic.bubble_factor},
+                        "measured_second_step_s_by_rank": second,
+                        "measured_collective_s_by_rank": collective_s,
+                        "issued_t_step_est_s_by_rank": [r.t_step_est for r in issued]},
+          "collective_bytes": {"analytic_by_kind": analytic.collective_bytes_by_kind,
+                               "analytic_link_bytes": analytic.link_bytes,
+                               "issued_by_kind_by_rank":
+                                   [r.collective_bytes_by_kind for r in issued],
+                               "issued_counts_by_rank": [r.collective_counts for r in issued],
+                               "issued_link_bytes_by_rank": [r.link_bytes for r in issued]},
+          "memory": {"hbm_est_bytes": pctx["results"][0].hbm_est,
+                     "dryrun_argument_bytes": pctx["argument_bytes"]["total"],
+                     "dryrun_argument_bytes_by_part":
+                         {k: v for k, v in pctx["argument_bytes"].items() if k != "total"},
+                     "max_memory_allocated_bytes_by_rank":
+                         summary["max_memory_allocated_bytes_by_rank"]},
           "kernel_launches": launches})
     return launches
 
@@ -4099,21 +4299,26 @@ def phase_mesh(smi: str, tokens: np.ndarray) -> tuple:
     with one micro-batch (serve_full's shapes), tokens equal to serve_full's,
     and on 2 stages x tp 2 fed the same tokens, its tokens and largest logit
     drift reported (32 bf16 layers amplify a change of summation order).
-    Returns the training kernels' launches and decode attention's."""
+    Then plan_auto (``_plan_auto_jobs``): the plan the port's solver picks
+    for the same model and batch on data 2 x model 2, trained the same way.
+    Returns the training kernels' launches (train_mesh's, plan_auto's) and
+    decode attention's."""
     spec = MESH_TRAIN
     torch.use_deterministic_algorithms(True)
     torch.cuda.empty_cache()
     train_jobs, train_ctx = _train_mesh_jobs(spec)
     serve_jobs, serve_ctx = _serve_mesh_jobs(tokens)
+    auto_job, auto_ctx = _plan_auto_jobs(spec, train_ctx)
     t0 = time.perf_counter()
     try:
-        outs = run_jobs(train_jobs + serve_jobs, device="cuda")
+        outs = run_jobs(train_jobs + serve_jobs + [auto_job], device="cuda")
     finally:
         os.remove(train_ctx["ref_path"])
     wall = time.perf_counter() - t0
     train = _train_mesh_report(smi, spec, train_ctx, outs[:2], wall)
-    serve = _serve_mesh_report(smi, serve_ctx, *outs[2:], tokens, wall)
-    return train, serve
+    serve = _serve_mesh_report(smi, serve_ctx, *outs[2:4], tokens, wall)
+    auto = _plan_auto_report(smi, spec, train_ctx, auto_ctx, outs[4])
+    return train, serve, auto
 
 
 def main() -> None:
@@ -4187,7 +4392,7 @@ def main() -> None:
     launches["decode_attention_internvl2"] = phase_serve_internvl2(smi)
     # the mesh path: four ranks on the card; phi3's flash attention and
     # swiglu on wgmma, its decode attention
-    on_mesh, on_mesh["decode_attention"] = phase_mesh(smi, tokens)
+    on_mesh, on_mesh["decode_attention"], on_plan_auto = phase_mesh(smi, tokens)
     source = "src/repro_torch/kernels/csrc/{}.cu"
     tpu = {"decode_attention": "src/repro/kernels/decode_attention.py:68",
            "flash_attention": "src/repro/kernels/flash_attention.py:83",
@@ -4198,14 +4403,16 @@ def main() -> None:
         extra, more = on_backends.get(name, 0), on_planned.get(name, 0)
         chaotic, replanned = on_chaos.get(name, 0), on_replan.get(name, 0)
         family, mesh = on_families.get(name, 0), on_mesh.get(name, 0)
+        auto = on_plan_auto.get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": source.format(base),
                         "replaces": tpu[base],
                         "launches": launches[name] + extra + more + chaotic + replanned
-                        + family + mesh,
+                        + family + mesh + auto,
                         "launches_backend_phases": extra, "launches_train_planned": more,
                         "launches_train_chaos": chaotic,
                         "launches_calibrate_replan": replanned,
                         "launches_reduced_families": family, "launches_mesh": mesh,
+                        "launches_plan_auto": auto,
                         **rec})
     emit({"kernels": kernels})
     print(smi, flush=True)

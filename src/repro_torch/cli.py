@@ -11,9 +11,11 @@ for the port).
     serve     SLO-aware inference serving: plan a serve partition, execute
               pipelined decode on a backend, autoscale under arrival traces
     train     pipelined, tensor-, data- and expert-parallel training on a
-              mesh of spawned ranks (``repro_torch.launch.train``)
-    dryrun    not ported: raises NotImplementedError (ROADMAP port queue
-              item 7b, the mesh path's analytic half)
+              mesh of spawned ranks (``repro_torch.launch.train``;
+              ``--plan auto`` asks ``core.tpu_planner`` for the plan)
+    dryrun    shape-only sweep of every arch x shape on the production
+              meshes: plan, per-rank bytes, analytic and counted roofline
+              (``repro_torch.launch.dryrun``)
     bench     not ported: raises NotImplementedError (the benchmark folder
               is the JAX package's; the port's benchmark comes in a change of
               its own)
@@ -760,8 +762,6 @@ def _cmd_calibrate(args) -> int:
 
 # ------------------------------------------------------------- not ported
 _NOT_PORTED = {
-    "dryrun": "the mesh compile-only sweep (repro.launch.dryrun) is not ported yet: "
-              "ROADMAP port queue item 7b (the mesh path's analytic half)",
     "bench": "the JAX package's paper-table benchmarks (benchmarks/run.py) are not "
              "ported: the benchmark folder is the JAX package's, and the port's "
              "benchmark comes in a change of its own",
@@ -775,15 +775,19 @@ def _not_ported(cmd: str):
 # ------------------------------------------------------------------- main
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    # train forwards its whole tail to the launch driver's own parser
-    # (argparse REMAINDER won't capture a leading option like --help, so
-    # dispatch before parsing)
+    # train/dryrun forward their whole tail to the launch drivers' own
+    # parsers (argparse REMAINDER won't capture a leading option like
+    # --help, so dispatch before parsing)
     if argv and argv[0] in _NOT_PORTED:
         _not_ported(argv[0])
     if argv and argv[0] == "train":
         from repro_torch.launch.train import main as train_main
 
         return train_main(argv[1:])
+    if argv and argv[0] == "dryrun":
+        from repro_torch.launch.dryrun import main as dryrun_main
+
+        return dryrun_main(argv[1:])
 
     ap = argparse.ArgumentParser(
         prog="repro_torch", description="FuncPipe on PyTorch: plan, replay and "
@@ -982,6 +986,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     # dispatched before parsing: registered so --help lists them
     sub.add_parser("train", help="pipelined mesh training on spawned ranks "
                    "(python -m repro_torch train --help)", add_help=False)
+    sub.add_parser("dryrun", help="shape-only mesh sweep (python -m repro_torch "
+                   "dryrun --help)", add_help=False)
     for cmd, what in _NOT_PORTED.items():
         sub.add_parser(cmd, help=f"not ported: {what}", add_help=False)
 

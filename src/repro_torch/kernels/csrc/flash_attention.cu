@@ -485,12 +485,20 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------------------ backward: dQ
+// dQ = scale * sum_j dS_ij (k_j - c) for kmean's c, the keys' mean over the
+// sequence ([B, Hkv, HD] in T), as in the wgmma dQ pass: the same gradient,
+// since sum_j dS_ij is zero in exact arithmetic, but D = rowsum(dO O) comes
+// from the rounded O, so that sum is not zero, and times keys that share a
+// large common component it costs dq a few percent of its largest value.
+// Each row's sum of dS is kept in fp32 (its 16 lanes reduced in a fixed
+// order) and r_i c subtracted before the store.
 template <typename T, int HD, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ o, const float* __restrict__ lse,
-                    const T* __restrict__ dout, T* __restrict__ dq, int S, int Hq, int Hkv,
-                    int causal, int window, float scale) {
+                    const T* __restrict__ dout, const T* __restrict__ kmean,
+                    T* __restrict__ dq, int S, int Hq, int Hkv, int causal, int window,
+                    float scale) {
   constexpr int RM = BQ / kGrid, CN = BK / kGrid, EN = HD / kGrid;
   constexpr int LD = HD + 1, LP = BK + 1;
   extern __shared__ float smem[];
@@ -516,9 +524,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   load_row_stats<T, BQ, HD>(Ds, Ls, dout + head, o + head, lse + ((size_t)b * Hq + h) * S, qs,
                             q0, S);
 
-  float acc[RM][EN];
+  float acc[RM][EN], rs[RM];
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
+    rs[i] = 0.f;
 #pragma unroll
     for (int e = 0; e < EN; ++e) acc[i][e] = 0.f;
   }
@@ -549,21 +558,30 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         const int kj = k0 + tx + kGrid * j;
         const bool ok = qi < S && allowed(qi, kj, S, causal, window);
         const float p = ok ? expf(s[i][j] - Ls[r]) : 0.f;
-        dSs[r * LP + tx + kGrid * j] = p * (dp[i][j] - Ds[r]);
+        const float ds = p * (dp[i][j] - Ds[r]);
+        dSs[r * LP + tx + kGrid * j] = ds;
+        rs[i] += ds;
       }
     }
     __syncthreads();
     tile_pv<RM, EN, BK>(dSs, LP, Ks, LD, acc, ty, tx);
   }
 
+  // dQ -= r c: the row's 16 lanes hold its partial sums of dS
+  const T* c = kmean + ((size_t)b * Hkv + hk) * HD;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) rs[i] = row_sum(rs[i]);
   T* dqb = dq + head;
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int qi = q0 + ty * RM + i;
     if (qi < S) {
 #pragma unroll
-      for (int e = 0; e < EN; ++e)
-        dqb[(size_t)qi * qs + tx + kGrid * e] = from_f32<T>(acc[i][e] * scale);
+      for (int e = 0; e < EN; ++e) {
+        const int col = tx + kGrid * e;
+        dqb[(size_t)qi * qs + col] =
+            from_f32<T>(fmaf(-rs[i], to_f32(c[col]), acc[i][e]) * scale);
+      }
     }
   }
 }
@@ -613,8 +631,8 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 
 template <typename T, int HD>
 cudaError_t bwd(const void* q, const void* k, const void* v, const void* o, const void* lse,
-                const void* dout, void* dq, void* dk, void* dv, int B, int S, int Hq, int Hkv,
-                int causal, int window, float scale, cudaStream_t stream) {
+                const void* dout, void* dq, void* dk, void* dv, const void* kmean, int B, int S,
+                int Hq, int Hkv, int causal, int window, float scale, cudaStream_t stream) {
   constexpr int BT = Tile<HD>::B;
   auto dkdv = flash_bwd_dkdv_kernel<T, HD, BT, BT>;
   auto dqk = flash_bwd_dq_kernel<T, HD, BT, BT>;
@@ -634,8 +652,10 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o, cons
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 grid_q((S + BT - 1) / BT, B * Hq);
-  dqk<<<grid_q, kThreads, dq_smem<HD>(), stream>>>(qt, kt, vt, ot, lt, dot, static_cast<T*>(dq),
-                                                    S, Hq, Hkv, causal, window, scale);
+  dqk<<<grid_q, kThreads, dq_smem<HD>(), stream>>>(qt, kt, vt, ot, lt, dot,
+                                                    static_cast<const T*>(kmean),
+                                                    static_cast<T*>(dq), S, Hq, Hkv, causal,
+                                                    window, scale);
   return cudaGetLastError();
 }
 
@@ -3799,20 +3819,21 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k, const voi
 }
 
 // The backward: dq like q, dk/dv like k; one call launches the dK/dV pass
-// and then the dQ pass on the stream.
+// and then the dQ pass on the stream.  kmean is the keys' mean over the
+// sequence, [B, Hkv, hd] in q's dtype (the dQ pass's correction).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* o, const void* lse, const void* dout,
-                                         void* dq, void* dk, void* dv, int B, int S, int Hq,
-                                         int Hkv, int hd, int dtype, int causal, int window,
-                                         float scale, void* stream) {
+                                         void* dq, void* dk, void* dv, const void* kmean, int B,
+                                         int S, int Hq, int Hkv, int hd, int dtype, int causal,
+                                         int window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_BWD(HD)                                                                      \
   if (hd == HD) {                                                                          \
-    if (dtype == 0) return (int)bwd<float, HD>(q, k, v, o, lse, dout, dq, dk, dv, B, S, Hq, \
-                                               Hkv, causal, window, scale, st);           \
+    if (dtype == 0) return (int)bwd<float, HD>(q, k, v, o, lse, dout, dq, dk, dv, kmean, B, \
+                                               S, Hq, Hkv, causal, window, scale, st);    \
     if (dtype == 1) return (int)bwd<__nv_bfloat16, HD>(q, k, v, o, lse, dout, dq, dk, dv,  \
-                                                       B, S, Hq, Hkv, causal, window,      \
-                                                       scale, st);                        \
+                                                       kmean, B, S, Hq, Hkv, causal,       \
+                                                       window, scale, st);                \
   }
   REPRO_HEAD_DIMS(REPRO_BWD)
 #undef REPRO_BWD

@@ -40,7 +40,7 @@ def build():
     P, I, F = _build.P, _build.I, _build.F
     return _build.load("flash_attention", {
         "repro_flash_attention_fwd": [P] * 5 + [I] * 8 + [F, P],
-        "repro_flash_attention_bwd": [P] * 9 + [I] * 8 + [F, P],
+        "repro_flash_attention_bwd": [P] * 10 + [I] * 8 + [F, P],
         "repro_flash_wgmma_fwd": [P] * 5 + [I] * 7 + [F, P],
         "repro_flash_wgmma_bwd": [P] * 11 + [I] * 7 + [F, P],
         "repro_flash_wgmma_probe": [P] * 5 + [I] * 2 + [P],
@@ -138,7 +138,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def key_means(k: torch.Tensor) -> torch.Tensor:
     """The keys' mean over the sequence, [B, Hkv, hd] in k's dtype: the
-    wgmma dQ pass takes dq = scale * sum_j dS_ij (k_j - c) for this c.
+    wgmma and simt dQ passes take dq = scale * sum_j dS_ij (k_j - c) for
+    this c.
     That is the same gradient (sum_j dS_ij is zero in exact arithmetic, for
     any c), but with D = rowsum(dO O) from the rounded O and dS rounded to
     bf16 the sum is not zero, and on keys that share a large common
@@ -153,9 +154,9 @@ def key_means(k: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0):
-    """Launch the backward kernels -> (dq, dk, dv).  On the wgmma route dq
-    is taken against the keys less their mean (:func:`key_means`), which
-    changes no gradient but dq's rounding."""
+    """Launch the backward kernels -> (dq, dk, dv).  On the wgmma and simt
+    routes dq is taken against the keys less their mean (:func:`key_means`),
+    which changes no gradient but dq's rounding."""
     _check(q, k, v, o, lse, do)
     B, S, Hq, hd = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
@@ -185,9 +186,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
                 *ins, delta.data_ptr(), *outs, *extra, *args, int(causal), int(window),
                 hd ** -0.5, _build.stream_of(q))
         else:
-            err = lib.repro_flash_attention_bwd(*ins, *outs, *args, _DTYPES[q.dtype],
-                                                int(causal), int(window), hd ** -0.5,
-                                                _build.stream_of(q))
+            kmean = key_means(k)
+            err = lib.repro_flash_attention_bwd(*ins, *outs, kmean.data_ptr(), *args,
+                                                _DTYPES[q.dtype], int(causal), int(window),
+                                                hd ** -0.5, _build.stream_of(q))
     if err != 0:
         raise RuntimeError(f"flash_attention backward launch ({way}) failed: cudaError {err}")
     _build.count_launch(BWD_LAUNCHES, way)

@@ -10,9 +10,12 @@ Spawns ``pods x data x model`` ranks (``launch.mesh``), each on
         --data 2 --model 2 --steps 2 --device cpu
 
 The plan is the config's (stages x tensor) factorization, overridable with
-``--stages`` / ``--tensor`` / ``--microbatches``; ``--plan auto`` (the TPU
-planner's search) is not ported.  Each rank checkpoints its own state
-through the Function-Manager policy every ``--ckpt-every`` steps, to
+``--stages`` / ``--tensor`` / ``--microbatches``.  ``--plan auto`` asks
+``core.tpu_planner`` for the best (stages x tp x mu x remat) factorization
+instead, on the chip of :func:`plan_chip`: an H100 whose 80 GB are divided
+among the ranks that share it (all ranks on the CPU's one "card" with
+``--device cpu``).  Each rank checkpoints its own state through the
+Function-Manager policy every ``--ckpt-every`` steps, to
 ``<--ckpt>.rank<r>``.  Rank 0 prints one line a step.
 """
 from __future__ import annotations
@@ -30,15 +33,14 @@ from repro_torch.checkpoint import FunctionManager
 from repro_torch.configs import INPUT_SHAPES, get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.core import collectives as cc
+from repro_torch.core import tpu_planner
 from repro_torch.core.plan import make_plan
 from repro_torch.data.synthetic import make_batch
 from repro_torch.launch.mesh import MeshShape, run_mesh
+from repro_torch.launch.roofline import ChipSpec, h100
 from repro_torch.models import registry
 from repro_torch.optim import AdamW
 from repro_torch.train.train_step import local_batch, make_train_state, make_train_step
-
-PLAN_AUTO = ("--plan auto (the TPU planner's search over stages x tensor x micro-batches "
-             "x remat) is not ported yet: ROADMAP port queue item 7b")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -99,17 +101,37 @@ def _train_rank(mesh, cfg, plan, shape: InputShape, args) -> Optional[List[float
     return losses if mesh.rank == 0 else None
 
 
+def plan_chip(world: int, device: str) -> ChipSpec:
+    """The chip ``--plan auto`` plans for: an H100 whose memory is divided
+    among the ranks that share a card (``world / device_count`` rounded up;
+    every rank shares the one "card" on the CPU)."""
+    cards = torch.cuda.device_count() if device == "cuda" else 1
+    return h100(-(-world // max(1, cards)))
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = _parser().parse_args(argv)
-    if args.plan == "auto":
-        raise NotImplementedError(PLAN_AUTO)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     shape = INPUT_SHAPES[args.shape] if args.shape else InputShape("cli", args.seq,
                                                                    args.batch, "train")
-    overrides = {k: getattr(args, k) for k in ("stages", "tensor", "microbatches")
-                 if getattr(args, k) is not None}
+    overrides = {}
+    if args.plan == "auto":
+        chip = plan_chip(args.pods * args.data * args.model, args.device)
+        best = tpu_planner.solve(cfg, shape, data=args.data, model=args.model,
+                                 pods=args.pods, chip=chip)
+        if not best:
+            raise SystemExit(f"error: no plan fits {chip.hbm_bytes:.3g} bytes a rank "
+                             f"({chip.name})")
+        p = best[0].plan
+        overrides = dict(stages=p.stages, tensor=p.tensor, microbatches=p.microbatches,
+                         remat=p.remat)
+        print(f"[plan auto] S={p.stages} tp={p.tensor} mu={p.microbatches} "
+              f"remat={p.remat} (est {best[0].t_step_est*1e3:.1f} ms/step)", flush=True)
+    for k in ("stages", "tensor", "microbatches"):
+        if getattr(args, k) is not None:
+            overrides[k] = getattr(args, k)
     if "stages" in overrides or "tensor" in overrides:
         cfg = dataclasses.replace(cfg, stages=overrides.get("stages", cfg.stages),
                                   tensor=overrides.get("tensor", cfg.tensor))

@@ -345,8 +345,8 @@ def test_cli_serve_and_launch_shim(tmp_path, capsys):
     """``serve`` plans and autoscales as JAX's does and executes on the CPU
     when asked (``--device cpu``); the launch shim maps ``--arch``; ``train``
     reaches the mesh driver's own parser; ``dryrun`` (item 7b, the mesh
-    path's analytic half) and the benchmark folder are not ported and say
-    so."""
+    path's analytic half) writes its shape-only record; the benchmark
+    folder is not ported and says so."""
     args = ["serve", "--model", "phi3-mini-3.8b@reduced", "--slo", "60",
             "--prefill-tokens", "16", "--new-tokens", "4", "--autoscale", "1,2",
             "--horizon", "30"]
@@ -356,8 +356,11 @@ def test_cli_serve_and_launch_shim(tmp_path, capsys):
     assert launch_emulate.main(["--arch", "bert-large", "--fast", "--no-plan-cache",
                                 "--steps", "1"]) == 0
     assert "engine[emulated]" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        cli(["dryrun"])
+    assert cli(["dryrun", "--arch", "qwen2.5-14b", "--shape", "decode_32k",
+                "--out", str(tmp_path / "dry")]) == 0
+    rec = json.loads((tmp_path / "dry" / "qwen2.5-14b_decode_32k_16x16.json").read_text())
+    assert rec["status"] == "ok" and rec["memory"]["argument_bytes_by_part"]["caches"] > 0
+    assert "[dryrun] qwen2.5-14b x decode_32k mesh=16x16" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="benchmark folder is the JAX package's"):
         cli(["bench"])
     with pytest.raises(SystemExit) as exit_:

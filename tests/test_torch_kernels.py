@@ -933,13 +933,13 @@ def test_flash_wrappers_launch_and_count_by_route(monkeypatch, dtype, hd, offset
     for name, args in lib.calls:   # every call matches the arity it was bound with
         assert len(args) == len(lib.argtypes[name]), name
     # (B, S, Hq, Hkv, hd) follow the pointers; the tensor-core backwards also
-    # pass their D scratch, the wgmma route the keys' means (its dQ pass's
-    # correction), the tf32x3 route its split planes' workspace
+    # pass their D scratch, the wgmma and simt routes the keys' means (their
+    # dQ passes' correction), the tf32x3 route its split planes' workspace
     # (last of the pointers: at hd 256 an allocation of workspace()'s size,
     # below it none), the simt kernels the dtype code
     n_ptrs = {"repro_flash_wgmma_fwd": 5, "repro_flash_wgmma_bwd": 11,
               "repro_flash_tf32x3_fwd": 6, "repro_flash_tf32x3_bwd": 11,
-              "repro_flash_attention_fwd": 5, "repro_flash_attention_bwd": 9}
+              "repro_flash_attention_fwd": 5, "repro_flash_attention_bwd": 10}
     for name, args in lib.calls:
         assert args[n_ptrs[name]:n_ptrs[name] + 5] == (2, 40, 8, 2, hd), name
         if way == "tf32x3":

@@ -9,9 +9,10 @@ logits within 2e-3 of JAX's ``registry.prefill`` and ``decode_step`` (the
 sharded case decodes from empty caches, as JAX's check does); phi3 again
 with ``use_kernels`` (the decode-attention wrapper's plain version here).
 ``python -m repro_torch train --device cpu`` takes 2 steps of a reduced
-config with ``jax`` and ``repro`` shadowed; ``dryrun`` and ``train --plan
-auto`` raise, naming item 7b.
+config with ``jax`` and ``repro`` shadowed; so do ``dryrun`` (one record)
+and ``train --plan auto`` (the plan ``core.tpu_planner`` picks).
 """
+import json
 import os
 import subprocess
 import sys
@@ -26,9 +27,12 @@ import torch
 import repro.configs as jconfigs
 from repro.models import registry as jreg
 
-from repro_torch.cli import main as cli
+from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape
+from repro_torch.core import tpu_planner
 from repro_torch.launch.mesh import run_jobs
-from repro_torch.launch.train import main as train_main
+from repro_torch.launch.roofline import h100
+from repro_torch.launch.train import plan_chip
 from repro_torch.testing.pipeline_equiv import mesh_shape
 from repro_torch.testing.serve_equiv import (
     S_PRE,
@@ -129,23 +133,30 @@ def test_mesh_serve_matches_jax(serve_runs, case):
         assert float(np.abs(a - b).max()) < 2e-3, case
 
 
+def _run_without_jax(tmp_path, *args):
+    """``python -m repro_torch <args>`` in a subprocess whose ``jax`` and
+    ``repro`` are packages that refuse to import."""
+    for name in ("jax", "repro"):
+        (tmp_path / name).mkdir(exist_ok=True)
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('{name} must not be imported')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), str(REPO / "src")]),
+               TMPDIR=str(tmp_path))
+    out = subprocess.run([sys.executable, "-m", "repro_torch", *args], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return out
+
+
 def test_train_cli_runs_on_cpu_without_jax(tmp_path):
     """``python -m repro_torch train --device cpu``: 2 steps of
     phi3-mini-3.8b@reduced on 2 stages x 2 replicas with ``jax`` and
     ``repro`` shadowed by packages that refuse to import; the plan line
     names the transport, the loss falls."""
-    for name in ("jax", "repro"):
-        (tmp_path / name).mkdir()
-        (tmp_path / name / "__init__.py").write_text(
-            f"raise ImportError('{name} must not be imported')\n")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(tmp_path), str(REPO / "src")]),
-               TMPDIR=str(tmp_path))
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch", "train", "--arch", "phi3-mini-3.8b", "--reduced",
-         "--data", "2", "--model", "2", "--stages", "2", "--steps", "2", "--seq", "16",
-         "--batch", "8", "--device", "cpu", "--ckpt-every", "2"],
-        capture_output=True, text=True, timeout=300, env=env, cwd=tmp_path)
-    assert out.returncode == 0, out.stderr[-3000:]
+    out = _run_without_jax(
+        tmp_path, "train", "--arch", "phi3-mini-3.8b", "--reduced", "--data", "2", "--model",
+        "2", "--stages", "2", "--steps", "2", "--seq", "16", "--batch", "8", "--device", "cpu",
+        "--ckpt-every", "2")
     lines = out.stdout.splitlines()
     assert "transport=gloo, host-staged" in lines[0] and "ranks=4" in lines[0]
     losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines if ln.startswith("step")]
@@ -155,10 +166,31 @@ def test_train_cli_runs_on_cpu_without_jax(tmp_path):
         [f"repro_torch_train.msgpack.rank{r}" for r in range(4)]
 
 
-def test_dryrun_and_plan_auto_name_item_7b():
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        cli(["dryrun"])
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        cli(["train", "--arch", "phi3-mini-3.8b", "--plan", "auto"])
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        train_main(["--arch", "phi3-mini-3.8b", "--plan", "auto"])
+def test_dryrun_and_plan_auto_name_item_7b(tmp_path):
+    """The mesh path's analytic half: ``dryrun`` writes one shape-only
+    record, and ``train --plan auto`` trains the plan ``core.tpu_planner``
+    picks (for four ranks sharing the CPU's one "card"), both with ``jax``
+    and ``repro`` shadowed."""
+    out = _run_without_jax(tmp_path, "dryrun", "--arch", "phi3-mini-3.8b", "--shape",
+                           "train_4k", "--out", str(tmp_path / "dry"))
+    rec = json.loads((tmp_path / "dry" / "phi3-mini-3.8b_train_4k_16x16.json").read_text())
+    assert rec["status"] == "ok" and rec["mesh"] == "16x16"
+    assert rec["memory"]["argument_bytes"] > 0 and rec["roofline_counted"]["flops"] > 0
+    assert out.stdout.startswith("[dryrun] phi3-mini-3.8b x train_4k mesh=16x16")
+
+    out = _run_without_jax(tmp_path, "train", "--plan", "auto", "--arch", "phi3-mini-3.8b",
+                           "--reduced", "--data", "2", "--model", "2", "--steps", "2",
+                           "--device", "cpu")
+    lines = out.stdout.splitlines()
+    auto = dict(kv.split("=") for kv in lines[0].split(" (est")[0].split()[2:])
+    assert lines[0].startswith("[plan auto] S=") and "ms/step)" in lines[0]
+    cfg = get_config("phi3-mini-3.8b").reduced()
+    best = tpu_planner.solve(cfg, InputShape("cli", 128, 8, "train"), data=2, model=2,
+                             chip=h100(4))[0].plan
+    assert auto == {"S": str(best.stages), "tp": str(best.tensor),
+                    "mu": str(best.microbatches), "remat": best.remat}
+    assert lines[1].startswith(f"plan: stages={best.stages} tensor={best.tensor} "
+                               f"mu={best.microbatches} ep=1 remat={best.remat} ranks=4")
+    losses = [float(ln.split("loss=")[1].split()[0]) for ln in lines if ln.startswith("step")]
+    assert len(losses) == 2 and all(np.isfinite(losses)) and lines[-1] == "done."
+    assert plan_chip(4, "cpu").hbm_bytes == 20e9
