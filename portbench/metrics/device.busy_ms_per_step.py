@@ -1,0 +1,11 @@
+"""Device milliseconds a step in which a kernel, copy or fill ran (the
+union of the profiler's device intervals over the device-traced steps): the
+card's own share of the step, steadier than the host-clocked rate, which
+the shared host's speed moves."""
+
+
+def read(m):
+    t = m.get("trace")
+    if not t or not t["busy_s"] or not t["steps"]:
+        return None
+    return 1e3 * t["busy_s"] / t["steps"]
