@@ -1724,17 +1724,33 @@ def device_busy(prof) -> dict:
 
 
 def compute_vs_device(trace, busy: dict, step: int) -> dict:
-    """Each worker's compute-span seconds in ``step`` and their sum, beside
-    the device work of that step (from the step's start to the run's end:
-    the step's stage math, its update and ``assemble_params``'s copies)."""
-    by_worker: dict = {}
+    """Each worker's compute spans in ``step``: their device seconds (the
+    spans' device intervals) and launch seconds (their host intervals), the
+    sums and the union of the device intervals, beside the device work of
+    that step (from the step's start to the run's end: the step's stage
+    math, its update and ``assemble_params``'s copies)."""
+    device: dict = {}
+    launch: dict = {}
+    intervals = []
     for sp in trace.spans:
-        if sp.step == step and sp.op == "compute":
-            by_worker[sp.worker] = by_worker.get(sp.worker, 0.0) + sp.duration
-    total = sum(by_worker.values())
-    return {"compute_s_by_worker": dict(sorted(by_worker.items())), "compute_s_sum": total,
-            "device": busy, "compute_sum_over_device_union": total / busy["kernel_union_s"]
-            if busy["kernel_union_s"] else None}
+        if sp.step == step and sp.op == "compute" and sp.device_start is not None:
+            device[sp.worker] = device.get(sp.worker, 0.0) + sp.device_duration
+            launch[sp.worker] = launch.get(sp.worker, 0.0) + sp.duration
+            intervals.append((sp.device_start, sp.device_end))
+    union, hi = 0.0, None
+    for a, b in sorted(intervals):
+        if hi is None or a > hi:
+            union += b - a
+            hi = b
+        elif b > hi:
+            union += b - hi
+            hi = b
+    total = sum(device.values())
+    return {"compute_device_s_by_worker": dict(sorted(device.items())),
+            "compute_launch_s_by_worker": dict(sorted(launch.items())),
+            "compute_device_s_sum": total, "compute_device_union_s": union,
+            "device": busy, "compute_device_union_over_device_union":
+            union / busy["kernel_union_s"] if busy["kernel_union_s"] else None}
 
 
 def phase_train_backends(smi: str) -> dict:

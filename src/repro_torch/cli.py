@@ -413,12 +413,13 @@ def _cmd_emulate(args) -> int:
     for k, m in enumerate(res.metrics):
         print(f"step {k}: loss={m['loss']:.4f} ce={m['ce']:.4f} "
               f"aux={m['aux']:.4f}")
-    bd = res.breakdown
     clock = "host wall-clock" if res.wall_clock else "virtual"
+    # a wall-clock run gives compute and pipe_comm only when traced
+    parts = " ".join(f"{label}={res.breakdown[k]:.3f}s" for k, label in (
+        ("compute", "compute"), ("pipeline_comm", "pipe_comm"), ("sync", "sync"))
+        if k in res.breakdown)
     print(f"engine[{res.backend}]: t_iter={res.t_iter:.3f}s ({clock}) "
-          f"cost=${res.cost:.6f}/iter mem={res.total_mem_gb:.1f}GB "
-          f"(compute={bd['compute']:.3f}s pipe_comm={bd['pipeline_comm']:.3f}s "
-          f"sync={bd['sync']:.3f}s)")
+          f"cost=${res.cost:.6f}/iter mem={res.total_mem_gb:.1f}GB ({parts})")
     ss = res.store_stats
     print(f"store: {ss.puts} puts / {ss.gets} gets / {ss.deletes} deletes, "
           f"{ss.bytes_in / MB:.0f}MB in / {ss.bytes_out / MB:.0f}MB out, "

@@ -2,12 +2,13 @@
 (``repro.obs.calibrate`` for the port).
 
 A traced run (``run_plan(..., ExecutionConfig(trace=True))``; on the card a
-traced ``process`` run with ``payload_true``, whose compute spans are the
-children's device-bound work and whose upload spans carry the real bf16
+traced ``process`` run with ``payload_true``, whose compute spans carry the
+children's device intervals and whose upload spans carry the real bf16
 boundary bytes) is folded back into the per-layer tables:
 
 * **compute**: the observed mean per-micro-batch fwd/bwd compute of each
-  stage over the analytic ``stage_aggregates`` term gives one scale per
+  stage (a span's device interval where it has one, else its interval)
+  over the analytic ``stage_aggregates`` term gives one scale per
   (stage, direction), applied to every memory option of every layer in the
   stage; stages whose phase was never observed keep their analytic values.
 * **boundary bytes**: with ``payload_true`` the boundary layers'
@@ -86,6 +87,13 @@ def default_warmup(trace: Trace) -> int:
     return 1 if meta.get("clock") == "wall" and steps > 1 else 0
 
 
+def _compute_s(span: Span) -> float:
+    """A compute span's seconds: its device interval where it has one (a
+    wall-clock span's host interval is only the launch), else its own."""
+    dev = span.device_duration
+    return span.duration if dev is None else dev
+
+
 def observe_stages(trace: Trace, *,
                    warmup: Optional[int] = None) -> List[StageObservation]:
     """Reduce a trace's spans to per-stage observed quantities.
@@ -109,9 +117,9 @@ def observe_stages(trace: Trace, *,
     out = []
     for s in range(S):
         spans = by_stage.get(s, [])
-        fwd_c = [x.duration for x in spans
+        fwd_c = [_compute_s(x) for x in spans
                  if x.op == "compute" and x.phase == "fwd"]
-        bwd_c = [x.duration for x in spans
+        bwd_c = [_compute_s(x) for x in spans
                  if x.op == "compute" and x.phase == "bwd"]
         fwd_up = [x.nbytes for x in spans
                   if x.op == "upload" and x.phase == "fwd" and x.nbytes > 0]

@@ -12,8 +12,11 @@ serving) and the clock interval it occupied.  The same schema carries:
     span per charged resource task, including every scatter-reduce chunk);
   * **wall** spans from the ``local`` and ``process`` backends (host
     ``perf_counter``/``monotonic`` intervals around the blocking store ops;
-    on a card a compute span ends only when the work it enqueued has
-    finished on the device);
+    a compute span's interval is the launch, the time its worker spent
+    enqueueing the work, and on a card the span also carries the work's
+    device interval, ``device_start``/``device_end``, from two CUDA events
+    on the worker's stream, stamped on the same clock by
+    :meth:`SpanRecorder.resolve`);
   * **predicted** spans from the JAX package's ``simulate_funcpipe``, read
     here from a saved trace, so ``repro_torch.obs.attribution`` can
     difference them cell by cell.
@@ -35,7 +38,7 @@ chunks on the idle downlink).
 from __future__ import annotations
 
 import json
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional
 
 # fwd/bwd/sync are the training phases (ordering-checked below); prefill and
@@ -78,6 +81,10 @@ class Span:
     end: float
     nbytes: float = 0.0         # modeled object size (transfers), else 0
     key: Optional[str] = None   # store key (transfers), else None
+    # a wall-clock compute span's work on the card, on the same clock
+    # (resolved from CUDA events); None elsewhere
+    device_start: Optional[float] = None
+    device_end: Optional[float] = None
 
     @property
     def worker(self) -> str:
@@ -86,6 +93,13 @@ class Span:
     @property
     def duration(self) -> float:
         return self.end - self.start
+
+    @property
+    def device_duration(self) -> Optional[float]:
+        """Seconds of the span's device interval (None without one)."""
+        if self.device_start is None:
+            return None
+        return self.device_end - self.device_start
 
     @property
     def resource(self) -> Optional[str]:
@@ -99,14 +113,20 @@ class Span:
             d["nbytes"] = self.nbytes
         if self.key is not None:
             d["key"] = self.key
+        if self.device_start is not None:
+            d["device_start"] = self.device_start
+            d["device_end"] = self.device_end
         return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "Span":
+        dev = d.get("device_start")
         return cls(stage=int(d["stage"]), replica=int(d["replica"]),
                    step=int(d["step"]), phase=d["phase"], op=d["op"],
                    start=float(d["start"]), end=float(d["end"]),
-                   nbytes=float(d.get("nbytes", 0.0)), key=d.get("key"))
+                   nbytes=float(d.get("nbytes", 0.0)), key=d.get("key"),
+                   device_start=None if dev is None else float(dev),
+                   device_end=None if dev is None else float(d["device_end"]))
 
 
 class WorkerTracer:
@@ -115,37 +135,74 @@ class WorkerTracer:
     the only hot-path call; backends guard it with ``if tracer is not None``
     so untraced runs pay nothing."""
 
-    __slots__ = ("_spans", "stage", "replica", "step", "phase")
+    __slots__ = ("_spans", "_pending", "stage", "replica", "step", "phase")
 
-    def __init__(self, spans: List[Span], stage: int, replica: int):
+    def __init__(self, spans: List[Span], stage: int, replica: int,
+                 pending: Optional[list] = None):
         self._spans = spans
+        self._pending = pending
         self.stage = stage
         self.replica = replica
         self.step = 0
         self.phase = "fwd"
 
     def emit(self, op: str, start: float, end: float, *,
-             nbytes: float = 0.0, key: Optional[str] = None) -> None:
-        self._spans.append(Span(
+             nbytes: float = 0.0, key: Optional[str] = None,
+             events: Optional[tuple] = None) -> None:
+        """Append one span; ``events`` (the start and end CUDA events of a
+        compute span's device work) wait in the recorder's ``pending`` list
+        for :meth:`SpanRecorder.resolve`."""
+        span = Span(
             stage=self.stage, replica=self.replica, step=self.step,
             phase=self.phase, op=op, start=float(start), end=float(end),
-            nbytes=float(nbytes), key=key))
+            nbytes=float(nbytes), key=key)
+        self._spans.append(span)
+        if events is not None:
+            self._pending.append((span, *events))
 
 
 class SpanRecorder:
     """The per-run span sink a backend fills (``ExecutionBackend.
     attach_recorder``).  One shared list; per-worker :class:`WorkerTracer`
     handles append into it (``list.append`` is atomic under the GIL, so the
-    local backend's concurrent threads need no extra locking)."""
+    local backend's concurrent threads need no extra locking).
+
+    On a card a compute span's CUDA events wait in ``pending`` until
+    :meth:`resolve`, so tracing never waits on the device inside a step;
+    ``anchor`` is ``(event, seconds)``: an event recorded on an idle device
+    and its time on the trace's clock, set by the backend."""
 
     def __init__(self) -> None:
         self.spans: List[Span] = []
         self.tracers: List[WorkerTracer] = []
+        self.pending: List[tuple] = []      # (span, start event, end event)
+        self.anchor: Optional[tuple] = None
 
     def tracer(self, stage: int, replica: int) -> WorkerTracer:
-        t = WorkerTracer(self.spans, stage, replica)
+        t = WorkerTracer(self.spans, stage, replica, self.pending)
         self.tracers.append(t)
         return t
+
+    def resolve(self) -> None:
+        """Stamp every pending span with its device interval: the anchor's
+        time plus the anchor's elapsed time to each event.  Waits for the
+        events' work to finish; a no-op with nothing pending."""
+        if not self.pending:
+            return
+        if self.anchor is None:
+            raise ValueError("device events pending but no anchor event was recorded")
+        pending = list(self.pending)
+        del self.pending[:]          # the tracers share this list
+        anchor, t_anchor = self.anchor
+        for _, _, end in pending:
+            end.synchronize()
+
+        def at(event) -> float:
+            return t_anchor + anchor.elapsed_time(event) / 1e3
+
+        done = {id(sp): replace(sp, device_start=at(a), device_end=at(b))
+                for sp, a, b in pending}
+        self.spans[:] = [done.get(id(sp), sp) for sp in self.spans]
 
     def set_step(self, step: int) -> None:
         for t in self.tracers:
@@ -196,7 +253,8 @@ class Trace:
 
     def chrome_events(self) -> List[dict]:
         """Trace Event Format events: pid = stage (predicted stages offset
-        by 1000), tid = replica x resource lane, ts/dur in microseconds."""
+        by 1000, device intervals by 2000), tid = replica x resource lane
+        (the device's: replica), ts/dur in microseconds."""
         events: List[dict] = []
         seen_pids: Dict[int, str] = {}
         seen_tids: set = set()
@@ -229,6 +287,24 @@ class Trace:
         add(self.spans, 0, "")
         if self.predicted:
             add(self.predicted, 1000, " (predicted)")
+        # the compute spans' device intervals, a lane a replica under a
+        # process of their own a stage
+        for s in self.spans:
+            if s.device_start is None:
+                continue
+            pid = 2000 + s.stage
+            if pid not in seen_pids:
+                seen_pids[pid] = f"stage {s.stage} (device)"
+                events.append({"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+                               "args": {"name": seen_pids[pid]}})
+            if (pid, s.replica) not in seen_tids:
+                seen_tids.add((pid, s.replica))
+                events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                               "tid": s.replica, "args": {"name": f"r{s.replica} device"}})
+            events.append({"ph": "X", "name": f"{s.phase}/{s.op}", "cat": s.phase,
+                           "pid": pid, "tid": s.replica, "ts": s.device_start * 1e6,
+                           "dur": (s.device_end - s.device_start) * 1e6,
+                           "args": {"step": s.step}})
         return events
 
     def to_chrome_json(self, *, indent: Optional[int] = None) -> str:

@@ -10,7 +10,7 @@ live in other processes runs those programs itself (``hosts_programs``).
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Generator, Optional, Tuple
 
 from repro_torch.serverless.runtime.store import StoreStats, assert_store_drained
@@ -25,10 +25,13 @@ WorkerProgram = Generator[Optional[Tuple[str, Any]], Any, None]
 class StepTiming:
     """What one training step cost on the backend's clock: ``end`` is its
     completion time from the start of the run (monotone across steps),
-    ``sync`` the slowest stage's scatter-reduce duration within it."""
+    ``sync`` the slowest stage's scatter-reduce duration within it.  A
+    traced ``local`` step also gives each (stage, replica) worker thread's
+    CPU seconds (``time.thread_time``) in ``worker_cpu_s``; empty elsewhere."""
 
     end: float
     sync: float
+    worker_cpu_s: Dict[Tuple[int, int], float] = field(default_factory=dict)
 
 
 class WorkerContext(ABC):

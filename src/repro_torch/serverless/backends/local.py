@@ -48,6 +48,7 @@ from repro_torch.serverless.backends.base import (
     WorkerProgram,
 )
 from repro_torch.models.common import tree_leaves
+from repro_torch.obs.ranges import STORE_WAIT, phase_range
 from repro_torch.serverless.runtime.scatter_reduce import local_scatter_reduce
 from repro_torch.serverless.runtime.store import (
     ProducerDeadError,
@@ -239,7 +240,8 @@ class LocalStore:
                 raise TimeoutError(self._diagnose_timeout_locked(key))
             # woken early by put/abort/mark_dead; the poll interval bounds
             # only how late a silently stale heartbeat is noticed
-            self._cv.wait(min(remaining, self.lease_timeout / 4.0, 0.25))
+            with phase_range(STORE_WAIT):
+                self._cv.wait(min(remaining, self.lease_timeout / 4.0, 0.25))
 
     def _age_locked(self, worker: Tuple[int, int]) -> Optional[float]:
         beat = self._heartbeats.get(worker)
@@ -297,15 +299,18 @@ class LocalStore:
         return self._live_bytes
 
 
-def device_wait() -> None:
-    """Block until the work enqueued so far on this thread's current CUDA
-    stream (on ``local``, the worker's own) has finished on the device (an
-    event recorded there, then synchronised).  A no-op in a process without
-    a CUDA context."""
-    if torch.cuda.is_initialized():
-        event = torch.cuda.Event()
-        event.record()
-        event.synchronize()
+def device_event(synchronize: bool = False):
+    """A timing event recorded on this thread's current CUDA stream (on
+    ``local``, the worker's own), or None in a process without a CUDA
+    context.  It never waits, unless ``synchronize``: then the device drains
+    first, so the event marks the moment it is recorded (a trace's anchor)."""
+    if not torch.cuda.is_initialized():
+        return None
+    if synchronize:
+        torch.cuda.synchronize()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record()
+    return event
 
 
 class LocalWorkerContext(WorkerContext):
@@ -315,12 +320,15 @@ class LocalWorkerContext(WorkerContext):
     With ``tracer``/``clock`` set (a ``repro_torch.obs.WorkerTracer`` and
     seconds since the run began), every store op and compute emits one
     wall-clock span; a blocking download's visibility wait is part of its
-    span.  A compute span ends after :func:`device_wait`: PyTorch returns
-    before the device finishes, so the span runs from the launch to the end
-    of the work it enqueued on the worker's own stream (and of the waits on
-    its inputs' producers that precede it there; kernels of other workers
-    running at the same time share the device and stretch it).
-    Untraced, nothing waits.  An upload span carries the bytes the store
+    span.  PyTorch returns before the device finishes, so a compute span's
+    interval is the launch: the time the worker's thread spent enqueueing
+    the micro-batch, interpreter-lock waits included.  On a card it also
+    records a :func:`device_event` before and after ``fn`` on the worker's
+    own stream; the tracer keeps them until the recorder resolves them into
+    the span's device interval (from the end of the work queued before it,
+    its inputs' producers included, to the end of its own; kernels of other
+    workers running at the same time share the device and stretch it).
+    Nothing waits on the device.  An upload span carries the bytes the store
     charged (``put`` returns them): with ``payload_true`` on ``process`` the
     payload's real size, so the spans reconcile with ``StoreStats``."""
 
@@ -354,9 +362,10 @@ class LocalWorkerContext(WorkerContext):
         if self.tracer is None:
             return fn() if fn is not None else None
         t0 = self.clock()
+        e0 = device_event()
         out = fn() if fn is not None else None
-        device_wait()
-        self.tracer.emit("compute", t0, self.clock())
+        events = None if e0 is None else (e0, device_event())
+        self.tracer.emit("compute", t0, self.clock(), events=events)
         return out
 
     def upload(self, key: str, nbytes: float, value: Any = None) -> Any:
@@ -422,6 +431,10 @@ class LocalBackend(ExecutionBackend):
         self._tracers: Dict[Tuple[int, int], Any] = {}
         self._steps_done = 0
         self._streams: Dict[Tuple[int, int], Any] = {}
+        # (event, its time on the run's clock), recorded on an idle device
+        # before the first traced step: what a compute span's events are
+        # timed from; None without a CUDA context
+        self._anchor: Optional[tuple] = None
 
     def _worker_streams(self) -> Dict[Tuple[int, int], Any]:
         """One CUDA stream per (stage, replica), made once for the plan, or
@@ -442,6 +455,7 @@ class LocalBackend(ExecutionBackend):
         self._tracers = {}
         self._steps_done = 0
         self._streams = {}
+        self._anchor = None
         self._worker_streams()
         self._t0 = time.perf_counter()
 
@@ -460,9 +474,19 @@ class LocalBackend(ExecutionBackend):
         """Seconds since the run began: the trace's time base."""
         return time.perf_counter() - self._t0
 
+    def _anchor_recorder(self) -> None:
+        """Give the recorder the run's anchor event, recorded once, between
+        steps, after a device synchronisation."""
+        if self._anchor is None:
+            event = device_event(synchronize=True)
+            if event is not None:
+                self._anchor = (event, self._clock())
+        self.recorder.anchor = self._anchor
+
     def context(self, s: int, r: int) -> LocalWorkerContext:
         if self.recorder is None:
             return LocalWorkerContext(self.store, worker=(s, r))
+        self._anchor_recorder()
         tr = self.recorder.tracer(s, r)
         tr.step = self._steps_done
         self._tracers[(s, r)] = tr
@@ -488,10 +512,15 @@ class LocalBackend(ExecutionBackend):
         for ws in streams.values():
             ws.wait_stream(caller)     # the batch and the params as the caller left them
         sync_secs: Dict[Tuple[int, int], float] = {}
+        # traced: each worker thread's CPU seconds in its program (time
+        # blocked in the store, at a barrier or on the interpreter lock left out)
+        cpu_secs: Dict[Tuple[int, int], float] = {}
+        timed = self.recorder is not None
         errors: List[BaseException] = []
         err_lock = threading.Lock()
 
         def drive(s: int, r: int, gen: WorkerProgram) -> None:
+            c0 = time.thread_time() if timed else 0.0
             try:
                 with torch.cuda.stream(streams.get((s, r))):
                     y = next(gen)
@@ -521,6 +550,9 @@ class LocalBackend(ExecutionBackend):
                 self.store.abort(e)
                 for b in barriers.values():
                     b.abort()
+            finally:
+                if timed:
+                    cpu_secs[(s, r)] = time.thread_time() - c0
 
         threads = [threading.Thread(target=drive, args=(s, r, gen),
                                     name=f"funcpipe-s{s}r{r}", daemon=True)
@@ -542,4 +574,5 @@ class LocalBackend(ExecutionBackend):
         sync = max((sync_secs.get((s, r), 0.0) for s in range(S) for r in range(d)),
                    default=0.0)
         self._steps_done += 1
-        return StepTiming(end=time.perf_counter() - self._t0, sync=sync)
+        return StepTiming(end=time.perf_counter() - self._t0, sync=sync,
+                          worker_cpu_s=cpu_secs)

@@ -514,19 +514,41 @@ def _faulty(ctx, cmd: dict, s: int, r: int):
     return ctx, state, report
 
 
-def _tracer(cmd: dict, s: int, r: int, phase: str, spans: list):
-    """The command's wall-clock tracer, appending to ``spans``, and its clock
+def _tracer(cmd: dict, s: int, r: int, phase: str):
+    """The command's span recorder, its wall-clock tracer and their clock
     (``time.monotonic()`` less the parent's ``t0``: one clock across the
-    processes); (None, None) when the command is untraced."""
+    processes); with a CUDA context the recorder's anchor event is recorded
+    now, on this process's idle device (its last command ended in a
+    synchronisation).  (None, None, None) when the command is untraced."""
     if not cmd["trace"]:
-        return None, None
-    from repro_torch.obs.schema import WorkerTracer
+        return None, None, None
+    from repro_torch.obs.schema import SpanRecorder
+    from repro_torch.serverless.backends.local import device_event
 
-    tracer = WorkerTracer(spans, s, r)
+    t0 = cmd["t0"]
+
+    def clock() -> float:
+        return time.monotonic() - t0
+
+    rec = SpanRecorder()
+    tracer = rec.tracer(s, r)
     tracer.step = cmd["trace_step"]
     tracer.phase = phase
-    t0 = cmd["t0"]
-    return tracer, lambda: time.monotonic() - t0
+    event = device_event(synchronize=True)
+    if event is not None:
+        rec.anchor = (event, clock())
+    return rec, tracer, clock
+
+
+def _spans(rec, resolve: bool = True) -> list:
+    """The command's spans as dicts, with ``resolve`` each compute span's
+    device interval stamped (the device has finished the command's work;
+    a failed command's spans go without, as its device may have faulted)."""
+    if rec is None:
+        return []
+    if resolve:
+        rec.resolve()
+    return [sp.to_dict() for sp in rec.spans]
 
 
 def _drive(gen, sync) -> None:
@@ -551,8 +573,7 @@ def _run_step(conn, store: FileStore, s: int, r: int, agg, worker, cmd) -> None:
     barrier = FileBarrier(store, f"k{k}-s{s}", d, r, store.timeout) if d > 1 else None
     losses: dict = {}
     sync_s = []
-    spans: list = []
-    tracer, clock = _tracer(cmd, s, r, "fwd", spans)
+    rec, tracer, clock = _tracer(cmd, s, r, "fwd")
 
     def sync(vec):
         if tracer is not None:
@@ -577,7 +598,7 @@ def _run_step(conn, store: FileStore, s: int, r: int, agg, worker, cmd) -> None:
         if device is not None and device.type == "cuda":
             torch.cuda.synchronize(device)   # a launch's fault surfaces here
         reply = {"ok": True, "sync_s": sum(sync_s), "loss": losses.get((s, r)),
-                 "spans": [sp.to_dict() for sp in spans], "fault": _fault_delta(state, report),
+                 "spans": _spans(rec), "fault": _fault_delta(state, report),
                  **_device_report(device)}
     except F.WorkerCrashed as e:
         # a function's real death: poison the store so the peers fail over,
@@ -586,13 +607,13 @@ def _run_step(conn, store: FileStore, s: int, r: int, agg, worker, cmd) -> None:
         store.mark_dead((s, r))
         store.abort(e)
         conn.send({"dying": {"kind": e.kind, "msg": str(e), "step": k,
-                             "spans": [sp.to_dict() for sp in spans],
+                             "spans": _spans(rec, resolve=False),
                              "fault": _fault_delta(state, report)}})
         if e.kind == "lifetime":
             os._exit(EXIT_LIFETIME)
         os.kill(os.getpid(), signal.SIGKILL)
     except Exception as e:  # noqa: BLE001 - shipped to the parent
-        reply = _error_reply(store, s, r, e, spans=[sp.to_dict() for sp in spans],
+        reply = _error_reply(store, s, r, e, spans=_spans(rec, resolve=False),
                              fault=_fault_delta(state, report))
     conn.send(reply)
 
@@ -608,8 +629,7 @@ def _run_serve(conn, store: FileStore, s: int, r: int, cmd) -> None:
     from repro_torch.serving.worker import ServeStageWorker
 
     ops.reset_launch_counts()
-    spans: list = []
-    tracer, clock = _tracer(cmd, s, r, "prefill", spans)
+    rec, tracer, clock = _tracer(cmd, s, r, "prefill")
 
     def on_decode() -> None:
         if tracer is not None:
@@ -631,7 +651,7 @@ def _run_serve(conn, store: FileStore, s: int, r: int, cmd) -> None:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         reply = {"ok": True, "tokens": to_wire(torch.cat(sink, dim=1)) if head else None,
-                 "spans": [sp.to_dict() for sp in spans], **_device_report(dev)}
+                 "spans": _spans(rec), **_device_report(dev)}
     except Exception as e:  # noqa: BLE001 - shipped to the parent
         reply = _error_reply(store, s, r, e)
     conn.send(reply)

@@ -43,6 +43,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 
 from repro_torch.core.perfmodel import Config
+from repro_torch.obs.ranges import STEP, phase_range
 from repro_torch.serverless.execution import ExecutionConfig
 from repro_torch.serverless.platform import GB, Platform
 from repro_torch.serverless.runtime.store import StoreStats
@@ -153,6 +154,32 @@ def _worker_step_program(ctx, *, k: int, s: int, r: int, agg, worker, batch,
         losses[(s, r)] = (ce_acc, aux_acc)
 
 
+def measured_breakdown(spans) -> Dict[str, float]:
+    """``compute`` and ``pipeline_comm`` of a wall-clock trace: the mean over
+    steps of the slowest worker's compute seconds (each span's device
+    interval where it has one, else its host interval) and of that worker's
+    fwd/bwd transfer seconds (boundary downloads, their waits included, and
+    uploads)."""
+    compute: Dict[tuple, float] = {}
+    comm: Dict[tuple, float] = {}
+    for sp in spans:
+        key = (sp.step, sp.stage, sp.replica)
+        if sp.op == "compute":
+            dev = sp.device_duration
+            compute[key] = compute.get(key, 0.0) + (sp.duration if dev is None else dev)
+        elif sp.op in ("download", "upload") and sp.phase in ("fwd", "bwd"):
+            comm[key] = comm.get(key, 0.0) + sp.duration
+    slowest: Dict[int, tuple] = {}
+    for key, t in compute.items():
+        if key[0] not in slowest or t > compute[slowest[key[0]]]:
+            slowest[key[0]] = key
+    if not slowest:
+        return {}
+    n = len(slowest)
+    return {"compute": sum(compute[w] for w in slowest.values()) / n,
+            "pipeline_comm": sum(comm.get(w, 0.0) for w in slowest.values()) / n}
+
+
 def run_plan(
     profile,
     platform: Optional[Platform] = None,
@@ -181,7 +208,11 @@ def run_plan(
     worker resource task (download, compute, upload, barrier, each
     scatter-reduce chunk's transfers, and the recovery's retry and restart
     reads) on the backend's clock and returns them as
-    ``EngineResult.trace``.
+    ``EngineResult.trace``; on a card a wall-clock compute span also carries
+    its device interval, and ``local`` puts each worker's CPU seconds a step
+    in the trace's ``meta["step_worker_cpu_s"]``.  On a wall-clock backend
+    ``EngineResult.breakdown`` holds the measured ``sync`` and, traced,
+    :func:`measured_breakdown`'s ``compute`` and ``pipeline_comm``.
 
     ``faults`` (a :class:`~repro_torch.serverless.faults.FaultPlan` or a
     path to its JSON) wraps the backend in a chaos ``FaultInjector``;
@@ -277,6 +308,7 @@ def run_plan(
     metrics_by_step: Dict[int, Dict[str, float]] = {}
     iter_ends: Dict[int, float] = {}
     sync_durations: Dict[int, float] = {}
+    worker_cpu: Dict[int, Dict] = {}
     workers = None
 
     # ------------------------------------------------ checkpoint / restart
@@ -355,18 +387,19 @@ def run_plan(
                     restore_from_checkpoint()
                     report.recovery_s += _time.perf_counter() - t0r
                     steps_since_launch = 0
-                batch = execution.batch_fn(k) if execution is not None else None
-                losses: Dict = {}
-                if hosts:
-                    be.stage_step(k, batch=batch, losses=losses)
-                programs = {
-                    (s, r): _worker_step_program(
-                        mk_ctx(s, r), k=k, s=s, r=r, agg=agg,
-                        worker=None if workers is None else workers[s][r],
-                        batch=batch, losses=losses)
-                    for s in range(S) for r in range(d)
-                }
-                timing = be.run_step(k, programs, pipelined_sync=pipelined_sync)
+                with phase_range(STEP):
+                    batch = execution.batch_fn(k) if execution is not None else None
+                    losses: Dict = {}
+                    if hosts:
+                        be.stage_step(k, batch=batch, losses=losses)
+                    programs = {
+                        (s, r): _worker_step_program(
+                            mk_ctx(s, r), k=k, s=s, r=r, agg=agg,
+                            worker=None if workers is None else workers[s][r],
+                            batch=batch, losses=losses)
+                        for s in range(S) for r in range(d)
+                    }
+                    timing = be.run_step(k, programs, pipelined_sync=pipelined_sync)
             except Exception as e:
                 from repro_torch.serverless import faults as F
 
@@ -387,6 +420,8 @@ def run_plan(
             # a replayed step overwrites its aborted attempt's bookkeeping
             iter_ends[k] = timing.end
             sync_durations[k] = timing.sync
+            if timing.worker_cpu_s:
+                worker_cpu[k] = timing.worker_cpu_s
             if workers is not None:
                 ce_sum = sum(losses[(S - 1, r)][0] for r in range(d))
                 aux_sum = sum(losses[(s, r)][1] for s in range(S) for r in range(d))
@@ -423,6 +458,7 @@ def run_plan(
     if recorder is not None:
         from repro_torch.obs.schema import Trace
 
+        recorder.resolve()
         trace_obj = Trace(spans=recorder.spans, meta={
             "model": profile.name,
             "backend": be.name,
@@ -441,10 +477,25 @@ def run_plan(
             "throttle": bool(getattr(base, "throttle", False)),
             "store": stats.as_dict(),
         })
+        if worker_cpu:
+            trace_obj.meta["step_worker_cpu_s"] = [
+                {f"s{s}r{r}": t for (s, r), t in sorted(worker_cpu[i].items())}
+                for i in sorted(worker_cpu)]
         if report is not None:
             trace_obj.meta["fault_report"] = report.as_dict()
         if plan_doc is not None:
             trace_obj.meta["plan"] = plan_doc
+    if not be.wall_clock:
+        breakdown = {
+            "compute": comp,
+            "pipeline_comm": float(max(0.0, t_iter - comp - sync_t)) if S > 1 else 0.0,
+            "sync": sync_t,
+        }
+    else:
+        # a wall clock's compute and transfers are measured or not given:
+        # the analytic constants above are no reading of the host
+        breakdown = {} if trace_obj is None else measured_breakdown(trace_obj.spans)
+        breakdown["sync"] = sync_t
     return EngineResult(
         t_iter=float(t_iter),
         t_total=float(t_total),
@@ -452,11 +503,7 @@ def run_plan(
         cost=float(cost),
         n_workers=agg.n_workers,
         total_mem_gb=mem_total / GB,
-        breakdown={
-            "compute": comp,
-            "pipeline_comm": float(max(0.0, t_iter - comp - sync_t)) if S > 1 else 0.0,
-            "sync": sync_t,
-        },
+        breakdown=breakdown,
         backend=be.name,
         wall_clock=be.wall_clock,
         metrics=metrics,

@@ -30,6 +30,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.obs.ranges import BARRIER, SYNC, phase_range, ranged
 from repro_torch.serverless.runtime.store import ObjectStore, StageChannel
 
 
@@ -126,6 +127,7 @@ def three_phase_scatter_reduce(
     return reduced, ends
 
 
+@ranged(SYNC)
 def local_scatter_reduce(
     store,
     index: int,
@@ -154,7 +156,9 @@ def local_scatter_reduce(
 
     With ``tracer`` set (a ``repro_torch.obs.WorkerTracer``, its times read
     from ``clock``, seconds), every chunk put, take or get and every barrier wait
-    emits one wall-clock span; a fetch's span covers its visibility wait."""
+    emits one wall-clock span; a fetch's span covers its visibility wait.
+    Under a running ``torch.profiler`` the whole share runs in the range
+    ``funcpipe/sync`` and each barrier wait in ``funcpipe/barrier``."""
     i = index
     if n == 1:
         return None if value is None else value.to(torch.float32)
@@ -176,12 +180,11 @@ def local_scatter_reduce(
         return val
 
     def wait(b):
-        if tracer is None:
+        t0 = None if tracer is None else clock()
+        with phase_range(BARRIER):
             b.wait()
-            return
-        t0 = clock()
-        b.wait()
-        tracer.emit("barrier", t0, clock())
+        if tracer is not None:
+            tracer.emit("barrier", t0, clock())
 
     chunk_b = nbytes / n
     chunks = None if value is None else torch.tensor_split(value, n)

@@ -24,6 +24,10 @@ every stage (the last stage's CE gets the same seed).
 ``use_kernels=True`` routes every attention layer through the flash
 attention kernel and every dense FFN through the swiglu kernel, forward and
 backward, when the worker's device is a card.
+
+Under a running ``torch.profiler`` the forward, backward and update run in
+the ranges ``funcpipe/fwd``, ``funcpipe/bwd`` and ``funcpipe/optimizer``
+(``repro_torch.obs.ranges``).
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from repro_torch.models.common import (
     tree_unflatten,
 )
 from repro_torch.models.transformer import scan_forward
+from repro_torch.obs.ranges import BWD, FWD, OPTIMIZER, ranged
 
 
 @dataclass(frozen=True)
@@ -227,6 +232,7 @@ class StageWorker:
         return {k: torch.as_tensor(v).to(self.device) for k, v in batch_mb.items()}
 
     # ---------------------------------------------------------------- fwd/bwd
+    @ranged(FWD)
     def forward(self, m: int, x_in, batch_mb) -> Tuple[torch.Tensor, float]:
         """Run the stage on micro-batch ``m``.  Returns (output, aux): the
         boundary activation, or the micro-batch CE on the last stage; aux is
@@ -241,6 +247,7 @@ class StageWorker:
         self._saved[m] = (leaves, x, out, aux)      # the residuals, until backward
         return out.detach(), _value(aux)
 
+    @ranged(BWD)
     def backward(self, m: int, g_out) -> Optional[torch.Tensor]:
         """Backward of micro-batch ``m``.  ``g_out`` is the cotangent from
         stage s+1 (ignored on the last stage, which seeds its CE with
@@ -306,6 +313,7 @@ class StageWorker:
         vec, self._grad_flat = self._grad_flat, None
         return vec
 
+    @ranged(OPTIMIZER)
     def apply_update(self, reduced: torch.Tensor, step: int) -> None:
         """Optimizer step from the (already averaged) flat fp32 gradient."""
         if reduced.numel() != sum(self._sizes):

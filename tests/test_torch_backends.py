@@ -15,9 +15,9 @@ the JAX engine on ``local``, and ``run_serve_plan`` on ``process`` emitting
 the JAX package's tokens.  Traced runs on ``local`` and ``process``
 (``trace=True``) validate on the wall clock, cover every worker, reconcile
 their span bytes with ``StoreStats`` within 1e-9 relative, and leave params
-and tokens bit-identical to the untraced runs'; a traced compute span ends
-after its device wait, and an untraced run never waits.  The spawned
-children never import jax.
+and tokens bit-identical to the untraced runs'; a traced compute span
+records its device events without waiting and an untraced run records
+none.  The spawned children never import jax.
 """
 import dataclasses
 import io
@@ -59,7 +59,7 @@ from repro_torch.core.perfmodel import Config
 from repro_torch.core.profiler import arch_model_profile
 from repro_torch.models import registry
 from repro_torch.models.common import tree_leaves
-from repro_torch.obs import pipeline_health, validate_trace
+from repro_torch.obs import SpanRecorder, pipeline_health, validate_trace
 from repro_torch.optim import AdamW
 from repro_torch.serverless.backends import (
     AwsS3Backend,
@@ -736,52 +736,79 @@ def test_traced_wall_clock_run_validates_and_keeps_the_bits(trained, name):
     assert _bits_equal(traced.params, plain.params)
 
 
-class _FakeTracer:
-    phase = "fwd"
+class _FakeEvent:
+    """A timing CUDA event's surface on the CPU: its time (ms) given."""
 
-    def __init__(self):
-        self.spans = []
+    def __init__(self, ms, log):
+        self.ms, self.log = ms, log
 
-    def emit(self, op, start, end, **kw):
-        self.spans.append((op, start, end, kw))
+    def synchronize(self):
+        self.log.append("synchronize")
+
+    def elapsed_time(self, other):
+        return other.ms - self.ms
 
 
 def test_traced_compute_span_ends_after_the_device_wait(monkeypatch):
-    """The span starts before ``fn``, and its end is read from the clock
-    after ``device_wait`` returned; ``fn``'s result comes back."""
+    """(Named for the device wait a traced compute span had.) The span's host
+    interval wraps ``fn``: the clock is read before the start event and
+    after the end event, both recorded around ``fn``; nothing waits on the
+    device, and the events wait in the recorder until ``resolve``, which
+    stamps the span's device interval from the anchor.  Transfers record no
+    events; ``fn``'s result comes back."""
     log, ticks = [], iter(range(100))
 
     def clock():
         log.append("clock")
         return float(next(ticks))
 
-    monkeypatch.setattr(local_mod, "device_wait", lambda: log.append("wait"))
-    tracer = _FakeTracer()
-    ctx = LocalWorkerContext(LocalStore(timeout=WAIT), worker=(0, 0), tracer=tracer,
+    def event(synchronize=False):
+        log.append("event")
+        return _FakeEvent(10.0 * log.count("event"), log)
+
+    monkeypatch.setattr(local_mod, "device_event", event)
+    rec = SpanRecorder()
+    ctx = LocalWorkerContext(LocalStore(timeout=WAIT), worker=(0, 0), tracer=rec.tracer(0, 0),
                              clock=clock)
     assert ctx.compute(1.0, lambda: log.append("fn") or 7) == 7
-    assert log == ["clock", "fn", "wait", "clock"]
-    assert tracer.spans == [("compute", 0.0, 1.0, {})]
+    assert log == ["clock", "event", "fn", "event", "clock"]
+    assert [(sp.op, sp.start, sp.end, sp.device_start) for sp in rec.spans] == \
+        [("compute", 0.0, 1.0, None)]
+    assert [(sp, a.ms, b.ms) for sp, a, b in rec.pending] == [(rec.spans[0], 10.0, 20.0)]
     ctx.upload("k0/r0/m0/act0", 8.0, value=1)
     assert ctx.download("k0/r0/m0/act0") == (1, None)
-    assert log.count("wait") == 1          # transfers wait on nothing
-    assert [sp[0] for sp in tracer.spans] == ["compute", "upload", "download"]
-    assert tracer.spans[2][3] == {"nbytes": 8.0, "key": "k0/r0/m0/act0"}
+    assert log.count("event") == 2 and "synchronize" not in log    # transfers: none
+    assert [sp.op for sp in rec.spans] == ["compute", "upload", "download"]
+    assert rec.spans[2].nbytes == 8.0 and rec.spans[2].key == "k0/r0/m0/act0"
+    rec.anchor = (_FakeEvent(5.0, log), 100.0)       # at 5 ms on the device, 100 s here
+    rec.resolve()
+    assert log.count("synchronize") == 1 and rec.pending == []
+    assert (rec.spans[0].device_start, rec.spans[0].device_end) == (100.005, 100.015)
+    assert rec.spans[0].start == 0.0 and rec.spans[1].device_start is None
 
 
 def test_untraced_runs_never_wait(monkeypatch):
-    """No tracer, no wait: a context's compute and a whole untraced ``local``
-    run never call ``device_wait``; a traced run calls it once per compute
-    span."""
+    """No tracer, no event: a context's compute and a whole untraced
+    ``local`` run record none; a traced run records its anchor once (after a
+    device synchronisation) and two events a compute span, and every compute
+    span gets a device interval; params stay bit-identical."""
     calls = []
-    monkeypatch.setattr(local_mod, "device_wait", lambda: calls.append(1))
+
+    def event(synchronize=False):
+        calls.append(synchronize)
+        return _FakeEvent(float(len(calls)), [])
+
+    monkeypatch.setattr(local_mod, "device_event", event)
     ctx = LocalWorkerContext(LocalStore(timeout=WAIT), worker=(0, 0))
     assert ctx.compute(1.0, lambda: 3) == 3 and calls == []
     p = _plan_inputs()
     res = _port_run(p, LocalBackend(lease_timeout=WAIT), True, steps=1)
     assert calls == [] and res.trace is None
     traced = _port_run(p, LocalBackend(lease_timeout=WAIT), True, steps=1, trace=True)
-    assert len(calls) == sum(sp.op == "compute" for sp in traced.trace.spans) > 0
+    compute = [sp for sp in traced.trace.spans if sp.op == "compute"]
+    assert calls.count(True) == 1 and calls.count(False) == 2 * len(compute) > 0
+    assert all(sp.device_end > sp.device_start for sp in compute)
+    assert all(sp.device_start is None for sp in traced.trace.spans if sp.op != "compute")
     assert _bits_equal(traced.params, res.params)
 
 

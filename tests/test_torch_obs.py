@@ -160,6 +160,20 @@ def test_chrome_trace_crosses_packages(timing_d2, tmp_path):
     assert back.meta == json.loads(json.dumps(res.trace.meta))
 
 
+def test_port_trace_with_device_intervals_loads_in_jax(timing_d2, tmp_path):
+    """A wall-clock compute span's device interval rides in the port's file
+    as two more span keys, which JAX's ``Trace.load`` passes over: its spans
+    are the port's without them."""
+    res = timing_d2[0]
+    spans = [dataclasses.replace(sp, device_start=sp.start + 0.5, device_end=sp.end + 0.5)
+             if sp.op == "compute" else sp for sp in res.trace.spans]
+    obs.Trace(spans=spans, meta=res.trace.meta).save(tmp_path / "port.json")
+    assert obs.Trace.load(tmp_path / "port.json").spans == spans
+    back = jobs.Trace.load(tmp_path / "port.json")
+    jobs.validate_trace(back)
+    assert _rows(back.spans) == _rows(res.trace.spans)
+
+
 def _outcome(mod, spans, meta=None):
     tr = mod.Trace(spans=[mod.Span(**d) for d in spans], meta=meta or {})
     try:

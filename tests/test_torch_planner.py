@@ -53,8 +53,11 @@ WALL_CLOCK_FIELDS = ("solve_seconds",)
 def same(a, b, path="$"):
     """Exact structural equality across the two packages' classes: a
     dataclass matches the same-named class field by field, an array its
-    dtype, shape and every element, a float with ``==``."""
-    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+    dtype, shape and every element, a float with ``==``; a span (whose port
+    class adds the optional device interval) by its serialised form."""
+    if isinstance(a, Span):
+        assert a.to_dict() == b.to_dict(), path
+    elif dataclasses.is_dataclass(a) and not isinstance(a, type):
         assert dataclasses.is_dataclass(b), path
         assert type(a).__name__ == type(b).__name__, path
         fa = [f.name for f in dataclasses.fields(a)]
@@ -74,8 +77,6 @@ def same(a, b, path="$"):
         assert type(a) is type(b) and len(a) == len(b), path
         for i, (x, y) in enumerate(zip(a, b)):
             same(x, y, f"{path}[{i}]")
-    elif isinstance(a, Span):
-        assert a.to_dict() == b.to_dict(), path
     else:
         assert type(a) is type(b) and a == b, (path, a, b)
 
