@@ -61,6 +61,14 @@ and a non-zero exit:
    (bf16, G 16, wgmma) and decode attention at jamba-v0.1-52b's [4,32 q,8
    kv,128] over 1040 slots (a short last chunk), each against its plain
    version and timed beside its bound, its plain version and SDPA.
+3b. AdamW (``adamw``) -- a phi3-mini-3.8b stage at full width (the embedding
+   and 2 layers of ``train_full``'s model, 325 M parameters, bf16 params,
+   fp32 masters and moments) as two ``StageWorker``s of a stage of 2
+   replicas: one on the AdamW kernel (``use_kernels=True``), one on the
+   plain path; 3 steps from the same gradients, master, m, v and the bf16
+   params bit-equal after each, one launch a step; then each path's median
+   time a step (CUDA events, L2 flushed, a sleep kernel covering the
+   enqueue) beside the kernel's bound (30 B a parameter over 3.35 TB/s).
 4. full-width serve -- phi3-mini-3.8b, all 32 layers, bf16, random weights
    from seed 0, a hand-built 4-stage serve plan run through
    ``run_serve_plan(..., use_kernels=True)``: kernel launches counted, tokens
@@ -1370,6 +1378,59 @@ def phase_kernel_parity(smi: str) -> dict:
     return recs
 
 
+def phase_adamw(smi: str) -> dict:
+    """The AdamW kernel against the plain path at a phi3-mini stage (module
+    docstring, 3b)."""
+    t0 = time.perf_counter()
+    spec = TRAIN
+    cfg = dataclasses.replace(get_config("phi3-mini-3.8b"), n_layers=spec["n_layers"])
+    torch.cuda.empty_cache()
+    params = registry.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                  device="cuda")
+    _, _, config, _ = train_setup(cfg, spec)
+    span = worker_mod.stage_instance_ranges(cfg, config.x)[0]
+    opt = AdamW(lr=1e-4)
+    workers = {impl: worker_mod.StageWorker(cfg, span, params, mu=spec["mu"], optimizer=opt,
+                                            use_kernels=impl == "kernel", device="cuda",
+                                            replicas=spec["d"])
+               for impl in ("kernel", "plain")}
+    del params
+    n = int(workers["kernel"].grad_nbytes // 4)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    steps = 3
+    ops.reset_launch_counts()
+    for step in range(steps):
+        grad = 1e-2 * torch.randn(n, generator=gen, device="cuda")
+        for w in workers.values():
+            w.apply_update(grad, step=step)
+        torch.cuda.synchronize()
+        kernel, plain = (w.export_state() for w in workers.values())
+        for name, a, b in ((f"{k}[{i}]", a, b) for k in kernel for i, (a, b) in
+                           enumerate(zip(tree_leaves(kernel[k]), tree_leaves(plain[k])))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"adamw step {step}: {name} differs from the plain path "
+                                     f"in {int((a != b).sum())} elements")
+    launches = ops.launch_counts()["adamw"]
+    if launches != steps:
+        raise AssertionError(f"adamw launches {launches}, expected {steps}")
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")  # 256 MB > L2
+    times = {impl: _time_ms(lambda w=w: w.apply_update(grad, step=steps), flush, reps=10)
+             for impl, w in workers.items()}
+    # bytes bound it (~15 flops a parameter): gradient, master, m, v read;
+    # master, m, v and the bf16 param written
+    nbytes = 30.0 * n
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {"params": n, "replicas": spec["d"], "steps_bit_equal": steps, "launches": launches,
+           "kernel_ms": times["kernel"], "plain_ms": times["plain"], "bound_ms": bound,
+           "bound": "bytes", "share_of_bound": bound / times["kernel"],
+           "kernel_gb_per_s": nbytes / times["kernel"] / 1e6,
+           "plain_over_kernel": times["plain"] / times["kernel"]}
+    del workers, flush, grad
+    torch.cuda.empty_cache()
+    emit({"phase": "adamw", "card": smi, "seconds": time.perf_counter() - t0, **rec})
+    return rec
+
+
 def manual_serve_plan(model: str, *, cuts, batch: int, prefill_tokens: int,
                       new_tokens: int, platform: str = "aws",
                       mem_index: int = -1) -> DeploymentPlan:
@@ -1781,7 +1842,7 @@ def phase_train_backends(smi: str) -> dict:
     prof, plat, config, M = train_setup(cfg, spec)
     d, mu, steps = spec["d"], spec["mu"], spec["steps"]
     batches = train_batches(cfg, spec, d, steps)
-    expect = _expected_launches(d * mu * cfg.n_layers, "wgmma", "wgmma")
+    expect = _expected_launches(d * mu * cfg.n_layers, "wgmma", "wgmma", adamw=_workers(config))
     # a step's sync objects: every stage's fp32 gradient, a part and a
     # reduced chunk per replica
     grad_bytes = 4.0 * sum(a.numel() for a in tree_leaves(params))
@@ -2122,7 +2183,7 @@ def phase_train_full(smi: str) -> dict:
     res, launches, step_counts = run.pop("res"), run["launches"], run["launches_per_step"]
     prof, plat, config, M = run["plan"]
     batches = run["batches"]
-    expect = _expected_launches(per_step, "wgmma", "wgmma")
+    expect = _expected_launches(per_step, "wgmma", "wgmma", adamw=_workers(config))
     if any(c != expect for c in step_counts):
         raise AssertionError(f"launches per step {step_counts}, expected {expect}")
     if checker.failures:
@@ -2250,7 +2311,7 @@ def phase_train_planned(smi: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     launches = counts[-1]
     step_counts = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
-    expect = _expected_launches(per_step, "wgmma", "wgmma")
+    expect = _expected_launches(per_step, "wgmma", "wgmma", adamw=_workers(rp.config))
     if any(c != expect for c in step_counts) or len(step_counts) != spec["steps"]:
         raise AssertionError(f"launches per step {step_counts}, expected {expect}")
     if not all(replicas_ok) or len(replicas_ok) != spec["steps"]:
@@ -2645,23 +2706,26 @@ def _max_param_diff(a: dict, b: dict) -> float:
 
 @contextlib.contextmanager
 def training_kernels_as_plain():
-    """Route ``ops.flash_attention`` and ``ops.swiglu`` to their plain
-    versions (``impl="ref"``) on the card: the kernel path's own arithmetic
-    without the kernels."""
-    real = ops.flash_attention, ops.swiglu
+    """Route ``ops.flash_attention``, ``ops.swiglu`` and ``ops.adamw_`` to
+    their plain versions (``impl="ref"``) on the card: the kernel path's own
+    arithmetic without the kernels."""
+    real = ops.flash_attention, ops.swiglu, ops.adamw_
     ops.flash_attention = lambda *a, **k: real[0](*a, **{**k, "impl": "ref"})
     ops.swiglu = lambda *a, **k: real[1](*a, **{**k, "impl": "ref"})
+    ops.adamw_ = lambda *a, **k: real[2](*a, **{**k, "impl": "ref"})
     try:
         yield
     finally:
-        ops.flash_attention, ops.swiglu = real
+        ops.flash_attention, ops.swiglu, ops.adamw_ = real
 
 
-def _expected_launches(n: int, flash_way: str, swiglu_way: str, n_swiglu=None) -> dict:
+def _expected_launches(n: int, flash_way: str, swiglu_way: str, n_swiglu=None,
+                       adamw: int = 0) -> dict:
     """``ops.launch_counts()`` after n launches of each training kernel,
     forward and backward, flash attention on route ``flash_way`` and swiglu
-    on ``swiglu_way`` (``n_swiglu`` of swiglu's, when it differs)."""
-    counts = {"decode_attention": 0}
+    on ``swiglu_way`` (``n_swiglu`` of swiglu's, when it differs), and
+    ``adamw`` of the AdamW kernel."""
+    counts = {"decode_attention": 0, "adamw": adamw}
     for name, mod, way, k in (("flash_attention", fa_kernel, flash_way, n),
                               ("swiglu", sg_kernel, swiglu_way,
                                n if n_swiglu is None else n_swiglu)):
@@ -2670,6 +2734,12 @@ def _expected_launches(n: int, flash_way: str, swiglu_way: str, n_swiglu=None) -
             counts |= {f"{name}_{route}": k if route == way else 0,
                        f"{name}_bwd_{route}": k if route == way else 0}
     return counts
+
+
+def _workers(config) -> int:
+    """A plan's stage workers: one AdamW launch each a step with the
+    kernels on."""
+    return (sum(config.x) + 1) * config.d
 
 
 # the routes of the fp32 training runs (train_fp32 at hd 96, train_reduced
@@ -2699,8 +2769,10 @@ def train_routes(cfg, spec, optimizer, params, *, d: int, steps: int, routes) ->
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         on = route == "kernel"
+        adamw = _workers(config) * steps if on and type(optimizer) is AdamW else 0
         want = _expected_launches(per_flash if on else 0, FP32_WAYS["flash_attention"],
-                                  FP32_WAYS["swiglu"], n_swiglu=per_swiglu if on else 0)
+                                  FP32_WAYS["swiglu"], n_swiglu=per_swiglu if on else 0,
+                                  adamw=adamw)
         if counts != want:
             raise AssertionError(f"route {route}: launches {counts}, expected {want}")
         out[route] = (res.losses, res.params, counts)
@@ -2823,7 +2895,7 @@ def phase_train_gemma(smi: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     launches = counts[-1]
     step_counts = [{k: b[k] - a[k] for k in a} for a, b in zip(counts, counts[1:])]
-    expect = _expected_launches(per_step, "wgmma", "wgmma")
+    expect = _expected_launches(per_step, "wgmma", "wgmma", adamw=_workers(config))
     if any(c != expect for c in step_counts):
         raise AssertionError(f"launches per step {step_counts}, expected {expect}")
     if checker.failures:
@@ -3547,7 +3619,7 @@ def phase_train_bert(smi: str) -> dict:
     checker = CallChecker()
     run = _tracked_training(cfg, spec, params, AdamW(lr=1e-4), checker=checker)
     res = run.pop("res")
-    expect = _expected_launches(per_step, "wgmma", "wgmma")
+    expect = _expected_launches(per_step, "wgmma", "wgmma", adamw=_workers(run["plan"][2]))
     if any(c != expect for c in run["launches_per_step"]):
         raise AssertionError(f"launches per step {run['launches_per_step']}, expected {expect}")
     if checker.failures:
@@ -3725,9 +3797,10 @@ def phase_train_xlstm(smi: str) -> dict:
     """xlstm-125m at full width cut to 4 layers (``TRAIN_XLSTM``), bf16,
     seed 0: 2 stages of one period (an mLSTM and an sLSTM layer) x 2
     replicas, 2 micro-batches of 4 x 512 tokens (two mLSTM chunks, so the
-    carried state runs), AdamW, 1 step through ``run_plan``: no kernel of
-    the port on this path (its scans are plain PyTorch, as they are plain
-    JAX), so every launch count stays 0; the first loss near ln(50304);
+    carried state runs), AdamW, 1 step through ``run_plan``: no model kernel
+    of the port on this path (its scans are plain PyTorch, as they are plain
+    JAX), so every launch count but AdamW's (one a worker and step) stays 0;
+    the first loss near ln(50304);
     finite losses; replicas bit-identical; the device's busy time and idle
     share in that step (the sLSTM's step loop is expected to keep the host
     busy).  Then the recurrent and parallel forms at full width in fp32
@@ -3740,7 +3813,8 @@ def phase_train_xlstm(smi: str) -> dict:
     n_params = sum(a.numel() for a in tree_leaves(params))
     run = _tracked_training(cfg, spec, params, AdamW(lr=1e-4), profile_step=0)
     res = run.pop("res")
-    zero = _expected_launches(0, "wgmma", "wgmma")
+    zero = _expected_launches(0, "wgmma", "wgmma",
+                              adamw=_workers(run["plan"][2]) * spec["steps"])
     if run["launches"] != zero:
         raise AssertionError(f"a kernel launched on the xLSTM path: {run['launches']}")
     ln_v = float(np.log(cfg.vocab_size))
@@ -4341,6 +4415,7 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     recs = phase_kernel_parity(smi)
+    phase_adamw(smi)
     launches = {}
     launches["decode_attention"], tokens = phase_serve_full(smi)
     process_decode = phase_serve_process(smi, tokens)

@@ -6,6 +6,7 @@ the hand-written kernel, which launches or raises (there is no fallback).
 """
 from __future__ import annotations
 
+from repro_torch.kernels import adamw as _aw
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
@@ -49,12 +50,28 @@ def decode_attention(q, k_cache, v_cache, length, *, impl: str = "auto"):
     return _da.decode_attention(q, k_cache, v_cache, length)
 
 
+def adamw_(opt, grad, state, param, table, *, step: int, replicas: int = 1,
+           impl: str = "auto") -> None:
+    """One ``AdamW`` step (``opt``) of a stage's leaves, in place: ``grad``
+    the flat fp32 gradient summed over ``replicas``, ``state`` the flat fp32
+    ``master``, ``m`` and ``v``, ``param`` the flat parameters written from
+    the new masters (None where they are the fp32 masters), ``table`` a
+    ``kernels.adamw.LeafTable``.  The kernel and the plain version give the
+    same bits; the plain version (``impl="ref"``) steps any optimizer, its
+    ``state`` the master and the optimizer's own buffers."""
+    if _plain(impl, grad):
+        _ref.flat_update_ref_(opt, grad, state, param, table.rows, step=step,
+                              replicas=replicas)
+    else:
+        _aw.adamw_(opt, grad, state, param, table, step=step, replicas=replicas)
+
+
 def launch_counts() -> dict:
     """Kernel launches since the last :func:`reset_launch_counts`, backward
     launches apart; flash attention's and swiglu's also by route
     (``flash_attention_wgmma``, ``swiglu_bwd_simt``, ...)."""
     with _build.COUNT_LOCK:
-        counts = {"decode_attention": _da.LAUNCHES}
+        counts = {"decode_attention": _da.LAUNCHES, "adamw": _aw.LAUNCHES}
         for name, mod in (("flash_attention", _fa), ("swiglu", _sg)):
             counts[name] = sum(mod.LAUNCHES.values())
             counts[f"{name}_bwd"] = sum(mod.BWD_LAUNCHES.values())
@@ -67,6 +84,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     with _build.COUNT_LOCK:
         _da.LAUNCHES = 0
+        _aw.LAUNCHES = 0
         for mod in (_fa, _sg):
             mod.LAUNCHES = dict.fromkeys(mod.ROUTES, 0)
             mod.BWD_LAUNCHES = dict.fromkeys(mod.ROUTES, 0)

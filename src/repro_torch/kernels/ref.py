@@ -74,3 +74,28 @@ def decode_attention_ref(
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgc,bhcd->bhgd", p, v_cache.float())
     return o.reshape(B, Hq, hd).to(q.dtype)
+
+
+def flat_update_ref_(opt, grad: torch.Tensor, state: dict, param, rows, *, step: int,
+                     replicas: int = 1) -> None:
+    """The optimizer step over a stage's flat state, in place: the plain
+    version of ``kernels.adamw`` (``opt`` an ``AdamW``), and the update of
+    any other optimizer.  For each leaf of ``rows`` ((gradient offset, state
+    offset, count)), its slice of ``grad`` divided by ``replicas`` (as the
+    engine divided the reduced gradient), then ``opt.update`` on views of
+    the flat buffers of ``state`` (``master`` and the optimizer's own),
+    whose new tensors are copied back into the views, the new masters also
+    into ``param`` (cast to its dtype; None where the parameters are the
+    fp32 masters)."""
+    for g_off, s_off, n in rows:
+        g = grad[g_off:g_off + n]
+        if replicas > 1:
+            g = g / replicas
+        views = {k: buf[s_off:s_off + n] for k, buf in state.items()}
+        master = views.pop("master")
+        new_master, new = opt.update(g, master, views, step)
+        for k, t in new.items():
+            views[k].copy_(t)
+        master.copy_(new_master)
+        if param is not None:
+            param[s_off:s_off + n].copy_(new_master)

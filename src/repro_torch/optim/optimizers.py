@@ -43,13 +43,19 @@ class AdamW(Optimizer):
     def init_state(self, master):
         return {"m": torch.zeros_like(master), "v": torch.zeros_like(master)}
 
+    def bias_corrections(self, step: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``1 - b1 ** t`` and ``1 - b2 ** t`` at t = step + 1, computed in
+        fp32 as the JAX package does: 0-dim CPU tensors, so dividing a
+        tensor on the card by one copies nothing to it."""
+        t = torch.tensor(float(step), dtype=torch.float32) + 1.0
+        return 1 - self.b1 ** t, 1 - self.b2 ** t
+
     def update(self, g, master, state, step):
         g = g.float()
-        # bias correction at step + 1, computed in fp32 as the JAX package does
-        t = torch.tensor(float(step), dtype=torch.float32) + 1.0
+        bc1, bc2 = self.bias_corrections(step)
         m = self.b1 * state["m"] + (1 - self.b1) * g
         v = self.b2 * state["v"] + (1 - self.b2) * torch.square(g)
-        mhat = m / (1 - self.b1 ** t)     # a 0-dim CPU tensor: no copy to the card
-        vhat = v / (1 - self.b2 ** t)
+        mhat = m / bc1
+        vhat = v / bc2
         upd = mhat / (torch.sqrt(vhat) + self.eps) + self.weight_decay * master
         return master - self.lr * upd, {"m": m, "v": v}

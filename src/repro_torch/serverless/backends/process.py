@@ -298,8 +298,8 @@ class ProcessBackend(ExecutionBackend):
         ex, span = self._execution, self._spans[s]
         return {"cfg": ex.cfg, "span": span,
                 "params": stage_share(ex.cfg, span, ex.init_params),
-                "mu": int(self.agg.mu), "optimizer": ex.optimizer, "remat": ex.remat,
-                "use_kernels": ex.use_kernels}
+                "mu": int(self.agg.mu), "replicas": int(self.agg.d),
+                "optimizer": ex.optimizer, "remat": ex.remat, "use_kernels": ex.use_kernels}
 
     def _spawn(self, s: int, r: int) -> None:
         import multiprocessing as mp

@@ -629,7 +629,7 @@ def _run_serve(conn, store: FileStore, s: int, r: int, cmd) -> None:
     from repro_torch.serving.worker import ServeStageWorker
 
     ops.reset_launch_counts()
-    rec, tracer, clock = _tracer(cmd, s, r, "prefill")
+    tracer = None
 
     def on_decode() -> None:
         if tracer is not None:
@@ -638,6 +638,9 @@ def _run_serve(conn, store: FileStore, s: int, r: int, cmd) -> None:
     try:
         dev = resolve_device(cmd["device"])      # no card: raise, never the CPU
         spec = store.unstash(cmd["spec"], dev)
+        # after the unstash, which makes this process's CUDA context: the
+        # recorder's anchor event needs one
+        rec, tracer, clock = _tracer(cmd, s, r, "prefill")
         span = spec["span"]
         sworker = ServeStageWorker(spec["cfg"], span, spec["params"],
                                    s_ctx=spec["s_ctx"], use_kernels=spec["use_kernels"])
@@ -689,7 +692,8 @@ def worker_main(conn, init: dict) -> None:
 
         return StageWorker(es["cfg"], es["span"], es["params"], mu=es["mu"],
                            optimizer=es["optimizer"], remat=es["remat"],
-                           use_kernels=es["use_kernels"], device=dev)
+                           use_kernels=es["use_kernels"], device=dev,
+                           replicas=es["replicas"])
 
     if ship["exec_spec"] is not None:
         from repro_torch.models.common import resolve_device

@@ -107,7 +107,8 @@ def _worker_step_program(ctx, *, k: int, s: int, r: int, agg, worker, batch,
     forward micro-batches (a yield after each op group so the backend can
     interleave workers), the fwd/bwd phase fence, ``mu`` backwards in
     reverse order, then a ``("sync", grad_vector)`` yield answered with the
-    reduced gradient, from which the worker applies its update."""
+    reduced gradient (the sum over the stage's ``d`` replicas), from which
+    the worker applies its update."""
     S, mu, d = agg.S, agg.mu, agg.d
     ce_acc = 0.0
     aux_acc = 0.0
@@ -149,8 +150,7 @@ def _worker_step_program(ctx, *, k: int, s: int, r: int, agg, worker, batch,
     vec = worker.grad_vector() if worker is not None else None
     reduced = yield ("sync", vec)
     if worker is not None:
-        # x / 1 is x: a single replica's gradient goes in without a copy
-        worker.apply_update(reduced / d if d > 1 else reduced, step=k)
+        worker.apply_update(reduced, step=k)     # divides by d itself
         losses[(s, r)] = (ce_acc, aux_acc)
 
 
@@ -302,7 +302,8 @@ def run_plan(
         spans = stage_instance_ranges(execution.cfg, config.x)
         return [[StageWorker(execution.cfg, spans[s], execution.init_params, mu=mu,
                              optimizer=execution.optimizer, remat=execution.remat,
-                             use_kernels=execution.use_kernels, device=execution.device)
+                             use_kernels=execution.use_kernels, device=execution.device,
+                             replicas=d)
                  for r in range(d)] for s in range(S)]
 
     metrics_by_step: Dict[int, Dict[str, float]] = {}

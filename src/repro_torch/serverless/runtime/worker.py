@@ -17,13 +17,25 @@ parameter dtype, are cast to fp32 and added to an fp32 accumulator (never
 accumulator is one flat vector in ``jax.tree.flatten`` order, each leaf's
 gradient added into its slice, so ``grad_vector`` hands it to the storage
 scatter-reduce without a copy and a bf16 gradient is never held in fp32
-twice; ``apply_update`` runs the optimizer on fp32 masters.  A stage with MoE
-layers also returns its routers' aux loss, whose cotangent is ``1/mu`` on
-every stage (the last stage's CE gets the same seed).
+twice.  A stage with MoE layers also returns its routers' aux loss, whose
+cotangent is ``1/mu`` on every stage (the last stage's CE gets the same
+seed).
+
+The worker owns its state as flat buffers, updated in place: the fp32
+masters and the optimizer's moments (``opt_state``'s ``master``, ``m``,
+``v``, each leaf a view) and the parameters (``params``, views of a buffer
+of their own dtype; fp32 parameters are the masters).  Every leaf starts on
+a multiple of 8 elements, so each parameter is 16-byte aligned for the
+kernels' TMA loads.  ``apply_update`` divides the reduced gradient by the
+stage's ``replicas`` and steps the optimizer over the whole stage through
+``ops.adamw_``: on a card with ``use_kernels`` and ``AdamW`` one launch of
+the AdamW kernel (``kernels.adamw``), else the per-leaf functional update
+copied into the views (``impl="ref"``), which gives the same bits.
 
 ``use_kernels=True`` routes every attention layer through the flash
 attention kernel and every dense FFN through the swiglu kernel, forward and
-backward, when the worker's device is a card.
+backward, and AdamW's step through its kernel, when the worker's device is a
+card.
 
 Under a running ``torch.profiler`` the forward, backward and update run in
 the ranges ``funcpipe/fwd``, ``funcpipe/bwd`` and ``funcpipe/optimizer``
@@ -31,6 +43,7 @@ the ranges ``funcpipe/fwd``, ``funcpipe/bwd`` and ``funcpipe/optimizer``
 """
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -38,6 +51,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.partition import stages_of
+from repro_torch.kernels import ops
+from repro_torch.kernels.adamw import LeafTable
 from repro_torch.models import registry
 from repro_torch.models.common import (
     resolve_device,
@@ -49,6 +64,11 @@ from repro_torch.models.common import (
 )
 from repro_torch.models.transformer import scan_forward
 from repro_torch.obs.ranges import BWD, FWD, OPTIMIZER, ranged
+from repro_torch.optim.optimizers import AdamW
+
+#: every leaf of a worker's flat state starts on a multiple of this many
+#: elements: 32 bytes of fp32, 16 of bf16 (TMA's alignment)
+LEAF_ALIGN = 8
 
 
 @dataclass(frozen=True)
@@ -136,20 +156,17 @@ def _value(aux) -> float:
     return 0.0 if aux is None else float(aux.detach())
 
 
-def _is_state(x) -> bool:
-    return isinstance(x, dict) and "master" in x
-
-
 def _structure(tree):
     return tree_map(lambda _: None, tree)
 
 
 class StageWorker:
-    """One serverless function: params + optimizer state for a stage span."""
+    """One serverless function: params + optimizer state for a stage span,
+    one of the stage's ``replicas``."""
 
     def __init__(self, cfg: ArchConfig, span: StageSpan, full_params: dict, *,
-                 mu: int, optimizer, remat: bool = False, use_kernels: bool = False,
-                 device="cuda"):
+                 mu: int, replicas: int, optimizer, remat: bool = False,
+                 use_kernels: bool = False, device="cuda"):
         if cfg.frontend != "none":
             raise NotImplementedError(
                 "runtime numeric execution covers token-LM archs; "
@@ -160,6 +177,7 @@ class StageWorker:
         self.cfg = cfg
         self.span = span
         self.mu = mu
+        self.replicas = replicas
         self.optimizer = optimizer
         self.remat = remat
         self.use_kernels = use_kernels
@@ -177,18 +195,44 @@ class StageWorker:
             self.mask = registry.active_mask(cfg)[span.inst_lo:span.inst_hi]
         else:
             self.mask = None
-        # slices of the caller's tensors (no copy when already on the device);
-        # every update below makes new tensors, so nothing is written in place
-        self.params = tree_map(lambda a: a.to(self.device), p)
-
-        # fp32 masters + optimizer state, per leaf (replicas hold identical copies)
-        self.opt_state = tree_map(
-            lambda a: {"master": a.float(), **optimizer.init_state(a.float())},
-            self.params)
-        leaves = tree_leaves(self.params)
-        self._shapes = [tuple(a.shape) for a in leaves]
+        leaves = tree_leaves(p)
+        dtypes = {a.dtype for a in leaves}
+        if len(dtypes) > 1:
+            raise ValueError(f"stage {span.index}'s params mix dtypes {sorted(map(str, dtypes))}")
+        shapes = [tuple(a.shape) for a in leaves]
         self._sizes = [a.numel() for a in leaves]
         self.grad_nbytes = float(sum(self._sizes)) * 4  # fp32 sync payload
+        offsets, total = [], 0
+        for n in self._sizes:
+            offsets.append(total)
+            total += -(-n // LEAF_ALIGN) * LEAF_ALIGN
+        grad_offsets = [0, *itertools.accumulate(self._sizes)][:-1]
+        self._table = LeafTable(zip(grad_offsets, offsets, self._sizes), self.device)
+
+        def views(buf):
+            return [buf[o:o + n].view(shape)
+                    for o, n, shape in zip(offsets, self._sizes, shapes)]
+
+        # fp32 masters + optimizer state, flat (replicas hold identical
+        # copies); the worker's own copy of its params, so an update in
+        # place touches neither the caller's tensors nor another replica's
+        master = torch.zeros(total, dtype=torch.float32, device=self.device)
+        self._state = {"master": master, **optimizer.init_state(master)}
+        for dst, src in zip(views(master), leaves):
+            dst.copy_(src)
+        dtype = dtypes.pop() if dtypes else torch.float32
+        self._params = None
+        if dtype != torch.float32:
+            self._params = torch.zeros(total, dtype=dtype, device=self.device)
+            for dst, src in zip(views(self._params), leaves):
+                dst.copy_(src)
+        by_key = {k: views(buf) for k, buf in self._state.items()}
+        self.params = tree_unflatten(p, views(master if self._params is None else self._params))
+        self.opt_state = tree_unflatten(
+            p, [{k: by_key[k][i] for k in self._state} for i in range(len(leaves))])
+        # AdamW on a card with the kernels: one launch a step
+        self._kernel = (use_kernels and self.device.type == "cuda"
+                        and type(optimizer) is AdamW)
 
         self._saved: Dict[int, Any] = {}
         self._grad_flat: Optional[torch.Tensor] = None   # fp32 [sum(_sizes)]
@@ -290,15 +334,21 @@ class StageWorker:
         return self.export_state()
 
     def load_state(self, state: dict) -> None:
-        """Restore from :meth:`export_state` at a step boundary; clears every
-        transient accumulator."""
-        if _structure(state["params"]) != _structure(self.params):
-            raise ValueError(
-                f"checkpointed stage state does not match stage {self.span.index}")
-        self.params = tree_map(lambda a: torch.as_tensor(a).to(self.device),
-                               state["params"])
-        self.opt_state = tree_map(lambda a: torch.as_tensor(a).to(self.device),
-                                  state["opt_state"])
+        """Restore from :meth:`export_state` at a step boundary, copying
+        into the worker's buffers; clears every transient accumulator."""
+        for key in ("params", "opt_state"):
+            if _structure(state[key]) != _structure(getattr(self, key)):
+                raise ValueError(
+                    f"checkpointed stage state does not match stage {self.span.index}")
+        pairs = [(dst, torch.as_tensor(src)) for key in ("params", "opt_state")
+                 for dst, src in zip(tree_leaves(getattr(self, key)), tree_leaves(state[key]))]
+        for dst, src in pairs:
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"checkpointed leaf {tuple(src.shape)} {src.dtype} does not match "
+                    f"stage {self.span.index}'s {tuple(dst.shape)} {dst.dtype}")
+        for dst, src in pairs:
+            dst.copy_(src)
         self._saved.clear()
         self._grad_flat = None
 
@@ -315,29 +365,15 @@ class StageWorker:
 
     @ranged(OPTIMIZER)
     def apply_update(self, reduced: torch.Tensor, step: int) -> None:
-        """Optimizer step from the (already averaged) flat fp32 gradient."""
+        """Optimizer step, in place, from the flat fp32 gradient summed over
+        the stage's replicas (divided by ``replicas`` here)."""
         if reduced.numel() != sum(self._sizes):
             raise ValueError(f"gradient of {reduced.numel()} values for "
                              f"{sum(self._sizes)} parameters")
-        parts = torch.split(reduced.to(self.device), self._sizes)
+        grad = reduced.to(self.device)
         self._grad_flat = None
-        # the worker lets go of each leaf's old param, master and moments as
-        # their new ones are made, so a stage never holds two copies of its
-        # state
-        states = tree_leaves(self.opt_state, is_leaf=_is_state)
-        like, self.opt_state = _structure(self.opt_state), None
-        old = tree_leaves(self.params)
-        like_params, self.params = _structure(self.params), None
-        new_params, new_states = [], []
-        for i, (g, shape) in enumerate(zip(parts, self._shapes)):
-            st, states[i] = states[i], None
-            dtype, old[i] = old[i].dtype, None
-            sub = {k: v for k, v in st.items() if k != "master"}
-            master, sub = self.optimizer.update(g.reshape(shape), st["master"], sub, step)
-            new_params.append(master.to(dtype))
-            new_states.append({"master": master, **sub})
-        self.params = tree_unflatten(like_params, new_params)
-        self.opt_state = tree_unflatten(like, new_states, is_leaf=_is_state)
+        ops.adamw_(self.optimizer, grad, self._state, self._params, self._table,
+                   step=step, replicas=self.replicas, impl="auto" if self._kernel else "ref")
 
 
 def assemble_params(cfg: ArchConfig, workers: List[StageWorker]) -> dict:

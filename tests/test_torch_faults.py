@@ -217,8 +217,8 @@ def _stage_states(dtype: str, *, n_layers=2):
     params0 = jreg.init_params(jcfg, jax.random.PRNGKey(3))
     jw = JaxStageWorker(jcfg, jax_ranges(jcfg, x)[0], params0, mu=2, optimizer=JaxAdamW())
     params = registry.params_from_jax(jax.tree.map(np.asarray, params0), device="cpu")
-    w = StageWorker(cfg, stage_instance_ranges(cfg, x)[0], params, mu=2, optimizer=AdamW(),
-                    device="cpu")
+    w = StageWorker(cfg, stage_instance_ranges(cfg, x)[0], params, mu=2, replicas=1,
+                    optimizer=AdamW(), device="cpu")
     return w.export_state(), jw.export_state()
 
 
@@ -619,8 +619,9 @@ def test_blob_bytes_are_the_checkpoint_upload(chaos, inputs):
     assert st.class_bytes_in["ckpt"] == chaos.jres.store_stats.class_bytes_in["ckpt"]
     p = inputs
     spans = stage_instance_ranges(p.cfg, p.x)
-    blobs = [pack_state(StageWorker(p.cfg, spans[s], p.params, mu=p.mu, optimizer=AdamW(),
-                                    device="cpu").export_state()) for s in range(2)]
+    blobs = [pack_state(StageWorker(p.cfg, spans[s], p.params, mu=p.mu, replicas=1,
+                                    optimizer=AdamW(), device="cpu").export_state())
+             for s in range(2)]
     per_ckpt = float(sum(len(b) for b in blobs))
     assert st.class_bytes_in["ckpt"] == pytest.approx(
         chaos.res.fault_report.checkpoints * per_ckpt, rel=1e-12)

@@ -28,6 +28,7 @@ except ImportError:
     jnp = None
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import adamw as aw
 from repro_torch.kernels import build as kernel_build
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
@@ -178,11 +179,12 @@ def test_ops_dispatch_cpu_goes_to_plain_version():
 
 def test_launch_counter_reset():
     da.LAUNCHES = 7
+    aw.LAUNCHES = 9
     fa.LAUNCHES = {"wgmma": 4, "tf32x3": 5, "simt": 2}
     fa.BWD_LAUNCHES = {"wgmma": 3, "tf32x3": 1, "simt": 2}
     sg.LAUNCHES = {"wgmma": 3, "tf32x3": 6, "simt": 1}
     sg.BWD_LAUNCHES = {"wgmma": 2, "tf32x3": 4, "simt": 1}
-    assert ops.launch_counts() == {"decode_attention": 7, "flash_attention": 11,
+    assert ops.launch_counts() == {"decode_attention": 7, "adamw": 9, "flash_attention": 11,
                                    "flash_attention_bwd": 6, "flash_attention_wgmma": 4,
                                    "flash_attention_tf32x3": 5, "flash_attention_simt": 2,
                                    "flash_attention_bwd_wgmma": 3,
@@ -193,6 +195,7 @@ def test_launch_counter_reset():
                                    "swiglu_bwd_simt": 1}
     ops.reset_launch_counts()
     assert set(ops.launch_counts().values()) == {0}
+    assert da.LAUNCHES == aw.LAUNCHES == 0
     assert fa.LAUNCHES == fa.BWD_LAUNCHES == {"wgmma": 0, "tf32x3": 0, "simt": 0}
     assert sg.LAUNCHES == sg.BWD_LAUNCHES == {"wgmma": 0, "tf32x3": 0, "simt": 0}
 

@@ -10,8 +10,8 @@ interval round-trips, is drawn in a lane of its own, and is what
 ``obs.calibrate`` and ``measured_breakdown`` read.  On a card (marker
 ``cuda``): a traced phi3-shaped run never synchronises inside a step, a
 compute span's device interval times the work it launched, and a traced
-``process`` run's children return every compute span with its device
-interval.  This file does not import jax.
+``process`` run's children, training or serving, return every compute span
+with its device interval.  This file does not import jax.
 """
 import dataclasses
 import json
@@ -344,3 +344,26 @@ def test_traced_process_run_carries_device_intervals(cuda_device, tmp_path):
     assert runs[1].losses == runs[0].losses
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(runs[1].params),
                                                  tree_leaves(runs[0].params)))
+
+
+@pytest.mark.cuda
+def test_traced_serve_on_process_carries_device_intervals(cuda_device, tmp_path):
+    """A traced request on ``process``: each child makes its CUDA context
+    (its stage's weights) before its recorder's anchor event, so every
+    compute span comes back with a device interval, and the tokens are the
+    untraced request's."""
+    from repro_torch.serving import plan_serving, run_serve_plan
+
+    plan = plan_serving("phi3-mini-3.8b@reduced", "aws", slo=60.0, batch=2,
+                        prefill_tokens=8, new_tokens=3)
+    cuts = [0] * len(plan.x)
+    cuts[1] = 1                                  # two stages: two children
+    plan = dataclasses.replace(plan, x=tuple(cuts), z=(0,) * (len(plan.x) + 1))
+    plain, res = (run_serve_plan(plan, backend="process", device="cuda", trace=trace,
+                                 root=str(tmp_path / f"store{trace}"))
+                  for trace in (False, True))
+    assert (res.tokens == plain.tokens).all()
+    validate_trace(res.trace)
+    compute = [sp for sp in res.trace.spans if sp.op == "compute"]
+    assert {sp.stage for sp in compute} == {0, 1}
+    assert all(sp.device_end > sp.device_start >= 0.0 for sp in compute)

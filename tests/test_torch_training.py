@@ -126,7 +126,8 @@ def test_grad_vector_matches_jax_worker(two_stage, remat):
     jcfg, cfg, x, params, mbs = two_stage
     jw = [JaxWorker(jcfg, sp, params, mu=2, optimizer=JaxSGD()) for sp in jax_spans(jcfg, x)]
     tp = params_from_jax(_np_tree(params), device="cpu")
-    tw = [StageWorker(cfg, sp, tp, mu=2, optimizer=SGD(), remat=remat, device="cpu")
+    tw = [StageWorker(cfg, sp, tp, mu=2, replicas=1, optimizer=SGD(), remat=remat,
+                      device="cpu")
           for sp in stage_instance_ranges(cfg, x)]
     want = _run_stages(jw, mbs, lambda a: a, np.asarray)
     got = _run_stages(tw, [_torch_batch(mb) for mb in mbs], lambda a: a,
@@ -146,7 +147,7 @@ def test_apply_update_matches_jax_optimizer(two_stage, opt):
     jspan, tspan = jax_spans(jcfg, x)[1], stage_instance_ranges(cfg, x)[1]
     jw = JaxWorker(jcfg, jspan, params, mu=2, optimizer=jopt)
     tw = StageWorker(cfg, tspan, params_from_jax(_np_tree(params), device="cpu"), mu=2,
-                     optimizer=topt, device="cpu")
+                     replicas=1, optimizer=topt, device="cpu")
     rng = np.random.default_rng(21)
     n = int(jw.grad_nbytes // 4)
     assert tw.grad_nbytes == jw.grad_nbytes
@@ -164,16 +165,16 @@ def test_export_load_state_round_trips(two_stage):
     jcfg, cfg, x, params, mbs = two_stage
     span = stage_instance_ranges(cfg, x)[0]
     tp = params_from_jax(_np_tree(params), device="cpu")
-    a = StageWorker(cfg, span, tp, mu=1, optimizer=AdamW(lr=1e-2), device="cpu")
+    a = StageWorker(cfg, span, tp, mu=1, replicas=1, optimizer=AdamW(lr=1e-2), device="cpu")
     a.forward(0, None, _torch_batch(mbs[0]))
     a.backward(0, torch.ones(2, 16, cfg.d_model))
     a.apply_update(a.grad_vector(), step=0)
-    b = StageWorker(cfg, span, tp, mu=1, optimizer=AdamW(lr=1e-2), device="cpu")
+    b = StageWorker(cfg, span, tp, mu=1, replicas=1, optimizer=AdamW(lr=1e-2), device="cpu")
     b.load_state(a.export_state())
     for p, q in zip(tree_leaves(a.export_state()), tree_leaves(b.export_state())):
         assert torch.equal(p, q)
-    other = StageWorker(cfg, stage_instance_ranges(cfg, x)[1], tp, mu=1, optimizer=SGD(),
-                        device="cpu")
+    other = StageWorker(cfg, stage_instance_ranges(cfg, x)[1], tp, mu=1, replicas=1,
+                        optimizer=SGD(), device="cpu")
     with pytest.raises(ValueError, match="does not match"):
         other.load_state(a.export_state())
     with pytest.raises(RuntimeError, match="backward"):

@@ -558,7 +558,8 @@ def test_workers_refuse_frontends_as_jax_does(arch):
     span, jspan = stage_instance_ranges(cfg, _x(4, 2))[0], jax_ranges(jcfg, _x(4, 2))[0]
     messages = []
     for make, jmake in (
-            (lambda: StageWorker(cfg, span, {}, mu=1, optimizer=SGD(), device="cpu"),
+            (lambda: StageWorker(cfg, span, {}, mu=1, replicas=1, optimizer=SGD(),
+                                 device="cpu"),
              lambda: JaxStageWorker(jcfg, jspan, {}, mu=1, optimizer=JaxSGD())),
             (lambda: ServeStageWorker(cfg, span, {}, s_ctx=8),
              lambda: JaxServeStageWorker(jcfg, jspan, {}, s_ctx=8))):
