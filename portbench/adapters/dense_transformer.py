@@ -1,5 +1,8 @@
 """The dense transformer family in the port: the configuration file's sizes
-as the port's ``ArchConfig``."""
+as the port's ``ArchConfig``, and the kernel launches a micro-batch makes.
+
+What the harness reads of a family's adapter: ``arch_config`` and
+``expected_launches``."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,3 +26,10 @@ def arch_config(cfg: dict):
         norm_eps=cfg.get("rms_norm_eps", cfg.get("layer_norm_eps")),
         causal=cfg["causal"], is_encoder=encoder, tie_embeddings=cfg["tie_word_embeddings"],
         qkv_bias=cfg.get("attention_bias", False), param_dtype=cfg["param_dtype"])
+
+
+def expected_launches(arch, traffic: dict) -> dict:
+    """{kernel: forward calls a micro-batch and replica}: every layer's
+    attention through flash attention and its FFN through swiglu (each with
+    one backward call)."""
+    return {"flash_attention": arch.n_layers, "swiglu": arch.n_layers}

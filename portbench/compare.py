@@ -22,9 +22,10 @@ A training cell's program is held to the plain reference over its first
   difference between any replica's optimizer state (fp32 masters and both
   moments) and its stage's first replica's, at the same point; the replicas
   apply the same reduced gradient and stay bit-identical, so its limit is 0;
-* ``off_route_launches`` and ``missing_launches``: the window's flash
-  attention and swiglu launches, forward and backward, that left the wgmma
-  route, and those short of one a layer and micro-batch.
+* ``off_route_launches`` and ``missing_launches``: the window's launches,
+  forward and backward, of the kernels the family expects
+  (``adapters/<family>.py``'s ``expected_launches``) that left the wgmma
+  route, and those short of the expected count.
 
 Each number has a limit of its own in ``limits/<cell>.json``; the run is
 correct where every number the cell's limits name is there and at or under
@@ -93,14 +94,16 @@ def readings(prog: dict, ref: dict) -> tuple:
              "loss_gaps": gaps})
 
 
-def launch_numbers(counts: Dict[str, int], expected: int) -> dict:
+def launch_numbers(counts: Dict[str, int], expected: Dict[str, int]) -> dict:
     """Off-route and missing launches of the window from the port's counters
-    (a difference of ``ops.launch_counts()`` over the window)."""
+    (a difference of ``ops.launch_counts()`` over the window) against
+    ``expected``, {kernel: forward launches of the window}, each with as
+    many backward launches."""
     off = missing = 0
-    for base in ("flash_attention", "swiglu"):
+    for base, want in expected.items():
         for total, wgmma in ((base, f"{base}_wgmma"), (f"{base}_bwd", f"{base}_bwd_wgmma")):
             off += counts[total] - counts[wgmma]
-            missing += max(0, expected - counts[wgmma])
+            missing += max(0, want - counts[wgmma])
     return {"off_route_launches": off, "missing_launches": missing}
 
 

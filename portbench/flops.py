@@ -1,13 +1,14 @@
 """Operations and bytes of a training step and of the kernels' calls,
-counted from shapes.
+counted from shapes: the rules every family's ``step_flops`` and every
+kernel's ``count`` (``kernels/``) follow.
 
 ``model_flops`` is a frozen copy of ``repro_torch.launch.roofline.
-model_flops``' training arithmetic, 6 N D.  ``step_flops`` refines it as a
-step's model FLOPs: N counts only the parameters that enter a matmul (the
-layers' projections and the head, not the embedding lookup or the norms),
-and attention adds its query-key pairs as the mask allows them, 4 x pairs x
-head dim a head forward, 3 x that forward and backward.  Recompute is not
-counted.
+model_flops``' training arithmetic, 6 N D.  A family's ``step_flops``
+refines it as a step's model FLOPs: N counts only the parameters that enter
+a matmul (the layers' projections and the head, not the embedding lookup or
+the norms), and attention adds its query-key pairs as the mask allows them
+(``pairs``), 4 x pairs x head dim a head forward, 3 x that forward and
+backward.  Recompute is not counted.
 
 A kernel call's operations and bytes are what the algorithm needs: each
 input byte read once, each output byte written once, the backward's
@@ -20,13 +21,6 @@ BF16 = 2
 FP32 = 4
 
 
-def matmul_params(z: dict) -> int:
-    """Parameters that enter a matmul: the layers' projections and the head."""
-    d, H, Hkv, hd, f, L, V = (z[k] for k in ("d", "H", "Hkv", "hd", "f", "L", "V"))
-    per_layer = d * H * hd + 2 * d * Hkv * hd + H * hd * d + 3 * d * f
-    return L * per_layer + V * d
-
-
 def pairs(seq: int, causal: bool) -> int:
     """Query-key pairs of one row of one head as the mask allows them."""
     return seq * (seq + 1) // 2 if causal else seq * seq
@@ -35,12 +29,6 @@ def pairs(seq: int, causal: bool) -> int:
 def model_flops(n_params: float, tokens: float) -> float:
     """6 N D: forward and backward of N parameters over D tokens."""
     return 6.0 * n_params * tokens
-
-
-def step_flops(z: dict, rows: int, seq: int) -> float:
-    """Model FLOPs of one training step over ``rows`` rows of ``seq`` tokens."""
-    attn_fwd = 4.0 * pairs(seq, z["causal"]) * z["H"] * z["hd"] * rows * z["L"]
-    return model_flops(matmul_params(z), rows * seq) + 3.0 * attn_fwd
 
 
 def flash_call(B: int, S: int, H: int, Hkv: int, hd: int, causal: bool,

@@ -5,7 +5,9 @@ A cell (``BENCHMARK.json``'s ``workloads``) names a configuration
 ``reference/<family>.py`` and its port adapter in ``adapters/<family>.py``)
 and a traffic mix (``traffic/<name>.json``); its limits are in
 ``limits/<cell>.json`` and its per-layer metrics' readers in
-``metrics/<metric>.py``.
+``metrics/<metric>.py``.  The family gives the step's model FLOPs and the
+kernel launches it expects; the kernels whose calls are ranged and counted
+are the table in ``kernels/``.
 
 A training run, all in one process:
 
@@ -22,8 +24,8 @@ A training run, all in one process:
    with ``--trace 1``
    ``TRACED_STEPS`` under ``torch.profiler`` recording the device alone
    (busy and idle time, kernels by name), then ``host_traced_steps`` that
-   record the host's operators on every thread too (the kernels' ranges and
-   what the host did in the device's gaps; host tracing slows a step, so
+   record the host's operators on every thread too (the ranges of the
+   table's kernels and what the host did in the device's gaps; host tracing slows a step, so
    the device's idle share is not read from these);
 3. once the call has returned and its state is freed: the reference, from
    weights made again from the seed, over the same checked batches.
@@ -40,19 +42,16 @@ import gc
 import importlib
 import importlib.util
 import json
-import math
 import sys
 import time
 from pathlib import Path
 
 import torch
 
-from portbench import compare, data, devtrace, flops
+from portbench import compare, data, devtrace, flops, kernels
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
-#: the profiler range around each call into the port's kernels
-RANGES = {"flash_attention": "portbench::flash_attention", "swiglu": "portbench::swiglu"}
 #: steps of the probe call, warm steps before the window (the first
 #: CHECKED_STEPS of them compared with the reference), device-traced steps
 PROBE_STEPS, WARM_STEPS, CHECKED_STEPS, TRACED_STEPS = 3, 3, 3, 3
@@ -109,7 +108,10 @@ def reader(name: str):
 
 
 def family(cfg: dict):
-    """(reference module, port adapter module) of the configuration's family."""
+    """(reference module, port adapter module) of the configuration's family
+    (``reference/<family>.py``: ``sizes``, ``leaves``, ``train``,
+    ``step_flops``, ``TINY``; ``adapters/<family>.py``: ``arch_config``,
+    ``expected_launches``)."""
     return (importlib.import_module(f"portbench.reference.{cfg['family']}"),
             importlib.import_module(f"portbench.adapters.{cfg['family']}"))
 
@@ -263,44 +265,38 @@ def windowed_backend(before, after):
 
 
 @contextlib.contextmanager
-def ranged_kernel_calls(calls: dict):
-    """Each ``ops.flash_attention`` and ``ops.swiglu`` call in a profiler
-    range of its own, its shapes recorded."""
+def ranged_kernel_calls(calls: dict, table: dict):
+    """Each call into a kernel of ``table`` (``ops.<OP>``) in a profiler range
+    of its own (``RANGE``), its shape appended to ``calls[<kernel>]``."""
     from repro_torch.kernels import ops
 
-    real = {n: getattr(ops, n) for n in RANGES}
+    def ranged(name, entry, real):
+        def call(*args, **kwargs):
+            calls[name].append(entry.shape(*args, **kwargs))
+            with torch.profiler.record_function(entry.RANGE):
+                return real(*args, **kwargs)
 
-    def flash_attention(q, k, v, *a, **kw):
-        calls["flash_attention"].append(
-            (q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3],
-             bool(kw.get("causal", True)), q.element_size()))
-        with torch.profiler.record_function(RANGES["flash_attention"]):
-            return real["flash_attention"](q, k, v, *a, **kw)
+        return call
 
-    def swiglu(x, w_gate, w_up, *a, **kw):
-        calls["swiglu"].append((math.prod(x.shape[:-1]), x.shape[-1], w_gate.shape[1],
-                                x.element_size()))
-        with torch.profiler.record_function(RANGES["swiglu"]):
-            return real["swiglu"](x, w_gate, w_up, *a, **kw)
-
-    ops.flash_attention, ops.swiglu = flash_attention, swiglu
+    real = {}
+    for name, entry in table.items():
+        real[name] = getattr(ops, entry.OP)
+        setattr(ops, entry.OP, ranged(name, entry, real[name]))
     try:
         yield
     finally:
-        for n, f in real.items():
-            setattr(ops, n, f)
+        for name in reversed(list(real)):
+            setattr(ops, table[name].OP, real[name])
 
 
-def least_seconds(calls: dict, peak: dict) -> dict:
+def least_seconds(calls: dict, table: dict, peak: dict) -> dict:
     """Each kernel's roofline time over the recorded calls, forward and
     backward."""
     out = {}
     for name, shapes in calls.items():
         total = 0.0
         for shape in shapes:
-            *dims, elem = shape
-            c = (flops.flash_call(*dims, elem=elem) if name == "flash_attention"
-                 else flops.swiglu_call(*dims, elem=elem))
+            c = table[name].count(shape)
             total += (flops.least_seconds(c["fwd_ops"], c["fwd_bytes"], peak)
                       + flops.least_seconds(c["bwd_ops"], c["bwd_bytes"], peak))
         out[name] = total
@@ -322,6 +318,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, *, t_start: float,
     torch.use_deterministic_algorithms(True)
     arch = adapter.arch_config(cfg)
     z = ref.sizes(cfg)
+    table = kernels.table()
     prof, plat, config, M = make_plan(arch, tr)
     d, mu, seq = tr["replicas"], tr["micro_batches"], tr["seq"]
     rows = d * mu * tr["micro_batch"]
@@ -397,8 +394,8 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, *, t_start: float,
             st["dev_prof"] = devtrace.profiler(device, host=False)
             st["td0"] = time.perf_counter()
         if trace and k == w2:
-            st["calls"] = {n: [] for n in RANGES}
-            st["ranged"] = ranged_kernel_calls(st["calls"])
+            st["calls"] = {n: [] for n in table}
+            st["ranged"] = ranged_kernel_calls(st["calls"], table)
             st["ranged"].__enter__()
             st["host_prof"] = devtrace.profiler(device, host=True)
 
@@ -450,7 +447,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, *, t_start: float,
         "probe_step_s": t_step,
         "window": {"steps": n_window, "seconds": st["t1"] - st["t0"],
                    "tokens": n_window * rows * seq,
-                   "flops_per_step": flops.step_flops(z, rows, seq)},
+                   "flops_per_step": ref.step_flops(cfg, rows, seq)},
         "peak_bytes": st["peak"], "memory_peak_bytes": max(st["peak"], st["setup_peak"]),
         "syncs": st["syncs"], "replicas": d, "store": store,
         "step_starts_s": [t - st["starts"][0] for t in st["starts"]],
@@ -459,17 +456,17 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, *, t_start: float,
         t0 = time.perf_counter()
         dev_red = devtrace.device_busy(st.pop("dev_prof"))
         t1 = time.perf_counter()
-        host_red = devtrace.reduce(st.pop("host_prof"), list(RANGES.values()))
+        host_red = devtrace.reduce(st.pop("host_prof"), [e.RANGE for e in table.values()])
         t2 = time.perf_counter()
         peak = peak_of(torch.cuda.get_device_name(0)) if dev.cuda else None
-        least = least_seconds(st["calls"], peak) if peak else {}
+        least = least_seconds(st["calls"], table, peak) if peak else {}
         out["trace"] = {
             "steps": n_dev, "window_s": st["td1"] - st["td0"], "busy_s": dev_red["busy_s"],
             "elementwise_s": sum(v for k, v in dev_red["kernel_s_by_name"].items()
                                  if "elementwise" in k),
-            "ranges": {n: dict(host_red["ranges"][r], least_s=least.get(n),
-                               recorded_calls=len(st["calls"][n]))
-                       for n, r in RANGES.items()},
+            "ranges": {n: dict(host_red["ranges"][e.RANGE], least_s=least.get(n),
+                               recorded_calls=len(st["calls"][n]), backward=e.BACKWARD)
+                       for n, e in table.items()},
             "device_ops": devtrace.top_ops(dev_red), "idle_gaps": devtrace.idle_gaps(host_red),
         }
         del dev_red, host_red
@@ -477,9 +474,11 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, *, t_start: float,
             + json.dumps(out["trace"]["ranges"]))
 
     numbers = {}
+    out["expected_launches"] = {k: n_window * d * mu * n
+                                for k, n in adapter.expected_launches(arch, tr).items()}
     if check_launches:
         counts = {k: st["counts1"][k] - st["counts0"][k] for k in st["counts0"]}
-        numbers.update(compare.launch_numbers(counts, n_window * d * mu * arch.n_layers))
+        numbers.update(compare.launch_numbers(counts, out["expected_launches"]))
         out["launches"] = counts
     t0 = time.perf_counter()
     weights = data.make_weights(specs, seed, device)

@@ -12,6 +12,10 @@ fp32, so the sizes that are timed fit beside nothing else on the card.
 The parameter layout is the stacked one the weights are made in
 (``leaves``): per-layer leaves carry the layer on axis 0.  Readings name
 each layer's slice ``<leaf>#<layer>``.
+
+What the harness reads of a family's reference: ``sizes``, ``leaves``,
+``train``, ``step_flops`` (a step's model FLOPs by ``flops.py``'s rules)
+and ``TINY`` (the configuration keys a CPU test sets to shrink a cell).
 """
 from __future__ import annotations
 
@@ -20,8 +24,13 @@ from typing import Dict, List
 
 import torch
 
+from portbench import flops
+
 FP8_FWD = torch.float8_e4m3fn
 FP8_BWD = torch.float8_e5m2
+#: the widths and depth a CPU test runs a cell of this family at
+TINY = dict(hidden_size=64, num_attention_heads=4, num_key_value_heads=4, head_dim=16,
+            intermediate_size=128, num_hidden_layers=2, vocab_size=256)
 
 
 def sizes(cfg: dict) -> dict:
@@ -56,6 +65,20 @@ def leaves(cfg: dict) -> List[tuple]:
         ("layers.0.ff.w_up", (L, d, f), 0.02),
         ("layers.0.ff.w_down", (L, f, d), out_scale),
     ]
+
+
+def matmul_params(z: dict) -> int:
+    """Parameters that enter a matmul: the layers' projections and the head."""
+    d, H, Hkv, hd, f, L, V = (z[k] for k in ("d", "H", "Hkv", "hd", "f", "L", "V"))
+    per_layer = d * H * hd + 2 * d * Hkv * hd + H * hd * d + 3 * d * f
+    return L * per_layer + V * d
+
+
+def step_flops(cfg: dict, rows: int, seq: int) -> float:
+    """Model FLOPs of one training step over ``rows`` rows of ``seq`` tokens."""
+    z = sizes(cfg)
+    attn_fwd = 4.0 * flops.pairs(seq, z["causal"]) * z["H"] * z["hd"] * rows * z["L"]
+    return flops.model_flops(matmul_params(z), rows * seq) + 3.0 * attn_fwd
 
 
 def stacked(name: str) -> bool:

@@ -86,7 +86,8 @@ def main() -> int:
     harness.log(json.dumps({"window": w, "setup_s": out["setup_s"], "build_s": out["build_s"],
                             "probe_step_s": out["probe_step_s"],
                             "reference_s": out["reference_s"], "detail": out["detail"],
-                            "launches": out.get("launches"), "syncs": out["syncs"],
+                            "launches": out.get("launches"),
+                            "expected_launches": out["expected_launches"], "syncs": out["syncs"],
                             "store_peak_bytes": out["store"]["peak_bytes"],
                             "step_starts_s": out["step_starts_s"]}))
     for k, c in checks.items():

@@ -13,7 +13,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 RUN_TINY = """
 import sys, time
 from portbench.test_portbench_reference import tiny_cell, tiny_run
-tiny_run(tiny_cell("phi3-train-s2d2"))
+tiny_run(tiny_cell("phi3-train-s2d2-b4"))
 import portbench.devtrace, portbench.faults, portbench.prove
 print(",".join(sorted({m.split(".")[0] for m in sys.modules})))
 """
@@ -51,7 +51,7 @@ def test_the_reference_loads_nothing_of_the_program():
 def _run_py(root, cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, str(root / "portbench" / "run.py"), "--workload",
-                           "phi3-train-s2d2", "--seed", str(2**31 + 5), "--seconds", "1",
+                           "phi3-train-s2d2-b4", "--seed", str(2**31 + 5), "--seconds", "1",
                            "--trace", "0"], capture_output=True, text=True, cwd=cwd, env=env,
                           timeout=300)
 

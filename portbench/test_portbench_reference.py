@@ -15,8 +15,6 @@ from portbench.reference import dense_transformer as R
 
 ROOT = Path(__file__).resolve().parent.parent
 CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
-TINY = dict(hidden_size=64, num_attention_heads=4, num_key_value_heads=4, head_dim=16,
-            intermediate_size=128, num_hidden_layers=2, vocab_size=256)
 SEED = 2**31 + 77
 
 
@@ -29,10 +27,13 @@ def _one_thread():
 
 
 def tiny_cell(name: str, **config) -> dict:
-    """The cell at a size the CPU runs in seconds: its widths cut, its
-    sequence 16 tokens; plan, steps, optimizer and limits as they are."""
+    """The cell at a size the CPU runs in seconds: its widths cut to its
+    family's ``TINY`` (``config`` set over them), its sequence 16 tokens;
+    plan, steps, optimizer and limits as they are."""
     cell = copy.deepcopy(harness.load_cell(name))
-    cell["config"].update(TINY, **config)
+    cell["config"].update(config)
+    ref, _ = harness.family(cell["config"])
+    cell["config"].update(ref.TINY, **config)
     cell["traffic"].update(seq=16, reference_rows=1)
     return cell
 
@@ -55,7 +56,7 @@ def test_reference_matches_the_ports_plain_path(config):
     port's ``registry.loss_fn`` under autograd."""
     from repro_torch.models import registry
 
-    cell = tiny_cell({"phi3-mini-3.8b-l4": "phi3-train-s2d2",
+    cell = tiny_cell({"phi3-mini-3.8b-l4": "phi3-train-s2d2-b4",
                       "bert-large": "bert-train-s2d2"}[config], param_dtype="float32")
     cfg = cell["config"]
     _, adapter = harness.family(cfg)
@@ -91,12 +92,13 @@ def test_control_is_not_correct(name):
     """The reference computed in fp8 in the program's place fails a limit."""
     cell = tiny_cell(name)
     cfg, tr = cell["config"], cell["traffic"]
+    ref, _ = harness.family(cfg)
     rows = tr["replicas"] * tr["micro_batches"] * tr["micro_batch"]
     tokens = [data.token_batch(tr, cfg["vocab_size"], rows, seed=SEED, step=k, device="cpu")
               for k in range(harness.CHECKED_STEPS)]
-    weights = data.make_weights(R.leaves(cfg), SEED, "cpu")
+    weights = data.make_weights(ref.leaves(cfg), SEED, "cpu")
     kw = dict(rows_per_block=tr["reference_rows"])
-    ref = R.train(cfg, weights, tokens, tr["optimizer"], **kw)
-    ctrl = R.train(cfg, weights, tokens, tr["optimizer"], precision="fp8", **kw)
-    numbers, _ = compare.readings(ctrl, ref)
+    exact = ref.train(cfg, weights, tokens, tr["optimizer"], **kw)
+    ctrl = ref.train(cfg, weights, tokens, tr["optimizer"], precision="fp8", **kw)
+    numbers, _ = compare.readings(ctrl, exact)
     assert not cpu_verdict(numbers, cell, ("loss_gap", "grad_gap", "change_gap")), numbers
